@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights and train states from the JAX package into the port.
 
 The JAX package's params are a dict pytree with stacked ``[L, ...]``
 block leaves and weights laid out ``(in, out)`` for ``x @ W``.  The port
@@ -8,12 +8,13 @@ conversion is a leaf-by-leaf copy with no transpose.
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch.models.transformer import named_leaves, train_state
 
 
 def _leaf(a: Any, device: torch.device) -> torch.Tensor:
@@ -45,3 +46,31 @@ def from_jax_params(np_params: Mapping[str, Any], cfg, device: DeviceLike = None
             raise ValueError(f"blocks/{name} has {leaf.shape[0]} layers, "
                              f"config says {cfg.n_layers}")
     return params
+
+
+def from_jax_train_state(np_state: Mapping[str, Any], cfg, optimizer,
+                         device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's train state from the JAX package's, as numpy arrays
+    (``jax.tree.map(np.asarray, state)`` of ``gpt2.init_state`` or of a
+    state ``make_train_step`` returned), so a run started in JAX goes on
+    in the port.  ``optimizer`` is the port's ``make_optimizer`` with the
+    same settings as the JAX one.
+
+    The optax state of that recipe is ``(EmptyState, (ScaleByAdamState(
+    count, mu, nu), MaskedState(EmptyState), ScaleByScheduleState(count)))``
+    (clip, then adamw); it maps to the port as mu -> ``exp_avg``, nu ->
+    ``exp_avg_sq``, the Adam count -> AdamW's ``step``, the schedule
+    count -> the LR schedule's position, and ``step`` -> ``step``."""
+    dev = resolve_device(device)
+    params = from_jax_params(np_state["params"], cfg, dev)
+    adam, _, schedule = np_state["opt_state"][1]
+    count, mu, nu = adam[0], adam[1], adam[2]
+    state = train_state(params, optimizer, int(schedule[0]))
+    state["step"] = int(np_state["step"])
+    mu = dict(named_leaves(from_jax_params(mu, cfg, dev)))
+    nu = dict(named_leaves(from_jax_params(nu, cfg, dev)))
+    adamw = state["opt_state"]["adamw"]
+    for name, p in named_leaves(params):
+        adamw.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                          "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+    return state

@@ -1,10 +1,13 @@
 """Llama-family decoder LM: RMSNorm, RoPE, SwiGLU and grouped-query
-attention, forward for inference.
+attention, for inference and training.
 
 Counterpart of ``ray_tpu/models/llama.py``.  GQA shares each KV head
 across ``n_heads // n_kv_heads`` query heads: query head ``h`` reads KV
 head ``h // q_per_kv`` (``repeat_interleave`` on the head axis, as
-``jnp.repeat`` does in the reference).
+``jnp.repeat`` does in the reference; its backward sums the repeated
+heads' dK/dV into each KV head, as ``jnp.repeat``'s VJP does).  Training
+uses GPT-2's AdamW recipe and the shared train step; each layer runs
+under ``transformer.remat``.
 """
 
 from __future__ import annotations
@@ -16,9 +19,19 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.models.transformer import layer
+from ray_tpu_torch.models.gpt2 import make_optimizer, num_params  # same recipe
+from ray_tpu_torch.models.transformer import (
+    layer,
+    make_train_step_from_loss,
+    remat,
+    split_batch,
+    train_state,
+)
 from ray_tpu_torch.ops.attention import attention
-from ray_tpu_torch.ops.layers import rmsnorm, rope
+from ray_tpu_torch.ops.layers import cross_entropy_loss, rmsnorm, rope
+
+__all__ = ["LlamaConfig", "init", "apply", "loss_fn", "make_train_step",
+           "init_state", "num_params", "make_optimizer"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +46,8 @@ class LlamaConfig:
     rope_base: float = 10_000.0
     rms_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    remat_policy: str = "dots"  # as in TransformerConfig
 
     @property
     def head_dim(self) -> int:
@@ -53,7 +68,7 @@ class LlamaConfig:
     @staticmethod
     def tiny(**kw) -> "LlamaConfig":
         base = dict(vocab_size=512, n_layers=2, n_heads=4, n_kv_heads=2,
-                    d_model=64, d_ff=128, max_seq_len=128)
+                    d_model=64, d_ff=128, max_seq_len=128, remat=False)
         base.update(kw)
         return LlamaConfig(**base)
 
@@ -117,7 +132,27 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig
     B, T = tokens.shape
     x = params["tok_emb"][tokens].to(cfg.dtype)
     positions = torch.arange(T, device=tokens.device)
+    body = remat(lambda h, p: _block(h, p, cfg, positions), cfg)
     for l in range(cfg.n_layers):
-        x = _block(x, layer(params["blocks"], l), cfg, positions)
+        x = body(x, layer(params["blocks"], l))
     x = rmsnorm(x, params["final_norm"].to(cfg.dtype), eps=cfg.rms_eps)
     return (x @ params["tok_emb"].T.to(cfg.dtype)).float()
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: LlamaConfig
+            ) -> torch.Tensor:
+    """Next-token cross entropy; batch as ``gpt2.loss_fn`` takes it."""
+    inputs, targets = split_batch(batch)
+    return cross_entropy_loss(apply(params, inputs, cfg), targets)
+
+
+def make_train_step(cfg: LlamaConfig, optimizer, mesh: Optional[object] = None):
+    """``train_step(state, batch) -> (state, metrics)``, in place."""
+    return make_train_step_from_loss(loss_fn, cfg, optimizer, mesh)
+
+
+def init_state(cfg: LlamaConfig, generator: Optional[torch.Generator], optimizer,
+               *, device: DeviceLike = None) -> Dict[str, Any]:
+    """The train state at step 0 over f32 params from :func:`init`, on the
+    card when ``device`` is None."""
+    return train_state(init(cfg, generator, device=device), optimizer)

@@ -1,22 +1,26 @@
-"""Shared transformer core: config, stacked block params, dense forward.
+"""Shared transformer core: config, stacked block params, dense forward,
+remat and the train step.
 
 Counterpart of ``ray_tpu/models/transformer.py``.  Block params keep the
 JAX package's layout: a dict of tensors, each with a leading ``[L, ...]``
 layer axis, and weights stored ``(in, out)`` so a layer computes
 ``x @ W``.  The forward is a Python loop over that axis (the JAX package
-scans it).  This slice ports the dense inference forward: a config with
-experts (MoE) or a mesh (pipeline or sequence parallel) raises
-``NotImplementedError``; remat does not apply to inference, and the
-post-LN order (BERT) comes with the BERT slice.
+scans it); when gradients are being recorded and ``cfg.remat`` is set,
+each layer runs under ``torch.utils.checkpoint`` (:func:`remat`).  A config
+with experts (MoE) or a mesh (pipeline or sequence parallel) raises
+``NotImplementedError``, and the post-LN order (BERT) comes with the BERT
+slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import attention
@@ -33,6 +37,10 @@ class TransformerConfig:
     max_seq_len: int = 1024
     causal: bool = True
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    # "dots": save the weight products, recompute the rest; "full":
+    # recompute everything (see remat())
+    remat_policy: str = "dots"
     n_experts: int = 0  # >0 (Switch MoE) is not ported yet
 
     @property
@@ -77,6 +85,16 @@ def _check_dense(cfg: TransformerConfig, mesh) -> None:
             "pipeline- and sequence-parallel forwards are not ported yet")
 
 
+def named_leaves(tree: Dict[str, Any], prefix: str = ""):
+    """``(path, tensor)`` for every leaf of a params tree, paths joined
+    with ``/`` (``"blocks/wqkv"``), in the tree's own order."""
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            yield from named_leaves(v, f"{prefix}{name}/")
+        else:
+            yield f"{prefix}{name}", v
+
+
 def layer(blocks: Dict[str, torch.Tensor], l: int) -> Dict[str, torch.Tensor]:
     """Layer ``l``'s params: views into the stacked leaves."""
     return {k: v[l] for k, v in blocks.items()}
@@ -109,13 +127,90 @@ def apply_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+# The counterpart of jax.checkpoint_policies.dots_with_no_batch_dims_saveable:
+# the products of activations with weight matrices (x @ W folds to mm) are
+# saved; batched products (attention's) and everything elementwise are
+# recomputed.  The flash kernels are launched through ctypes, out of the
+# dispatcher's sight, so the FlashAttention forward is recomputed too, as a
+# pallas_call is under the JAX policy.
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def remat(fn: Callable, cfg: Any) -> Callable:
+    """``fn`` run under ``torch.utils.checkpoint`` per ``cfg.remat`` and
+    ``cfg.remat_policy`` ("dots" or "full"; any other policy raises
+    ``ValueError``, as the JAX package does).  Only while gradients are
+    recorded: an inference forward runs ``fn`` as it is."""
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy == "dots":
+        kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts, _DOTS)}
+    elif cfg.remat_policy == "full":
+        kw = {}
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} (use 'dots' or 'full')")
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
+
+
 def apply_stack(x: torch.Tensor, blocks: Dict[str, torch.Tensor],
                 cfg: TransformerConfig, mesh: Optional[object] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the stacked layers in order; returns ``(x, aux)``."""
+    """Run the stacked layers in order, each under :func:`remat`; returns
+    ``(x, aux)``."""
     _check_dense(cfg, mesh)
+    body = remat(lambda h, p: apply_block(h, p, cfg), cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(cfg.n_layers):
-        x, a = apply_block(x, layer(blocks, l), cfg)
+        x, a = body(x, layer(blocks, l))
         aux = aux + a
     return x, aux
+
+
+def split_batch(batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(inputs, targets)`` of a next-token batch: ``{"tokens": [B,
+    T+1]}`` or ``{"inputs": [B, T], "targets": [B, T]}``."""
+    if "tokens" in batch:
+        return batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    return batch["inputs"], batch["targets"]
+
+
+def make_train_step_from_loss(loss_fn: Callable, cfg: Any, optimizer,
+                              mesh: Optional[object] = None) -> Callable:
+    """The train step shared by the model families: the loss
+    ``loss_fn(params, batch, cfg)`` and its gradients by autograd, then
+    ``optimizer.update``.  Returns ``train_step(state, batch) -> (state,
+    metrics)``.
+
+    Unlike the JAX package's pure step, it updates ``state`` in place: the
+    param tensors and the optimizer's moments are written over (no second
+    copy of either), ``state["step"]`` is advanced, and the same dict is
+    returned.  ``metrics["loss"]`` is a detached device tensor, so a step
+    does not wait for the card."""
+    if mesh is not None:
+        raise NotImplementedError("sharded train steps are not ported yet")
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        opt_state = state["opt_state"]
+        optimizer.zero_grad(opt_state)
+        loss = loss_fn(state["params"], batch, cfg)
+        loss.backward()
+        optimizer.update(opt_state)
+        state["step"] += 1
+        return state, {"loss": loss.detach(), "step": state["step"]}
+
+    return train_step
+
+
+def train_state(params: Dict[str, Any], optimizer, step: int = 0) -> Dict[str, Any]:
+    """``{"params", "opt_state", "step"}`` over ``params``: each leaf made
+    to require grad, and ``optimizer.init`` over them with its schedule at
+    ``step``."""
+    for _, t in named_leaves(params):
+        t.requires_grad_(True)
+    return {"params": params, "opt_state": optimizer.init(params, step), "step": step}

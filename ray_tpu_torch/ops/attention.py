@@ -3,10 +3,13 @@
 Counterpart of ``ray_tpu/ops/attention.py``.  :func:`attention` dispatches
 by the tensors' device:
 
-- a CUDA tensor goes to :func:`flash_attention`, which launches the
-  hand-written flash-attention forward kernel (``csrc/flash_fwd.cu``, the
-  port of the TPU kernel ``_flash_kernel``).  Flash attention is the
-  ordinary design for prefill on a GPU at every length.
+- a CUDA tensor goes to :func:`flash_attn`, the counterpart of
+  ``flash_attention_tpu``: the hand-written flash-attention forward kernel
+  (``csrc/flash_fwd.cu``, the port of ``_flash_kernel``) under a
+  ``torch.autograd.Function`` whose backward launches the two hand-written
+  backward kernels (``csrc/flash_bwd.cu``, the ports of ``_flash_dq_kernel``
+  and ``_flash_dkv_kernel``).  Flash attention is the ordinary design on a
+  GPU at every length, for prefill and for training.
 - a CPU tensor keeps the JAX package's rules, so the CPU tests compare
   like with like: :func:`causal_skip_attention` or :func:`full_attention`
   up to ``_MAX_MATERIALIZED_T``, :func:`blockwise_attention` above it.
@@ -192,27 +195,15 @@ def flash_attention(q, k, v, causal: bool = False,
 
     A CUDA tensor launches the kernel (bf16 or f32, D in 16/32/64/128; q,
     k and v may be strided views with a unit stride on D) or raises.  A CPU
-    tensor takes :func:`flash_attention_reference`.  This slice is forward
-    only: a CUDA call that needs a gradient raises."""
+    tensor takes :func:`flash_attention_reference`.  No gradient flows
+    through this function itself: :func:`flash_attn` is the differentiable
+    entry point."""
     _check_flash_args(q, k, v, causal)
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward only; the backward kernels "
-            "(_flash_dq_kernel, _flash_dkv_kernel) come with the training slice")
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention needs q, k and v on one CUDA device")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention takes float32 or bfloat16 q/k/v of one "
-                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _check_cuda_args("flash_attention", q, k, v)
     b, h, t_q, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention head dim {d} not in {_HEAD_DIMS}")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("flash_attention needs a unit stride on the head dim")
     lib = _flash_lib()
     out = torch.empty(b, h, t_q, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, t_q, dtype=torch.float32, device=q.device)
@@ -230,25 +221,215 @@ def flash_attention(q, k, v, causal: bool = False,
     return out, lse
 
 
+def _check_cuda_args(fn: str, *ts: torch.Tensor) -> None:
+    """What the CUDA kernels take: one CUDA device, one dtype of
+    ``_DTYPE_CODE``, a head dim of ``_HEAD_DIMS``, a unit stride on it."""
+    q = ts[0]
+    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
+        raise ValueError(f"{fn} needs its tensors on one CUDA device")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"{fn} takes float32 or bfloat16 tensors of one dtype, "
+                         f"got {[t.dtype for t in ts]}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{fn} head dim {q.shape[-1]} not in {_HEAD_DIMS}")
+    if any(t.stride(3) != 1 for t in ts):
+        raise ValueError(f"{fn} needs a unit stride on the head dim")
+
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
 def _flash_lib():
     lib = _build.load(KERNEL)
     if not lib.flash_fwd.argtypes:
-        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                  i64, i64, i64, i64, i64, i64, i64, i64, i64,
-                                  ctypes.c_float, i, i, p]
+        lib.flash_fwd.argtypes = [_P] * 5 + [_I] * 5 + [_I64] * 9 + [
+            ctypes.c_float, _I, _I, _P]
         lib.flash_fwd.restype = ctypes.c_int
     return lib
 
 
+# ---------------------------------------------------------------------------
+# flash-attention backward: the two hand-written kernels and their plain
+# versions
+# ---------------------------------------------------------------------------
+
+BWD_SOURCE = "flash_bwd"        # csrc/flash_bwd.cu, one library, two kernels
+DQ_KERNEL = "flash_bwd_dq"
+DKV_KERNEL = "flash_bwd_dkv"
+
+
+def _probs(q, k, lse, causal: bool, scale: float) -> torch.Tensor:
+    """P = exp(scale·QKᵀ − LSE) in f32 with materialized scores; masked
+    pairs at ``NEG_INF`` give P = 0, as in the kernels' contract."""
+    s = _scores(q, k, scale)
+    if causal:
+        s = torch.where(_causal_mask(q.shape[-2], k.shape[-2], q.device), s, NEG_INF)
+    return torch.exp(s - lse[..., None])
+
+
+def _dscores(p, v, do, delta, scale: float) -> torch.Tensor:
+    """dS = P ∘ (dO·Vᵀ − Δ) · scale, in f32."""
+    dp = do.float() @ v.float().transpose(-1, -2)
+    return p * (dp - delta[..., None]) * scale
+
+
+def flash_dq_reference(q, k, v, do, lse, delta, causal: bool = False,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """The plain version of ``flash_bwd_dq``: dQ = Σ_k dS·K, with dS rounded
+    to K's dtype before the product (``_flash_dq_kernel``); dq in q's
+    dtype.  ``lse`` and ``delta`` are f32 ``[B, H, Tq]``."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    ds = _dscores(_probs(q, k, lse, causal, scale), v, do, delta, scale)
+    return (ds.to(k.dtype).float() @ k.float()).to(q.dtype)
+
+
+def flash_dkv_reference(q, k, v, do, lse, delta, causal: bool = False,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``flash_bwd_dkv``: dV = Σ_q Pᵀ·dO with P rounded
+    to dO's dtype, dK = Σ_q dSᵀ·Q with dS rounded to Q's dtype
+    (``_flash_dkv_kernel``); dk and dv in k's and v's dtypes."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    p = _probs(q, k, lse, causal, scale)
+    dv = p.to(do.dtype).float().transpose(-1, -2) @ do.float()
+    ds = _dscores(p, v, do, delta, scale)
+    dk = ds.to(q.dtype).float().transpose(-1, -2) @ q.float()
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_lib():
+    lib = _build.load(BWD_SOURCE)
+    if not lib.flash_bwd_dq.argtypes:
+        tail = [_I] * 5 + [_I64] * 12 + [ctypes.c_float, _I, _I, _P]
+        lib.flash_bwd_dq.argtypes = [_P] * 7 + tail
+        lib.flash_bwd_dkv.argtypes = [_P] * 8 + tail
+        lib.flash_bwd_dq.restype = lib.flash_bwd_dkv.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_args(q, k, v, do, lse, delta, causal: bool):
+    """Checks shared by the two backward kernels.  Returns the 12 element
+    strides (batch, head, time of q, k, v, dO) the kernels take, or None
+    for CPU tensors (the plain versions)."""
+    _check_flash_args(q, k, v, causal)
+    if do.shape != q.shape:
+        raise ValueError(f"dO {tuple(do.shape)} does not match q {tuple(q.shape)}")
+    if lse.shape != q.shape[:3] or delta.shape != q.shape[:3]:
+        raise ValueError("lse and delta must be [B, H, Tq]")
+    if q.device.type == "cpu":
+        return None
+    _check_cuda_args("flash attention backward", q, k, v, do)
+    for t in (lse, delta):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError("lse and delta must be contiguous float32 on q's device")
+    return [s for t in (q, k, v, do) for s in t.stride()[:3]]
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """dQ of flash attention from the forward's ``lse`` and Δ =
+    rowsum(dO∘O), the contract of ``_flash_dq_kernel``.  A CUDA tensor
+    launches the kernel or raises; a CPU tensor takes
+    :func:`flash_dq_reference`."""
+    strides = _bwd_args(q, k, v, do, lse, delta, causal)
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if strides is None:
+        return flash_dq_reference(q, k, v, do, lse, delta, causal, scale)
+    b, h, t_q, d = q.shape
+    dq = torch.empty(b, h, t_q, d, dtype=q.dtype, device=q.device)
+    err = _bwd_lib().flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, h, t_q, k.shape[2], d, *strides,
+        scale, int(causal), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{DQ_KERNEL} launch failed: cudaError {err}")
+    _build.count_launch(DQ_KERNEL)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
+                  scale: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) of flash attention, the contract of ``_flash_dkv_kernel``.
+    A CUDA tensor launches the kernel or raises; a CPU tensor takes
+    :func:`flash_dkv_reference`."""
+    strides = _bwd_args(q, k, v, do, lse, delta, causal)
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if strides is None:
+        return flash_dkv_reference(q, k, v, do, lse, delta, causal, scale)
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    dk = torch.empty(b, h, t_k, d, dtype=k.dtype, device=k.device)
+    dv = torch.empty(b, h, t_k, d, dtype=v.dtype, device=v.device)
+    err = _bwd_lib().flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t_q, t_k, d, *strides,
+        scale, int(causal), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{DKV_KERNEL} launch failed: cudaError {err}")
+    _build.count_launch(DKV_KERNEL)
+    return dk, dv
+
+
+def flash_attention_backward(q, k, v, out, lse, do, causal: bool = False,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of flash attention, the contract of ``_flash_backward``:
+    Δ = rowsum(dO∘O) in f32 (one torch expression, as the JAX package
+    leaves it to XLA), then dQ, then dK/dV.  A dO without a unit stride on
+    D (an expanded gradient, say) is copied first; a strided view with one
+    is taken as it is."""
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    delta = (do.float() * out.float()).sum(-1)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its own backward, the counterpart of the
+    ``custom_vjp`` of ``flash_attention_tpu``: the forward saves (q, k, v,
+    out, lse) and the backward rebuilds P from the LSE, never from a saved
+    score matrix.  Saved q, k and v stay the caller's (possibly strided)
+    views.  On CUDA tensors both directions launch the hand-written
+    kernels; on CPU tensors they take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = flash_attention(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do,
+                                              ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attn(q, k, v, causal: bool = False,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable flash attention, ``[B, H, T, D]`` q/k/v -> out in q's
+    dtype: the counterpart of ``flash_attention_tpu``.  Both the forward
+    and the backward run the hand-written kernels on CUDA tensors."""
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    return FlashAttention.apply(q, k, v, causal, scale)
+
+
 def attention(q, k, v, *, causal: bool = False,
               scale: Optional[float] = None) -> torch.Tensor:
-    """The models' single entry point.  CUDA tensors take the flash
-    kernel; CPU tensors take the JAX package's dispatch (materialized
-    scores up to ``_MAX_MATERIALIZED_T``, causal-skip for long square
-    block-divisible causal inputs, blockwise beyond)."""
+    """The models' single entry point.  CUDA tensors take
+    :func:`flash_attn` (the flash kernels, forward and backward); CPU
+    tensors take the JAX package's dispatch (materialized scores up to
+    ``_MAX_MATERIALIZED_T``, causal-skip for long square block-divisible
+    causal inputs, blockwise beyond), differentiated by autograd."""
     if q.device.type == "cuda":
-        return flash_attention(q, k, v, causal, scale)[0]
+        return flash_attn(q, k, v, causal, scale)
     t_q, t_k = q.shape[-2], k.shape[-2]
     if t_q <= _MAX_MATERIALIZED_T and t_k <= _MAX_MATERIALIZED_T:
         if causal and t_q == t_k and t_q % 256 == 0 and t_q >= 512:
