@@ -8,16 +8,21 @@ Run from the root of the repository, with no arguments:
 Phases, one JSON line each (``kernel_case`` lines too, one per shape of
 the backward kernels):
 
-1. ``device``: the card, its power limit, and the kernels' build time
-   (``nvcc``, one process per source, all started together).
+1. ``device``: the card, its power limit, the kernels' build time
+   (``nvcc``, one process per source, all started together), and each
+   kernel's count of tensor-core instructions (``HGMMA``, ``HMMA``) in
+   ``cuobjdump -sass`` of the built libraries.
 2. ``kernels``: every hand-written kernel against its plain PyTorch
    version on the card, within stated tolerances: the forward at the
-   serving shapes, at small f32 shapes and at both training paths' shapes
-   and layouts (GPT-2 B 6 x T 1024; Llama's GQA, B 2 x T 2048), the two
-   backward kernels at those training shapes and at small f32,
-   rectangular and ragged shapes; each
-   kernel's time beside the plain version's, one library call's and the
-   bound the card sets, at the shapes the main paths give it.
+   serving shapes, at small f32 shapes, at the tensor-core design's
+   edges (bf16 at D 64 and 128: ragged 97 x 131, causal 128 x 256 with
+   the diagonal at the bottom right, one query row, the fused-projection
+   layout) and at both training paths' shapes and layouts (GPT-2 B 6 x
+   T 1024; Llama's GQA, B 2 x T 2048), the two backward kernels at those
+   training shapes and edges and at small f32, rectangular and ragged
+   shapes (dQ bit-identical across two calls); each kernel's time beside
+   the plain version's, one library call's and the bound the card sets,
+   at the shapes the main paths give it.
 3. ``parity``: tiny GPT-2 and Llama in f32 (and GPT-2 at full width, two
    layers) with the same weights on the CPU and on the card: the prefill
    logits agree and the greedy token streams are equal.
@@ -41,15 +46,21 @@ the backward kernels):
    and idle share, the three kernels' share of the step, top kernels.
 10. ``train_llama``: Llama 125M, B 2 x T 2048, 2 warm-up and 5 timed steps.
 
-Then a ``{"kernels": [...]}`` line (launches summed over the serving and
-training runs, and per run), the card's name and power limit as ``nvidia-smi``
-prints them, and last ``{"ok": true, "device": {...}}``.  Exits non-zero,
+Every bf16 launch of ``flash_fwd`` and ``flash_bwd_dq`` on the serving
+and training paths has to run the tensor-core design (their ``_tc``
+launch counts equal their totals; ``train_profile`` finds only the
+``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
+summed over the serving and training runs, and per run), the card's name
+and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
+"device": {...}}``.  Exits non-zero,
 printing no result, when there is no CUDA device or any phase fails.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
 import threading
@@ -155,15 +166,44 @@ def pct(vals, q: float) -> float:
 # phases
 # ---------------------------------------------------------------------------
 
+def sass_mma_counts(lib_path) -> dict:
+    """``{kernel<dtype,D>: {"HGMMA": n, "HMMA": m}}``: the tensor-core
+    instructions in each kernel of a built library, from ``cuobjdump
+    -sass`` (next to ``nvcc``)."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?\d+(flash_\w+?_kernel(?:_tc)?)I(\S*)", line)
+        if m:  # template args: "ILi64E" (bf16 only), "I13__nv_bfloat16Li32E", "IfLi128E"
+            dtype = "f32" if m.group(2).startswith("f") else "bf16"
+            d = re.search(r"Li(\d+)E", m.group(2)).group(1)
+            fn = f"{m.group(1)}<{dtype},{d}>"
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn:
+            for op in ("HGMMA", "HMMA"):
+                counts[fn][op] += bool(re.search(rf"\b{op}\.", line))
+    return counts
+
+
 def phase_device(build):
     t0 = time.perf_counter()
     builds = build.build([attn.KERNEL, attn.BWD_SOURCE], ptxas_verbose=True)
     for name, b in builds.items():
         print(f"--- nvcc {name}.cu ---\n{b['log']}", file=sys.stderr, flush=True)
+    build_wall_s = time.perf_counter() - t0
+    sass = {}
+    for name in builds:
+        sass.update(sass_mma_counts(build.library_path(name)))
+    for kern in ("flash_fwd_kernel_tc", "flash_bwd_dq_kernel_tc"):
+        for d in attn._TC_HEAD_DIMS:
+            check(sass.get(f"{kern}<bf16,{d}>", {}).get("HGMMA", 0) > 0,
+                  f"{kern}<{d}> has no HGMMA instruction: {sass}")
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=nvidia_smi(), torch=torch.__version__, cuda=torch.version.cuda,
-         build_s={n: b["seconds"] for n, b in builds.items()},
-         build_wall_s=time.perf_counter() - t0)
+         build_s={n: b["seconds"] for n, b in builds.items()}, build_wall_s=build_wall_s,
+         sass_tensor_core_instructions=sass)
 
 
 def _qkv(b, h, tq, tk, d, dtype, seed):
@@ -197,6 +237,11 @@ def _model_qkv(b, h, kv, t, d, seed):
     return q, k, v, mk(h).transpose(1, 2)
 
 
+# the design each kernel runs at the main paths' bf16, D 64 inputs
+DESIGN = {"flash_fwd": "flash_fwd_kernel_tc: wgmma tensor cores, cp.async K/V ring",
+          "flash_bwd_dq": "flash_bwd_dq_kernel_tc: wgmma tensor cores, cp.async K/V ring",
+          "flash_bwd_dkv": "flash_bwd_dkv_kernel: f32 on the CUDA cores"}
+
 # per kernel: [B,H,Tq,D] tensors moved, [B,H,Tk,D] tensors moved, f32 [B,H,Tq]
 # rows moved, products over the visible pairs
 _FLASH_WORK = {
@@ -229,6 +274,14 @@ def flash_bound_ms(kernel, b, h, tq, tk, d, causal, dtype=torch.bfloat16):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# bf16 cases at the edges of the tensor-core design (D 64 and 128): ragged
+# tiles, the causal diagonal at the bottom right with Tq < Tk, one query
+# row, and (a 9th field) the fused projection's strided layout
+TC_EDGE_CASES = [(2, 3, 97, 131, 64, True, torch.bfloat16), (2, 3, 97, 131, 128, True, torch.bfloat16),
+                 (2, 3, 128, 256, 64, True, torch.bfloat16), (2, 3, 1, 77, 64, True, torch.bfloat16),
+                 (2, 4, 150, 150, 64, True, torch.bfloat16, "fused")]
+
+
 def phase_kernels():
     """flash_fwd against flash_attention_reference, out and lse.
     Tolerances: f32 |err| <= 1e-5 + 1e-5|ref| (only the summation order
@@ -242,22 +295,31 @@ def phase_kernels():
     cases += [(2, 4, 128, 128, d, c, torch.float32) for d in (16, 64) for c in (False, True)]
     cases += [(2, 4, 128, 256, 64, c, torch.float32) for c in (False, True)]
     cases += [(2, 3, 97, 97, 32, True, torch.float32), (2, 3, 97, 131, 128, False, torch.bfloat16)]
+    cases += TC_EDGE_CASES
     results = []
-    for i, (b, h, tq, tk, d, causal, dtype) in enumerate(cases):
-        q, k, v = _qkv(b, h, tq, tk, d, dtype, seed=i)
+    for i, (b, h, tq, tk, d, causal, dtype, *fused) in enumerate(cases):
+        if fused:  # head-split views of one fused bf16 projection (tq == tk)
+            q, k, v, _ = _model_qkv(b, h, h, tq, d, seed=i)
+        else:
+            q, k, v = _qkv(b, h, tq, tk, d, dtype, seed=i)
+        build.reset_launches()
         out, lse = attn.flash_attention(q, k, v, causal)
         torch.cuda.synchronize()
+        tc = int(attn.uses_tensor_cores(dtype, d))
+        launched = (build.launches.get(attn.KERNEL, 0), build.launches.get(attn.FWD_TC, 0))
+        check(launched == (1, tc), f"flash_fwd launches (all, tensor-core) {launched}, want (1, {tc})")
         ref_out, ref_lse = attn.flash_attention_reference(q, k, v, causal)
         tol = 1e-5 if dtype == torch.float32 else 1e-2
         diff = (out.float() - ref_out.float()).abs()
         err_out = diff.max().item()
         excess = (diff - (tol + tol * ref_out.float().abs())).max().item()
         err_lse = (lse - ref_lse).abs().max().item()
-        shape = f"{b}x{h}x{tq}x{tk}x{d}"
+        shape = f"{b}x{h}x{tq}x{tk}x{d}" + (", fused qkv" if fused else "")
         check(bool(torch.isfinite(out).all()), f"flash_fwd non-finite output at {shape}")
         check(excess <= 0, f"flash_fwd out disagrees at {shape} {dtype}: max err {err_out}")
         check(err_lse <= 1e-4, f"flash_fwd lse disagrees at {shape} {dtype}: max err {err_lse}")
         results.append({"shape": shape, "causal": causal, "dtype": str(dtype).split(".")[-1],
+                        "design": "tensor cores" if tc else "CUDA cores",
                         "max_abs_err_out": err_out, "max_abs_err_lse": err_lse})
 
     # the serving shape: one admission of 16 slots x 12 heads x 128 tokens
@@ -274,7 +336,7 @@ def phase_kernels():
     bound_ms, bound_by = flash_bound_ms(attn.KERNEL, b, h, t, t, d, True)
     main = {"name": attn.KERNEL, "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-            "replaces": "ray_tpu/ops/attention.py:161",
+            "replaces": "ray_tpu/ops/attention.py:161", "design": DESIGN[attn.KERNEL],
             "max_abs_err": main_err, "ms": timed["kernel"], "plain_ms": timed["plain"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": timed["library"]}
     # the training paths' shapes and layouts, where the forward runs 24
@@ -349,6 +411,7 @@ def phase_bwd_kernels():
     cases += [(2, 4, 128, 256, 64, c, torch.float32, None) for c in (False, True)]
     cases += [(2, 3, 97, 97, 32, True, torch.float32, None),
               (2, 3, 97, 131, 128, False, torch.bfloat16, None)]
+    cases += [(*c[:7], c[1] if len(c) > 7 else None) for c in TC_EDGE_CASES]  # fused: KV = H
     rows = {}
     for i, case in enumerate(cases):
         b_, h_, tq, tk, d_, causal, dtype, kv_ = case
@@ -357,9 +420,13 @@ def phase_bwd_kernels():
         dq = attn.flash_bwd_dq(*args, causal)
         dk, dv = attn.flash_bwd_dkv(*args, causal)
         torch.cuda.synchronize()
-        launches = {n: build.launches.get(n, 0) for n in (attn.DQ_KERNEL, attn.DKV_KERNEL)}
-        check(launches == {attn.DQ_KERNEL: 1, attn.DKV_KERNEL: 1},
-              f"backward launches {launches}, want one of each")
+        launches = {n: build.launches.get(n, 0)
+                    for n in (attn.DQ_KERNEL, attn.DQ_TC, attn.DKV_KERNEL)}
+        want = {attn.DQ_KERNEL: 1, attn.DQ_TC: int(attn.uses_tensor_cores(dtype, d_)),
+                attn.DKV_KERNEL: 1}
+        check(launches == want, f"backward launches {launches}, want {want}")
+        check(torch.equal(dq, attn.flash_bwd_dq(*args, causal)),
+              f"flash_bwd_dq gave other bits on a second call at {case}")
         ref_dq = attn.flash_dq_reference(*args, causal)
         ref_dk, ref_dv = attn.flash_dkv_reference(*args, causal)
         tol = BWD_TOL[dtype]
@@ -376,14 +443,15 @@ def phase_bwd_kernels():
             (attn.DKV_KERNEL, lambda: attn.flash_bwd_dkv(*args, causal)),
             ("plain_dkv", lambda: attn.flash_dkv_reference(*args, causal)))}
         row = {"shape": shape, "causal": causal, "dtype": str(dtype).split(".")[-1],
-               "tolerance": f"{tol} + {tol}|ref|", "max_abs_err": errs, "launches": launches}
+               "tolerance": f"{tol} + {tol}|ref|", "max_abs_err": errs, "launches": launches,
+               "dq_bit_identical_on_a_second_call": True}
         for kern, plain, err in ((attn.DQ_KERNEL, "plain_dq", errs["dq"]),
                                  (attn.DKV_KERNEL, "plain_dkv", max(errs["dk"], errs["dv"]))):
             bound_ms, bound_by = flash_bound_ms(kern, b_, h_, tq, tk, d_, causal, dtype)
             row[kern] = {"kernel_ms": timed[kern], "plain_ms": timed[plain],
                          "bound_us": bound_ms * 1e3, "bound_by": bound_by}
             if main:
-                rows[kern] = {"name": kern, "route": "cuda",
+                rows[kern] = {"name": kern, "route": "cuda", "design": DESIGN[kern],
                               "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
                               "replaces": ("ray_tpu/ops/attention.py:250" if kern == attn.DQ_KERNEL
                                            else "ray_tpu/ops/attention.py:292"),
@@ -582,6 +650,9 @@ def train(family: str, cfg, batch_size: int, warmup: int, windows):
     want = {attn.KERNEL: (2 if cfg.remat else 1) * cfg.n_layers,  # remat recomputes it
             attn.DQ_KERNEL: cfg.n_layers, attn.DKV_KERNEL: cfg.n_layers}
     check(per_step == want, f"{family}: {per_step} launches per step, want {want}")
+    tc = {attn.FWD_TC: launches.get(attn.FWD_TC, 0), attn.DQ_TC: launches.get(attn.DQ_TC, 0)}
+    check(tc == {attn.FWD_TC: launches[attn.KERNEL], attn.DQ_TC: launches[attn.DQ_KERNEL]},
+          f"{family}: tensor-core launches {tc} of {launches}: every bf16 one should be")
     tokens = batch_size * cfg.max_seq_len
     tok_s = sorted(tokens / (ms / 1e3) for ms in ms_per_step)
     n_params = mod.num_params(state["params"])
@@ -646,10 +717,15 @@ def phase_train_profile(state, step, batch, ms_per_step):
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     flash = {}
     for kern in (attn.KERNEL, attn.DQ_KERNEL, attn.DKV_KERNEL):
-        hits = [(c, us) for n, (c, us) in by_name.items() if f"{kern}_kernel" in n]
-        flash[kern] = {"launches": sum(c for c, _ in hits),
-                       "device_ms": sum(us for _, us in hits) / 1e3}
+        hits = [(n, c, us) for n, (c, us) in by_name.items() if f"{kern}_kernel" in n]
+        flash[kern] = {"launches": sum(c for _, c, _ in hits),
+                       "tensor_core_launches": sum(c for n, c, _ in hits if f"{kern}_kernel_tc" in n),
+                       "device_ms": sum(us for _, _, us in hits) / 1e3}
         flash[kern]["share_of_step"] = flash[kern]["device_ms"] / wall_ms
+    for kern in (attn.KERNEL, attn.DQ_KERNEL):
+        check(flash[kern]["launches"] > 0
+              and flash[kern]["tensor_core_launches"] == flash[kern]["launches"],
+              f"train_profile: {kern} ran other kernels than the tensor-core design: {flash}")
     kinds = {}
     for n, (c, us) in by_name.items():
         kind = next((k for k, keys in _KINDS if any(key in n for key in keys)), "other")
@@ -712,6 +788,8 @@ def serve(family: str):
     check(flash > 0, f"{family}: the serving run launched no flash_fwd kernel")
     check(flash == cfg.n_layers * stats["prefills"],
           f"{family}: {flash} flash launches for {stats['prefills']} admissions")
+    check(launches.get(attn.FWD_TC, 0) == flash,
+          f"{family}: {launches.get(attn.FWD_TC, 0)} of {flash} prefill launches on the tensor cores")
     lats = [done_at[i] - t_start for i in range(N_REQUESTS)]
     ms = lambda s: None if s is None else s * 1e3
     row = {
@@ -721,13 +799,14 @@ def serve(family: str):
         "req_p50_ms": pct(lats, 0.5) * 1e3, "req_p99_ms": pct(lats, 0.99) * 1e3,
         "ttft_p50_ms": ms(perf["ttft"]["p50_s"]), "ttft_p99_ms": ms(perf["ttft"]["p99_s"]),
         "itl_p50_ms": ms(perf["itl"]["p50_s"]), "itl_p99_ms": ms(perf["itl"]["p99_s"]),
-        "peak_mem_bytes": peak, "flash_launches": flash, "admissions": stats["prefills"],
+        "peak_mem_bytes": peak, "flash_launches": flash,
+        "flash_launches_tensor_core": launches.get(attn.FWD_TC, 0), "admissions": stats["prefills"],
         "ticks": perf["ticks"], "decode_tick_baseline_ms": ms(perf["decode_tick_baseline_s"]),
         "interference_frac": perf["interference_frac"], **{k: v for k, v in SERVE.items()
                                                           if k != "prefill_buckets"},
     }
     emit(f"serve_{family}", **row)
-    return flash, params, cfg
+    return launches, params, cfg
 
 
 def phase_decode_profile(params, cfg, n_slots: int, max_len: int):
@@ -812,12 +891,12 @@ def main() -> int:
     bwd = phase_bwd_kernels()
     phase_parity()
     phase_train_parity()
-    serve_launches, params, cfg = serve("gpt2")
+    serve_gpt2, params, cfg = serve("gpt2")
     n_slots = SERVE["n_slots"] + 1
     max_len = SERVE["prefill_buckets"][-1] + NEW_TOKENS + SERVE["decode_chunk_steps"]
     phase_decode_profile(params, cfg, n_slots, max_len)
     del params
-    serve_llama_launches = serve("llama")[0]
+    serve_llama = serve("llama")[0]
 
     from ray_tpu_torch.models import gpt2, llama
     state, step, batch, train_launches, row = train(
@@ -828,15 +907,16 @@ def main() -> int:
     _, _, _, llama_launches, _ = train("llama", llama.LlamaConfig.llama_125m(), LLAMA_BATCH,
                                        LLAMA_WARMUP, LLAMA_WINDOWS)
 
-    fwd["launches_by_path"] = {"serve_gpt2": serve_launches,
-                               "serve_llama": serve_llama_launches,
-                               "train_gpt2": train_launches[attn.KERNEL],
-                               "train_llama": llama_launches[attn.KERNEL]}
-    fwd["launches"] = sum(fwd["launches_by_path"].values())
-    for kern, r in bwd.items():
-        r["launches_by_path"] = {"train_gpt2": train_launches[kern],
-                                 "train_llama": llama_launches[kern]}
+    runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama,
+            "train_gpt2": train_launches, "train_llama": llama_launches}
+    tc_counter = {attn.KERNEL: attn.FWD_TC, attn.DQ_KERNEL: attn.DQ_TC}
+    for r in (fwd, *bwd.values()):
+        kern = r["name"]
+        r["launches_by_path"] = {path: n.get(kern, 0) for path, n in runs.items()
+                                 if kern == attn.KERNEL or path.startswith("train")}
         r["launches"] = sum(r["launches_by_path"].values())
+        if kern in tc_counter:  # equal to launches: train() and serve() checked it
+            r["launches_tensor_core"] = sum(n.get(tc_counter[kern], 0) for n in runs.values())
     print(json.dumps({"kernels": [fwd, *bwd.values()]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` into ``ray_tpu_torch/_build/lib<name>_<hash>.so`` at first use,
-then loaded with ``ctypes``.  The hash covers the source and the flags,
-so an edited source builds anew and an unchanged one is reused.  Nothing
+then loaded with ``ctypes``.  The hash covers the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source or header builds
+anew and an unchanged one is reused.  Nothing
 is built or loaded when this module is imported: the CPU tests import
 every module on a host with no ``nvcc``.
 
@@ -55,9 +56,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source,
+    every header under ``csrc/`` (a source may include any of them) and
+    the flags, so an edit to any of them builds anew."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str], *, ptxas_verbose: bool = False

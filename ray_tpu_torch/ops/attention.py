@@ -9,7 +9,10 @@ by the tensors' device:
   ``torch.autograd.Function`` whose backward launches the two hand-written
   backward kernels (``csrc/flash_bwd.cu``, the ports of ``_flash_dq_kernel``
   and ``_flash_dkv_kernel``).  Flash attention is the ordinary design on a
-  GPU at every length, for prefill and for training.
+  GPU at every length, for prefill and for training.  The forward and dQ
+  kernels have two designs each, chosen by :func:`uses_tensor_cores` from
+  the dtype and head dim alone: bf16 at D 64 or 128 runs on the tensor
+  cores (wgmma), everything else on the CUDA cores in f32.
 - a CPU tensor keeps the JAX package's rules, so the CPU tests compare
   like with like: :func:`causal_skip_attention` or :func:`full_attention`
   up to ``_MAX_MATERIALIZED_T``, :func:`blockwise_attention` above it.
@@ -150,8 +153,47 @@ def causal_skip_attention(q, k, v, *, scale: Optional[float] = None,
 # ---------------------------------------------------------------------------
 
 KERNEL = "flash_fwd"
+FWD_TC = "flash_fwd_tc"         # the launches of KERNEL that ran the tensor-core design
 _HEAD_DIMS = (16, 32, 64, 128)
+_TC_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def uses_tensor_cores(dtype: torch.dtype, d: int) -> bool:
+    """Which design ``flash_fwd`` and ``flash_bwd_dq`` launch, by dtype and
+    head dim only (``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` apply the
+    same rule): bf16 at D 64 or 128 takes the tensor-core kernels (wgmma on
+    bf16 tiles in shared memory, f32 accumulation); f32 at any D and bf16 at
+    D 16 or 32 take the CUDA-core kernels (f32 arithmetic; TF32 would round
+    f32 inputs to 10 mantissa bits).  ``flash_bwd_dkv`` has the CUDA-core
+    design only."""
+    return dtype == torch.bfloat16 and d in _TC_HEAD_DIMS
+
+
+def tensor_core_misalignment(data_ptr: int, sizes, strides, itemsize: int = 2
+                             ) -> Optional[str]:
+    """Why a ``[B, H, T, D]`` operand cannot go to the tensor-core kernels,
+    or None when it can.  They copy 16-byte chunks of each row with
+    ``cp.async``, so every row has to start on a 16-byte boundary: the base
+    pointer, and the batch, head and time strides (in elements, scaled by
+    ``itemsize``) of every dim longer than 1 (a size-1 dim's stride is never
+    multiplied by a nonzero index)."""
+    if data_ptr % 16:
+        return f"its base address is {data_ptr % 16} bytes past a 16-byte boundary"
+    for name, size, stride in zip(("batch", "head", "time"), sizes[:3], strides[:3]):
+        if size > 1 and (stride * itemsize) % 16:
+            return f"its {name} stride is {stride * itemsize} bytes, not a multiple of 16"
+    return None
+
+
+def _check_tensor_core_rows(fn: str, **ts: torch.Tensor) -> None:
+    """Raises ``ValueError`` for an operand the tensor-core design cannot
+    take; it never copies it or reroutes it to the other design."""
+    for name, t in ts.items():
+        why = tensor_core_misalignment(t.data_ptr(), t.shape, t.stride(), t.element_size())
+        if why is not None:
+            raise ValueError(f"{fn}: bf16 {name} with head dim {t.shape[-1]} runs on the "
+                             f"tensor-core kernel, which needs 16-byte aligned rows, but {why}")
 
 
 def flash_attention_reference(q, k, v, causal: bool = False,
@@ -194,15 +236,22 @@ def flash_attention(q, k, v, causal: bool = False,
     for any ``t_q`` and ``t_k``.
 
     A CUDA tensor launches the kernel (bf16 or f32, D in 16/32/64/128; q,
-    k and v may be strided views with a unit stride on D) or raises.  A CPU
-    tensor takes :func:`flash_attention_reference`.  No gradient flows
-    through this function itself: :func:`flash_attn` is the differentiable
-    entry point."""
+    k and v may be strided views with a unit stride on D) or raises; the
+    design follows :func:`uses_tensor_cores`, and the tensor-core one
+    raises ``ValueError`` unless every row of q, k and v starts on a
+    16-byte boundary (:func:`tensor_core_misalignment`).  A CPU tensor
+    takes :func:`flash_attention_reference`.  No gradient flows through
+    this function itself: :func:`flash_attn` is the differentiable entry
+    point.  Counts one launch of ``KERNEL``, and one of ``FWD_TC`` too
+    when the tensor-core design ran."""
     _check_flash_args(q, k, v, causal)
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale)
     _check_cuda_args("flash_attention", q, k, v)
+    tc = uses_tensor_cores(q.dtype, q.shape[-1])
+    if tc:
+        _check_tensor_core_rows("flash_attention", q=q, k=k, v=v)
     b, h, t_q, d = q.shape
     lib = _flash_lib()
     out = torch.empty(b, h, t_q, d, dtype=q.dtype, device=q.device)
@@ -218,6 +267,8 @@ def flash_attention(q, k, v, causal: bool = False,
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
     _build.count_launch(KERNEL)
+    if tc:
+        _build.count_launch(FWD_TC)
     return out, lse
 
 
@@ -255,6 +306,7 @@ def _flash_lib():
 
 BWD_SOURCE = "flash_bwd"        # csrc/flash_bwd.cu, one library, two kernels
 DQ_KERNEL = "flash_bwd_dq"
+DQ_TC = "flash_bwd_dq_tc"       # the launches of DQ_KERNEL that ran the tensor-core design
 DKV_KERNEL = "flash_bwd_dkv"
 
 
@@ -329,12 +381,18 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                  scale: Optional[float] = None) -> torch.Tensor:
     """dQ of flash attention from the forward's ``lse`` and Δ =
     rowsum(dO∘O), the contract of ``_flash_dq_kernel``.  A CUDA tensor
-    launches the kernel or raises; a CPU tensor takes
-    :func:`flash_dq_reference`."""
+    launches the kernel or raises, in the design :func:`uses_tensor_cores`
+    picks (the tensor-core one needs 16-byte aligned rows of q, k, v and
+    dO, as :func:`flash_attention` does); a CPU tensor takes
+    :func:`flash_dq_reference`.  Counts one launch of ``DQ_KERNEL``, and
+    one of ``DQ_TC`` too when the tensor-core design ran."""
     strides = _bwd_args(q, k, v, do, lse, delta, causal)
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     if strides is None:
         return flash_dq_reference(q, k, v, do, lse, delta, causal, scale)
+    tc = uses_tensor_cores(q.dtype, q.shape[-1])
+    if tc:
+        _check_tensor_core_rows("flash_bwd_dq", q=q, k=k, v=v, do=do)
     b, h, t_q, d = q.shape
     dq = torch.empty(b, h, t_q, d, dtype=q.dtype, device=q.device)
     err = _bwd_lib().flash_bwd_dq(
@@ -345,6 +403,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
     if err != 0:
         raise RuntimeError(f"{DQ_KERNEL} launch failed: cudaError {err}")
     _build.count_launch(DQ_KERNEL)
+    if tc:
+        _build.count_launch(DQ_TC)
     return dq
 
 

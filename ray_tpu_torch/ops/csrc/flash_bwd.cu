@@ -18,17 +18,26 @@
 // products over the ~T^2/2 visible pairs (S, dP, dS K: 14.5 GFLOP, 14.7 us at
 // the 989 TFLOP/s bf16 tensor-core peak); dK/dV moves ~57.2 MB (17.1 us) and
 // does four products (S, P^T dO, dP, dS^T Q: 19.3 GFLOP, 19.5 us).  Both sit
-// at the ridge, slightly on the side of the operations.  This first version
-// keeps the score and dS tiles in registers and never writes a T x T matrix
-// to device memory, so its traffic stays near the bound; it does the
-// arithmetic on the CUDA cores in f32 (no tensor cores), like flash_fwd.cu,
-// which puts it far above the operation bound.  mma/wgmma, TMA and one fused
-// kernel with an atomic dQ are left to a later version.
+// at the ridge, slightly on the side of the operations, so both want the
+// tensor cores.  Neither writes a T x T matrix to device memory.
 //
-// Design: the TPU kernels carry their accumulators across a sequential
-// innermost grid axis; here a block owns its output tile and loops over the
-// other axis itself, so no atomics are needed and the result is
-// deterministic.
+// The TPU kernels carry their accumulators across a sequential innermost
+// grid axis; here a block owns its output tile and loops over the other axis
+// itself, so no atomics are needed and the result is deterministic.
+//
+// flash_bwd_dq_kernel_tc, bf16 with D = 64 or 128 (every model path): the
+// tensor cores, on the skeleton of flash_fwd_kernel_tc (flash_mma.cuh).  One
+// warpgroup owns a 64-row q tile; Q and dO are copied into shared memory
+// once, lse and Delta into registers; K/V tiles of 64 keys come through a
+// 2-stage cp.async ring, up to the last key any row sees when causal, the
+// heaviest q tiles first.  S = Q K^T and dP = dO V^T are wgmma with both
+// operands in shared memory; dS is formed on the accumulator registers
+// (P = exp2 of the base-2 scaled scores minus the base-2 lse), rounded to
+// bf16 there and fed as the register A operand of dQ += dS K, K read as the
+// transposed B operand from its [keys, D] tile.
+//
+// flash_bwd_dq_kernel, f32 at any D and bf16 at D = 16 or 32, and
+// flash_bwd_dkv_kernel, every dtype and D: the CUDA cores, f32 arithmetic.
 //   dQ:    one block per (b*h, 64-row q tile); loops over 32-key tiles of K
 //          and V staged in shared memory (f32), up to the last key any row
 //          of the tile sees when causal.
@@ -46,6 +55,9 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -154,6 +166,116 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DL; ++i) dqp[i * LANES + lane] = from_f32<T>(acc[i]);
   }
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// shared memory of the tensor-core dQ kernel: Q, dO and 2 stages of (K, V),
+// [64, D] bf16 each, plus 1 KB to align the base for the swizzle
+template <int D> constexpr int dq_tc_smem_bytes() { return 6 * flash_mma::TILE * D * 2 + 1024; }
+
+template <int D>
+__global__ void __launch_bounds__(flash_mma::WG)
+flash_bwd_dq_kernel_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int H, int Tq, int Tk, Strides st,
+                       float scale, int causal) {
+  using namespace flash_mma;
+  constexpr int NB = D / 64;                  // 64-column blocks of dQ
+  constexpr uint32_t TB = TILE * D * 2;       // bytes of one [64, D] tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qs = smem_base_1k(smem_raw), dos = qs + TB;
+  auto ks = [=](int stage) { return qs + (2 + 2 * stage) * TB; };  // stage: K, then V
+  auto vs = [=](int stage) { return qs + (3 + 2 * stage) * TB; };
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * TILE;  // heaviest tiles first
+  const int q_offset = Tk - Tq;
+  const __nv_bfloat16* kp = k + b * st.k[0] + h * st.k[1];
+  const __nv_bfloat16* vp = v + b * st.v[0] + h * st.v[1];
+
+  int k_end = Tk;
+  if (causal) k_end = min(Tk, q_offset + min(q_start + TILE, Tq));  // last key seen + 1
+  const int n_tiles = (k_end + TILE - 1) / TILE;
+
+  load_tile<D>(qs, q + b * st.q[0] + h * st.q[1], st.q[2], q_start, Tq, tid);
+  load_tile<D>(dos, dout + b * st.o[0] + h * st.o[1], st.o[2], q_start, Tq, tid);
+  load_tile<D>(ks(0), kp, st.k[2], 0, Tk, tid);
+  load_tile<D>(vs(0), vp, st.v[2], 0, Tk, tid);
+  cp_async_commit();
+
+  const int r = acc_row(tid);
+  float lse2[2], row_delta[2];
+  int last_key[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q_start + r + 8 * half;
+    const bool ok = row < Tq;
+    lse2[half] = ok ? lse[(int64_t)bh * Tq + row] * LOG2E : 0.f;
+    row_delta[half] = ok ? delta[(int64_t)bh * Tq + row] : 0.f;
+    last_key[half] = row + q_offset;
+  }
+  const float sl2 = scale * LOG2E;
+  float acc[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j & 1, k0 = j * TILE;
+    cp_async_wait<0>();
+    fence_async_shared();
+    __syncthreads();  // tile j is in; every thread is done with tile j - 1
+    if (j + 1 < n_tiles) {
+      load_tile<D>(ks(stage ^ 1), kp, st.k[2], k0 + TILE, Tk, tid);
+      load_tile<D>(vs(stage ^ 1), vp, st.v[2], k0 + TILE, Tk, tid);
+    }
+    cp_async_commit();
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    mma_abt<D>(s, qs, ks(stage));
+    mma_abt<D>(dp, dos, vs(stage));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool masked = k0 + TILE > Tk || (causal && k0 + TILE - 1 > q_start + q_offset);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int half = (i >> 1) & 1;
+      float p = exp2f(s[i] * sl2 - lse2[half]);
+      if (masked) {
+        const int kj = k0 + acc_col(tid, i);
+        if (kj >= Tk || (causal && kj > last_key[half])) p = 0.f;
+      }
+      s[i] = p * (dp[i] - row_delta[half]) * scale;  // dS, in f32
+    }
+
+    uint32_t a[4][4];
+    to_a_frags(s, a);  // dS in K's dtype
+    fence_frags(a);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+    wgmma_fence();
+    mma_pv<D>(acc, a, ks(stage));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+  }
+
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(dq + (int64_t)bh * Tq * D, acc, one, q_start, Tq, tid);
 }
 
 template <typename T, int D>
@@ -276,13 +398,44 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq_tc(const Args& a) {
+  constexpr int smem = dq_tc_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel_tc<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int q_sizes[3] = {a.B, a.H, a.Tq}, k_sizes[3] = {a.B, a.H, a.Tk};
+  if (!flash_mma::aligned16(a.q, a.st.q, q_sizes) || !flash_mma::aligned16(a.k, a.st.k, k_sizes) ||
+      !flash_mma::aligned16(a.v, a.st.v, k_sizes) ||
+      !flash_mma::aligned16(a.dout, a.st.o, q_sizes))
+    return cudaErrorInvalidValue;
+  dim3 grid(a.B * a.H, (a.Tq + flash_mma::TILE - 1) / flash_mma::TILE);
+  using bf16 = __nv_bfloat16;
+  flash_bwd_dq_kernel_tc<D><<<grid, flash_mma::WG, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.out0), a.H, a.Tq, a.Tk,
+      a.st, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// dQ in bf16 at D 64 or 128 takes the tensor-core kernel; every other dQ and
+// every dK/dV the CUDA-core ones
+template <typename T, bool DQ, int D>
+cudaError_t launch_one(const Args& a) {
+  if constexpr (!DQ) return launch_dkv<T, D>(a);
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value && (D == 64 || D == 128))
+    return launch_dq_tc<D>(a);
+  else return launch_dq<T, D>(a);
+}
+
 template <typename T, bool DQ>
 cudaError_t launch_d(int D, const Args& a) {
   switch (D) {
-    case 16: return DQ ? launch_dq<T, 16>(a) : launch_dkv<T, 16>(a);
-    case 32: return DQ ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-    case 64: return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128: return DQ ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+    case 16: return launch_one<T, DQ, 16>(a);
+    case 32: return launch_one<T, DQ, 32>(a);
+    case 64: return launch_one<T, DQ, 64>(a);
+    case 128: return launch_one<T, DQ, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -311,6 +464,8 @@ Strides make_strides(int64_t q_sb, int64_t q_sh, int64_t q_st, int64_t k_sb, int
 // the given element strides (batch, head, time).  lse, delta: contiguous
 // [B, H, Tq] f32.  dq: contiguous [B, H, Tq, D]; dk, dv: contiguous
 // [B, H, Tk, D]; all in the inputs' dtype (0 = float32, 1 = bfloat16).
+// flash_bwd_dq in bf16 at D 64 or 128 takes the tensor-core kernel, which
+// also needs 16-byte aligned rows (flash_mma::aligned16).
 // Each returns the cudaError_t of its launch (0 on success).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq,

@@ -123,3 +123,44 @@ def test_flash_rejects_causal_with_more_queries_than_keys():
     q, k, v = map(torch.from_numpy, _qkv(t_q=64, t_k=32, d=16))
     with pytest.raises(ValueError, match="t_q <= t_k"):
         ta.flash_attention(q, k, v, True)
+
+
+@pytest.mark.parametrize("dtype,d,tc", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 16, False), (torch.bfloat16, 32, False),
+    (torch.float32, 64, False), (torch.float32, 128, False), (torch.float16, 64, False)])
+def test_design_is_chosen_by_dtype_and_head_dim(dtype, d, tc):
+    """bf16 at D 64 or 128 takes the tensor-core kernels; f32 (whose
+    1e-5 tolerance TF32 would break) and the small head dims keep the
+    CUDA-core ones."""
+    assert ta.uses_tensor_cores(dtype, d) is tc
+
+
+@pytest.mark.parametrize("ptr,sizes,strides,why", [
+    (1 << 20, (6, 12, 1024, 64), (2304 * 1024, 64, 2304, 1), None),   # GPT-2's fused qkv
+    ((1 << 20) + 1536, (6, 12, 1024, 64), (2304 * 1024, 64, 2304, 1), None),  # its k view
+    (1 << 20, (2, 12, 2048, 64), (12 * 2048 * 64, 2048 * 64, 64, 1), None),   # contiguous
+    ((1 << 20) + 8, (2, 3, 40, 64), (3 * 40 * 68, 40 * 68, 68, 1), "base address"),
+    (1 << 20, (2, 3, 40, 64), (3 * 40 * 68, 40 * 68, 68, 1), "time stride is 136"),
+    (1 << 20, (2, 3, 40, 64), (3 * 40 * 64 + 4, 40 * 64, 64, 1), "batch stride"),
+    (1 << 20, (2, 3, 40, 64), (3 * 40 * 64, 40 * 64 + 4, 64, 1), "head stride"),
+    (1 << 20, (1, 1, 1, 64), (3, 5, 7, 1), None),                      # size-1 dims: unused
+])
+def test_tensor_core_alignment_rule(ptr, sizes, strides, why):
+    """Every row of a tensor-core operand starts on a 16-byte boundary:
+    the base pointer and each batch/head/time stride of a dim longer than
+    1, in bf16 bytes."""
+    got = ta.tensor_core_misalignment(ptr, sizes, strides)
+    assert (got is None) if why is None else (why in got)
+
+
+def test_misaligned_view_is_named_by_the_rule():
+    """The view the card test feeds the kernel: D 64 with a unit stride,
+    base 8 bytes off and a 136-byte time stride (CPU storage here)."""
+    x = torch.zeros(2, 3, 40, 68, dtype=torch.bfloat16)[..., 4:]
+    assert x.stride(-1) == 1 and x.shape[-1] == 64
+    assert x.storage_offset() * x.element_size() == 8
+    why = ta.tensor_core_misalignment(4096 + 8, x.shape, x.stride(), x.element_size())
+    assert "base address is 8 bytes past" in why
+    why = ta.tensor_core_misalignment(4096, x.shape, x.stride(), x.element_size())
+    assert "time stride is 136 bytes" in why

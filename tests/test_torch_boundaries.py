@@ -102,3 +102,19 @@ def test_kernel_sources_are_named_by_their_hash():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith(f"lib{ta.KERNEL}_") and path.suffix == ".so"
     assert (_build.CSRC / f"{ta.KERNEL}.cu").exists()
+
+
+def test_an_edited_header_names_a_new_library(tmp_path, monkeypatch):
+    """Every source may include any header under csrc/, so the library's
+    name covers the headers too: editing one builds anew instead of
+    reusing a stale library (nothing is compiled here)."""
+    (tmp_path / "kern.cu").write_text('#include "shared.cuh"\n')
+    header = tmp_path / "shared.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("kern")
+    assert _build.library_path("kern") == first
+    header.write_text("// v2\n")
+    assert _build.library_path("kern") != first
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert len({first, _build.library_path("kern")}) == 2

@@ -13,7 +13,9 @@ after); lse 1e-4 (f32 on both sides).  The backward kernels: f32 1e-4
 absolute and relative (each gradient sums up to Tk or Tq products in
 another order, and dS = P·(dP − Δ) cancels); bf16 1e-2 as above (both
 sides round P and dS to bf16 at the same places; an f32 ulp of difference
-before a rounding can move it by one bf16 ulp).
+before a rounding can move it by one bf16 ulp).  bf16 at D 64 and 128 runs
+the tensor-core forward and dQ (``ta.uses_tensor_cores``), with the same
+tolerances.
 """
 
 import numpy as np
@@ -145,6 +147,79 @@ def test_flash_attn_gradients_match_the_plain_versions(cuda, dtype, kv_repeat):
         atol, rtol = ((1e-4, 1e-4) if dtype == torch.float32
                       else (1e-2 * r.abs().max().item(), 0.0))
         torch.testing.assert_close(g.float().cpu(), r, atol=atol, rtol=rtol, msg=f"d{name}")
+
+
+TC_SHAPES = [(97, 131, 64, True), (97, 131, 128, True), (97, 131, 64, False),
+             (128, 256, 64, True), (1, 77, 64, True), (1, 77, 128, False), (200, 200, 128, True)]
+
+
+@pytest.mark.parametrize("t_q,t_k,d,causal", TC_SHAPES)
+def test_tensor_core_kernels_match_plain_versions(cuda, t_q, t_k, d, causal):
+    """bf16 at D 64 and 128 takes the tensor-core forward and dQ: ragged
+    tiles, the bottom-right causal diagonal with Tq < Tk, one query row.
+    Tolerances as above; each launch counts on the design's counter."""
+    q, k, v = _qkv(cuda, torch.bfloat16, t_q, t_k, d)
+    do = _qkv(cuda, torch.bfloat16, t_q, t_q, d, seed=1)[0]
+    names = (ta.KERNEL, ta.FWD_TC, ta.DQ_KERNEL, ta.DQ_TC)
+    before = {n: _build.launches.get(n, 0) for n in names}
+    out, lse = ta.flash_attention(q, k, v, causal)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = ta.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert {n: _build.launches[n] - before[n] for n in names} == dict.fromkeys(names, 1)
+    ref_out, ref_lse = ta.flash_attention_reference(q, k, v, causal)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    ref_dq = ta.flash_dq_reference(q, k, v, do, lse, delta, causal)
+    torch.testing.assert_close(dq.float(), ref_dq.float(), atol=1e-2, rtol=1e-2)
+
+
+def test_tensor_core_kernels_take_the_fused_projection_layout(cuda):
+    """q/k/v as head-split views of one fused bf16 projection (time stride
+    3·H·D, as GPT-2's blocks give them), dO a head-merge view."""
+    b, t, h, d = 2, 150, 4, 64
+    qkv = torch.randn(b, t, 3 * h * d, device=cuda).to(torch.bfloat16)
+    q, k, v = (x.reshape(b, t, h, d).transpose(1, 2) for x in qkv.split(h * d, dim=-1))
+    do = torch.randn(b, t, h * d, device=cuda).to(torch.bfloat16).reshape(b, t, h, d).transpose(1, 2)
+    before = _build.launches.get(ta.FWD_TC, 0), _build.launches.get(ta.DQ_TC, 0)
+    out, lse = ta.flash_attention(q, k, v, True)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = ta.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    assert (_build.launches[ta.FWD_TC], _build.launches[ta.DQ_TC]) == (before[0] + 1, before[1] + 1)
+    ref_out, ref_lse = ta.flash_attention_reference(q, k, v, True)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    torch.testing.assert_close(dq.float(), ta.flash_dq_reference(q, k, v, do, lse, delta, True)
+                               .float(), atol=1e-2, rtol=1e-2)
+
+
+def test_tensor_core_dq_is_deterministic(cuda):
+    """Each block owns its dQ tile and loops over K/V in a fixed order: no
+    atomics, the same bits on every call."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 256, 256, 64)
+    do = _qkv(cuda, torch.bfloat16, 256, 256, 64, seed=1)[0]
+    out, lse = ta.flash_attention(q, k, v, True)
+    delta = (do.float() * out.float()).sum(-1)
+    first = ta.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    second = ta.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    assert torch.equal(first, second)
+
+
+def test_tensor_core_kernels_reject_misaligned_rows(cuda):
+    """A bf16 view that the CUDA-core design took (D 64, unit stride) but
+    whose rows are off 16-byte boundaries raises; it is neither copied nor
+    sent to the other design."""
+    x = torch.randn(2, 3, 40, 68, device=cuda).to(torch.bfloat16)[..., 4:]
+    q, k, v = _qkv(cuda, torch.bfloat16, 40, 40, 64)
+    before = dict(_build.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        ta.flash_attention(x, k, v, True)
+    with pytest.raises(ValueError, match="16-byte"):
+        ta.flash_attention(q, x, v, True)
+    lse = torch.zeros(2, 3, 40, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        ta.flash_bwd_dq(q, k, v, x, lse, lse, True)
+    assert dict(_build.launches) == before
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
