@@ -20,7 +20,7 @@ the backward kernels):
    layout) and at both training paths' shapes and layouts (GPT-2 B 6 x
    T 1024; Llama's GQA, B 2 x T 2048), the two backward kernels at those
    training shapes and edges and at small f32, rectangular and ragged
-   shapes (dQ bit-identical across two calls); each kernel's time beside
+   shapes (dQ, dK and dV bit-identical across two calls); each kernel's time beside
    the plain version's, one library call's and the bound the card sets,
    at the shapes the main paths give it.
 3. ``parity``: tiny GPT-2 and Llama in f32 (and GPT-2 at full width, two
@@ -46,10 +46,10 @@ the backward kernels):
    and idle share, the three kernels' share of the step, top kernels.
 10. ``train_llama``: Llama 125M, B 2 x T 2048, 2 warm-up and 5 timed steps.
 
-Every bf16 launch of ``flash_fwd`` and ``flash_bwd_dq`` on the serving
-and training paths has to run the tensor-core design (their ``_tc``
-launch counts equal their totals; ``train_profile`` finds only the
-``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
+Every bf16 launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
+on the serving and training paths has to run the tensor-core design
+(their ``_tc`` launch counts equal their totals; ``train_profile`` finds
+only the ``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
 summed over the serving and training runs, and per run), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": {...}}``.  Exits non-zero,
@@ -196,7 +196,7 @@ def phase_device(build):
     sass = {}
     for name in builds:
         sass.update(sass_mma_counts(build.library_path(name)))
-    for kern in ("flash_fwd_kernel_tc", "flash_bwd_dq_kernel_tc"):
+    for kern in ("flash_fwd_kernel_tc", "flash_bwd_dq_kernel_tc", "flash_bwd_dkv_kernel_tc"):
         for d in attn._TC_HEAD_DIMS:
             check(sass.get(f"{kern}<bf16,{d}>", {}).get("HGMMA", 0) > 0,
                   f"{kern}<{d}> has no HGMMA instruction: {sass}")
@@ -240,7 +240,8 @@ def _model_qkv(b, h, kv, t, d, seed):
 # the design each kernel runs at the main paths' bf16, D 64 inputs
 DESIGN = {"flash_fwd": "flash_fwd_kernel_tc: wgmma tensor cores, cp.async K/V ring",
           "flash_bwd_dq": "flash_bwd_dq_kernel_tc: wgmma tensor cores, cp.async K/V ring",
-          "flash_bwd_dkv": "flash_bwd_dkv_kernel: f32 on the CUDA cores"}
+          "flash_bwd_dkv": "flash_bwd_dkv_kernel_tc: wgmma tensor cores on the transposed "
+                           "scores, cp.async Q/dO ring"}
 
 # per kernel: [B,H,Tq,D] tensors moved, [B,H,Tk,D] tensors moved, f32 [B,H,Tq]
 # rows moved, products over the visible pairs
@@ -420,13 +421,15 @@ def phase_bwd_kernels():
         dq = attn.flash_bwd_dq(*args, causal)
         dk, dv = attn.flash_bwd_dkv(*args, causal)
         torch.cuda.synchronize()
-        launches = {n: build.launches.get(n, 0)
-                    for n in (attn.DQ_KERNEL, attn.DQ_TC, attn.DKV_KERNEL)}
-        want = {attn.DQ_KERNEL: 1, attn.DQ_TC: int(attn.uses_tensor_cores(dtype, d_)),
-                attn.DKV_KERNEL: 1}
+        tc = int(attn.uses_tensor_cores(dtype, d_))
+        want = {attn.DQ_KERNEL: 1, attn.DQ_TC: tc, attn.DKV_KERNEL: 1, attn.DKV_TC: tc}
+        launches = {n: build.launches.get(n, 0) for n in want}
         check(launches == want, f"backward launches {launches}, want {want}")
         check(torch.equal(dq, attn.flash_bwd_dq(*args, causal)),
               f"flash_bwd_dq gave other bits on a second call at {case}")
+        dk2, dv2 = attn.flash_bwd_dkv(*args, causal)
+        check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+              f"flash_bwd_dkv gave other bits on a second call at {case}")
         ref_dq = attn.flash_dq_reference(*args, causal)
         ref_dk, ref_dv = attn.flash_dkv_reference(*args, causal)
         tol = BWD_TOL[dtype]
@@ -444,7 +447,7 @@ def phase_bwd_kernels():
             ("plain_dkv", lambda: attn.flash_dkv_reference(*args, causal)))}
         row = {"shape": shape, "causal": causal, "dtype": str(dtype).split(".")[-1],
                "tolerance": f"{tol} + {tol}|ref|", "max_abs_err": errs, "launches": launches,
-               "dq_bit_identical_on_a_second_call": True}
+               "dq_dk_dv_bit_identical_on_a_second_call": True}
         for kern, plain, err in ((attn.DQ_KERNEL, "plain_dq", errs["dq"]),
                                  (attn.DKV_KERNEL, "plain_dkv", max(errs["dk"], errs["dv"]))):
             bound_ms, bound_by = flash_bound_ms(kern, b_, h_, tq, tk, d_, causal, dtype)
@@ -650,8 +653,8 @@ def train(family: str, cfg, batch_size: int, warmup: int, windows):
     want = {attn.KERNEL: (2 if cfg.remat else 1) * cfg.n_layers,  # remat recomputes it
             attn.DQ_KERNEL: cfg.n_layers, attn.DKV_KERNEL: cfg.n_layers}
     check(per_step == want, f"{family}: {per_step} launches per step, want {want}")
-    tc = {attn.FWD_TC: launches.get(attn.FWD_TC, 0), attn.DQ_TC: launches.get(attn.DQ_TC, 0)}
-    check(tc == {attn.FWD_TC: launches[attn.KERNEL], attn.DQ_TC: launches[attn.DQ_KERNEL]},
+    tc = {c: launches.get(c, 0) for c in attn.TENSOR_CORE_COUNTER.values()}
+    check(tc == {c: launches[k] for k, c in attn.TENSOR_CORE_COUNTER.items()},
           f"{family}: tensor-core launches {tc} of {launches}: every bf16 one should be")
     tokens = batch_size * cfg.max_seq_len
     tok_s = sorted(tokens / (ms / 1e3) for ms in ms_per_step)
@@ -722,7 +725,7 @@ def phase_train_profile(state, step, batch, ms_per_step):
                        "tensor_core_launches": sum(c for n, c, _ in hits if f"{kern}_kernel_tc" in n),
                        "device_ms": sum(us for _, _, us in hits) / 1e3}
         flash[kern]["share_of_step"] = flash[kern]["device_ms"] / wall_ms
-    for kern in (attn.KERNEL, attn.DQ_KERNEL):
+    for kern in flash:
         check(flash[kern]["launches"] > 0
               and flash[kern]["tensor_core_launches"] == flash[kern]["launches"],
               f"train_profile: {kern} ran other kernels than the tensor-core design: {flash}")
@@ -909,14 +912,14 @@ def main() -> int:
 
     runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama,
             "train_gpt2": train_launches, "train_llama": llama_launches}
-    tc_counter = {attn.KERNEL: attn.FWD_TC, attn.DQ_KERNEL: attn.DQ_TC}
     for r in (fwd, *bwd.values()):
         kern = r["name"]
         r["launches_by_path"] = {path: n.get(kern, 0) for path, n in runs.items()
                                  if kern == attn.KERNEL or path.startswith("train")}
         r["launches"] = sum(r["launches_by_path"].values())
-        if kern in tc_counter:  # equal to launches: train() and serve() checked it
-            r["launches_tensor_core"] = sum(n.get(tc_counter[kern], 0) for n in runs.values())
+        # equal to launches: train() and serve() checked it
+        tc = attn.TENSOR_CORE_COUNTER[kern]
+        r["launches_tensor_core"] = sum(n.get(tc, 0) for n in runs.values())
     print(json.dumps({"kernels": [fwd, *bwd.values()]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

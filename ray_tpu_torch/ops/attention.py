@@ -9,10 +9,10 @@ by the tensors' device:
   ``torch.autograd.Function`` whose backward launches the two hand-written
   backward kernels (``csrc/flash_bwd.cu``, the ports of ``_flash_dq_kernel``
   and ``_flash_dkv_kernel``).  Flash attention is the ordinary design on a
-  GPU at every length, for prefill and for training.  The forward and dQ
-  kernels have two designs each, chosen by :func:`uses_tensor_cores` from
-  the dtype and head dim alone: bf16 at D 64 or 128 runs on the tensor
-  cores (wgmma), everything else on the CUDA cores in f32.
+  GPU at every length, for prefill and for training.  Each of the three
+  kernels has two designs, chosen by :func:`uses_tensor_cores` from the
+  dtype and head dim alone: bf16 at D 64 or 128 runs on the tensor cores
+  (wgmma), everything else on the CUDA cores in f32.
 - a CPU tensor keeps the JAX package's rules, so the CPU tests compare
   like with like: :func:`causal_skip_attention` or :func:`full_attention`
   up to ``_MAX_MATERIALIZED_T``, :func:`blockwise_attention` above it.
@@ -160,13 +160,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def uses_tensor_cores(dtype: torch.dtype, d: int) -> bool:
-    """Which design ``flash_fwd`` and ``flash_bwd_dq`` launch, by dtype and
-    head dim only (``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` apply the
-    same rule): bf16 at D 64 or 128 takes the tensor-core kernels (wgmma on
-    bf16 tiles in shared memory, f32 accumulation); f32 at any D and bf16 at
-    D 16 or 32 take the CUDA-core kernels (f32 arithmetic; TF32 would round
-    f32 inputs to 10 mantissa bits).  ``flash_bwd_dkv`` has the CUDA-core
-    design only."""
+    """Which design ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
+    launch, by dtype and head dim only (``csrc/flash_fwd.cu`` and
+    ``csrc/flash_bwd.cu`` apply the same rule): bf16 at D 64 or 128 takes
+    the tensor-core kernels (wgmma on bf16 tiles in shared memory, f32
+    accumulation); f32 at any D and bf16 at D 16 or 32 take the CUDA-core
+    kernels (f32 arithmetic; TF32 would round f32 inputs to 10 mantissa
+    bits)."""
     return dtype == torch.bfloat16 and d in _TC_HEAD_DIMS
 
 
@@ -266,10 +266,16 @@ def flash_attention(q, k, v, causal: bool = False,
         scale, int(causal), _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
-    _build.count_launch(KERNEL)
-    if tc:
-        _build.count_launch(FWD_TC)
+    _count_launch(KERNEL, tc)
     return out, lse
+
+
+def _count_launch(kernel: str, tc: bool) -> None:
+    """One launch of ``kernel``, and one on its ``TENSOR_CORE_COUNTER``
+    too when the tensor-core design ran."""
+    _build.count_launch(kernel)
+    if tc:
+        _build.count_launch(TENSOR_CORE_COUNTER[kernel])
 
 
 def _check_cuda_args(fn: str, *ts: torch.Tensor) -> None:
@@ -308,6 +314,10 @@ BWD_SOURCE = "flash_bwd"        # csrc/flash_bwd.cu, one library, two kernels
 DQ_KERNEL = "flash_bwd_dq"
 DQ_TC = "flash_bwd_dq_tc"       # the launches of DQ_KERNEL that ran the tensor-core design
 DKV_KERNEL = "flash_bwd_dkv"
+DKV_TC = "flash_bwd_dkv_tc"     # the launches of DKV_KERNEL that ran the tensor-core design
+
+# each kernel's count of the launches that ran its tensor-core design
+TENSOR_CORE_COUNTER = {KERNEL: FWD_TC, DQ_KERNEL: DQ_TC, DKV_KERNEL: DKV_TC}
 
 
 def _probs(q, k, lse, causal: bool, scale: float) -> torch.Tensor:
@@ -402,9 +412,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{DQ_KERNEL} launch failed: cudaError {err}")
-    _build.count_launch(DQ_KERNEL)
-    if tc:
-        _build.count_launch(DQ_TC)
+    _count_launch(DQ_KERNEL, tc)
     return dq
 
 
@@ -412,12 +420,18 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                   scale: Optional[float] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) of flash attention, the contract of ``_flash_dkv_kernel``.
-    A CUDA tensor launches the kernel or raises; a CPU tensor takes
-    :func:`flash_dkv_reference`."""
+    A CUDA tensor launches the kernel or raises, in the design
+    :func:`uses_tensor_cores` picks (the tensor-core one needs 16-byte
+    aligned rows of q, k, v and dO); a CPU tensor takes
+    :func:`flash_dkv_reference`.  Counts one launch of ``DKV_KERNEL``, and
+    one of ``DKV_TC`` too when the tensor-core design ran."""
     strides = _bwd_args(q, k, v, do, lse, delta, causal)
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     if strides is None:
         return flash_dkv_reference(q, k, v, do, lse, delta, causal, scale)
+    tc = uses_tensor_cores(q.dtype, q.shape[-1])
+    if tc:
+        _check_tensor_core_rows("flash_bwd_dkv", q=q, k=k, v=v, do=do)
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
     dk = torch.empty(b, h, t_k, d, dtype=k.dtype, device=k.device)
@@ -429,7 +443,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{DKV_KERNEL} launch failed: cudaError {err}")
-    _build.count_launch(DKV_KERNEL)
+    _count_launch(DKV_KERNEL, tc)
     return dk, dv
 
 

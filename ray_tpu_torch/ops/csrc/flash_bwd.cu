@@ -36,8 +36,36 @@
 // bf16 there and fed as the register A operand of dQ += dS K, K read as the
 // transposed B operand from its [keys, D] tile.
 //
-// flash_bwd_dq_kernel, f32 at any D and bf16 at D = 16 or 32, and
-// flash_bwd_dkv_kernel, every dtype and D: the CUDA cores, f32 arithmetic.
+// flash_bwd_dkv_kernel_tc, bf16 with D = 64 or 128 (every model path),
+// replaces _flash_dkv_kernel on the tensor cores.  Its bound is the dK/dV
+// one above (57.2 MB, 19.3 GFLOP, both about 19.5 us at the GPT-2 shape), so
+// all four products run as wgmma and the copies overlap them.  The same
+// skeleton as dQ with the roles of q and k swapped: one warpgroup owns a
+// 64-key tile; K and V are copied into shared memory once; Q and dO tiles of
+// 64 rows, with their 64 lse and 64 Delta values (4-byte copies: a row of
+// lse need not start on a 16-byte boundary), come through a 2-stage cp.async
+// ring from the first q tile that sees key k_start when causal.  Key tile 0
+// has the most q tiles and is launched first (the heaviest-first order).
+// The kernel works on the transposed scores, so it needs no wgmma form
+// beyond flash_mma.cuh's two: S^T = K Q^T and dP^T = V dO^T are SS products
+// whose rows are keys and columns queries; P^T = exp2 of the base-2 scores
+// minus the column's base-2 lse, and dS^T = P^T (dP^T - Delta) scale, are
+// formed on the registers with lse and Delta read per column from shared
+// memory; their 16-column slabs, rounded to bf16, are the register A
+// operands of dV += P^T dO and dK += dS^T Q, with dO and Q read as the
+// transposed B operand from their [q rows, D] tiles.  S^T and dP^T go out in
+// one commit group and dV and dK in the next, as dQ does: P stays in f32 for
+// dS, as _flash_dkv_kernel computes it, and the peak is the dK/dV
+// accumulators (64 or 128 floats) plus two score tiles (64); at D 64 that
+// fits 3 blocks per SM (see the kernel's launch bounds).  Issuing S^T
+// alone and overlapping dV with dP^T, as FlashAttention-2 orders its loop,
+// would keep P's f32 tile and its bf16 fragments live across dP^T: 16
+// registers more.  Masks apply only on tiles that cross the diagonal or a
+// ragged end (keys >= Tk, queries >= Tq, key > q + q_offset), and set P = 0
+// explicitly: a zero-filled lse past Tq would give P = 1.
+//
+// flash_bwd_dq_kernel and flash_bwd_dkv_kernel, f32 at any D and bf16 at
+// D = 16 or 32: the CUDA cores, f32 arithmetic.
 //   dQ:    one block per (b*h, 64-row q tile); loops over 32-key tiles of K
 //          and V staged in shared memory (f32), up to the last key any row
 //          of the tile sees when causal.
@@ -366,6 +394,145 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// shared memory of the tensor-core dK/dV kernel: K, V and 2 stages of (Q,
+// dO), [64, D] bf16 each; 2 stages of (lse, Delta), 64 f32 each; plus 1 KB to
+// align the base for the swizzle
+template <int D> constexpr int dkv_tc_smem_bytes() {
+  return 6 * flash_mma::TILE * D * 2 + 2 * 2 * flash_mma::TILE * 4 + 1024;
+}
+
+// At D 64, 3 blocks per SM: ptxas then fits the kernel in 168 registers with
+// a few bytes of spill, where left free it takes 176, which the register
+// file holds only twice per SM; on an H100 the 3-block build ran faster at
+// both training shapes.
+template <int D>
+__global__ void __launch_bounds__(flash_mma::WG, D == 64 ? 3 : 1)
+flash_bwd_dkv_kernel_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H,
+                        int Tq, int Tk, Strides st, float scale, int causal) {
+  using namespace flash_mma;
+  constexpr int NB = D / 64;                  // 64-column blocks of dK and dV
+  constexpr uint32_t TB = TILE * D * 2;       // bytes of one [64, D] tile
+  constexpr uint32_t RB = 2 * TILE * 4;       // bytes of one stage's lse and Delta
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ks = smem_base_1k(smem_raw), vs = ks + TB;
+  auto qs = [=](int stage) { return ks + (2 + 2 * stage) * TB; };  // stage: Q, then dO
+  auto dos = [=](int stage) { return ks + (3 + 2 * stage) * TB; };
+  const uint32_t rows_s = ks + 6 * TB;        // stage: lse[64], then Delta[64]
+  const float* rows = reinterpret_cast<const float*>(smem_raw + (rows_s - smem_u32(smem_raw)));
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k_start = blockIdx.y * TILE;      // key tile 0, the heaviest, first
+  const int q_offset = Tk - Tq;
+  const __nv_bfloat16* qp = q + b * st.q[0] + h * st.q[1];
+  const __nv_bfloat16* op = dout + b * st.o[0] + h * st.o[1];
+  // thread t copies row t of lse (t < 64) or row t - 64 of Delta of each q tile
+  const float* rowp = (tid < TILE ? lse : delta) + (int64_t)bh * Tq;
+
+  int q_begin = 0;
+  if (causal) q_begin = max(0, k_start - q_offset) / TILE * TILE;  // first row seeing k_start
+  const int n_tiles = (Tq - q_begin + TILE - 1) / TILE;
+
+  auto load_q_tile = [&](int stage, int q0) {  // q tile q0 into a stage
+    load_tile<D>(qs(stage), qp, st.q[2], q0, Tq, tid);
+    load_tile<D>(dos(stage), op, st.o[2], q0, Tq, tid);
+    const int row = q0 + tid % TILE;
+    const bool ok = row < Tq;
+    cp_async4(rows_s + stage * RB + tid * 4, rowp + (ok ? row : 0), ok);
+  };
+  load_tile<D>(ks, k + b * st.k[0] + h * st.k[1], st.k[2], k_start, Tk, tid);
+  load_tile<D>(vs, v + b * st.v[0] + h * st.v[1], st.v[2], k_start, Tk, tid);
+  if (n_tiles > 0) load_q_tile(0, q_begin);
+  cp_async_commit();
+
+  const int r = acc_row(tid);
+  const float sl2 = scale * LOG2E;
+  float dk_acc[NB][32], dv_acc[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[nb][i] = dv_acc[nb][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j & 1, q0 = q_begin + j * TILE;
+    cp_async_wait<0>();
+    fence_async_shared();
+    __syncthreads();  // tile j is in; every thread is done with tile j - 1
+    if (j + 1 < n_tiles) load_q_tile(stage ^ 1, q0 + TILE);
+    cp_async_commit();
+
+    float s[32], dp[32];  // S^T and dP^T: rows are keys, columns queries
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    mma_abt<D>(s, ks, qs(stage));
+    mma_abt<D>(dp, vs, dos(stage));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool masked = q0 + TILE > Tq || k_start + TILE > Tk ||
+                        (causal && k_start + TILE - 1 > q0 + q_offset);
+    const float* lse_s = rows + stage * 2 * TILE;
+    const float* delta_s = lse_s + TILE;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {  // columns 8jj + 2(tid % 4) + e of d[4jj + 2half + e]
+      const int c = 8 * jj + 2 * (tid % 4);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(delta_s + c);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float col_lse2 = (e ? l2.y : l2.x) * LOG2E;
+        const float col_delta = e ? d2.y : d2.x;
+        const int qi = q0 + c + e;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = 4 * jj + 2 * half + e;
+          float p = exp2f(s[i] * sl2 - col_lse2);
+          if (masked) {
+            const int kj = k_start + r + 8 * half;
+            if (kj >= Tk || qi >= Tq || (causal && kj > qi + q_offset)) p = 0.f;
+          }
+          dp[i] = p * (dp[i] - col_delta) * scale;  // dS^T, in f32
+          s[i] = p;
+        }
+      }
+    }
+
+    uint32_t pa[4][4], da[4][4];
+    to_a_frags(s, pa);   // P^T in dO's dtype
+    to_a_frags(dp, da);  // dS^T in Q's dtype
+    fence_frags(pa);
+    fence_frags(da);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      fence_regs(dv_acc[nb]);
+      fence_regs(dk_acc[nb]);
+    }
+    wgmma_fence();
+    mma_pv<D>(dv_acc, pa, dos(stage));
+    mma_pv<D>(dk_acc, da, qs(stage));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      fence_regs(dv_acc[nb]);
+      fence_regs(dk_acc[nb]);
+    }
+  }
+
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(dk + (int64_t)bh * Tk * D, dk_acc, one, k_start, Tk, tid);
+  store_rows<D>(dv + (int64_t)bh * Tk * D, dv_acc, one, k_start, Tk, tid);
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out0, *out1;  // dq; or dk and dv
@@ -398,17 +565,23 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+// the rows of q, k, v and dO start on 16-byte boundaries, as the tensor-core
+// kernels' cp.async copies need
+bool tc_rows_aligned(const Args& a) {
+  const int q_sizes[3] = {a.B, a.H, a.Tq}, k_sizes[3] = {a.B, a.H, a.Tk};
+  return flash_mma::aligned16(a.q, a.st.q, q_sizes) &&
+         flash_mma::aligned16(a.k, a.st.k, k_sizes) &&
+         flash_mma::aligned16(a.v, a.st.v, k_sizes) &&
+         flash_mma::aligned16(a.dout, a.st.o, q_sizes);
+}
+
 template <int D>
 cudaError_t launch_dq_tc(const Args& a) {
   constexpr int smem = dq_tc_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel_tc<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int q_sizes[3] = {a.B, a.H, a.Tq}, k_sizes[3] = {a.B, a.H, a.Tk};
-  if (!flash_mma::aligned16(a.q, a.st.q, q_sizes) || !flash_mma::aligned16(a.k, a.st.k, k_sizes) ||
-      !flash_mma::aligned16(a.v, a.st.v, k_sizes) ||
-      !flash_mma::aligned16(a.dout, a.st.o, q_sizes))
-    return cudaErrorInvalidValue;
+  if (!tc_rows_aligned(a)) return cudaErrorInvalidValue;
   dim3 grid(a.B * a.H, (a.Tq + flash_mma::TILE - 1) / flash_mma::TILE);
   using bf16 = __nv_bfloat16;
   flash_bwd_dq_kernel_tc<D><<<grid, flash_mma::WG, smem, a.stream>>>(
@@ -419,14 +592,32 @@ cudaError_t launch_dq_tc(const Args& a) {
   return cudaGetLastError();
 }
 
-// dQ in bf16 at D 64 or 128 takes the tensor-core kernel; every other dQ and
-// every dK/dV the CUDA-core ones
+template <int D>
+cudaError_t launch_dkv_tc(const Args& a) {
+  constexpr int smem = dkv_tc_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_tc<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  if (!tc_rows_aligned(a)) return cudaErrorInvalidValue;
+  dim3 grid(a.B * a.H, (a.Tk + flash_mma::TILE - 1) / flash_mma::TILE);
+  using bf16 = __nv_bfloat16;
+  flash_bwd_dkv_kernel_tc<D><<<grid, flash_mma::WG, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1),
+      a.H, a.Tq, a.Tk, a.st, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// bf16 at D 64 or 128 takes the tensor-core kernels; f32 and bf16 at D 16 or
+// 32 the CUDA-core ones
 template <typename T, bool DQ, int D>
 cudaError_t launch_one(const Args& a) {
-  if constexpr (!DQ) return launch_dkv<T, D>(a);
-  else if constexpr (std::is_same<T, __nv_bfloat16>::value && (D == 64 || D == 128))
-    return launch_dq_tc<D>(a);
-  else return launch_dq<T, D>(a);
+  constexpr bool tc = std::is_same<T, __nv_bfloat16>::value && (D == 64 || D == 128);
+  if constexpr (DQ && tc) return launch_dq_tc<D>(a);
+  else if constexpr (DQ) return launch_dq<T, D>(a);
+  else if constexpr (tc) return launch_dkv_tc<D>(a);
+  else return launch_dkv<T, D>(a);
 }
 
 template <typename T, bool DQ>
@@ -464,8 +655,8 @@ Strides make_strides(int64_t q_sb, int64_t q_sh, int64_t q_st, int64_t k_sb, int
 // the given element strides (batch, head, time).  lse, delta: contiguous
 // [B, H, Tq] f32.  dq: contiguous [B, H, Tq, D]; dk, dv: contiguous
 // [B, H, Tk, D]; all in the inputs' dtype (0 = float32, 1 = bfloat16).
-// flash_bwd_dq in bf16 at D 64 or 128 takes the tensor-core kernel, which
-// also needs 16-byte aligned rows (flash_mma::aligned16).
+// Both take the tensor-core kernel in bf16 at D 64 or 128, which also needs
+// 16-byte aligned rows (flash_mma::aligned16).
 // Each returns the cudaError_t of its launch (0 on success).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq,

@@ -4,10 +4,11 @@
 // wgmma forms the flash kernels use (m64n64k16, bf16 in, f32 accumulate):
 //   ss:    D (+)= A B^T, A [64 x 16] and B [64 x 16] both read from shared
 //          memory, both K-major (the contraction dim contiguous): S = Q K^T
-//          and dP = dO V^T.
+//          and dP = dO V^T, and their transposes S^T = K Q^T, dP^T = V dO^T.
 //   rs_tb: D += A B, A [64 x 16] in registers (a P or dS tile), B [16 x 64]
-//          read from shared memory stored MN-major (a [keys, D] tile of V or
-//          K read with wgmma's transpose bit): O += P V and dQ += dS K.
+//          read from shared memory stored MN-major (a [rows, D] tile of V,
+//          K, dO or Q read with wgmma's transpose bit): O += P V,
+//          dQ += dS K, dV += P^T dO and dK += dS^T Q.
 //
 // Tiles: a [64 rows, D] bf16 tile is D/64 blocks of [64 rows][64 cols]; each
 // block row is 128 bytes, and 16-byte chunk c of row r lies at chunk
@@ -50,6 +51,12 @@ __device__ __forceinline__ uint32_t sw128(int r, int c) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+// 4 bytes global -> shared (one f32 of a row vector such as lse, whose rows
+// need not start on a 16-byte boundary), zero-filled when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -183,7 +190,7 @@ __device__ __forceinline__ void mma_abt(float (&d)[32], uint32_t a_tile, uint32_
 }
 
 // O-type product: acc[nb] += frags . tile[:, 64 nb : 64 nb + 64] for a [64
-// keys, D] swizzled tile (4 k-steps of 16 keys, 2 KB apart)
+// rows, D] swizzled tile (4 k-steps of 16 rows, 2 KB apart)
 template <int D>
 __device__ __forceinline__ void mma_pv(float (&acc)[D / 64][32], const uint32_t (&a)[4][4],
                                        uint32_t tile) {

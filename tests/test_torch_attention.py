@@ -132,8 +132,11 @@ def test_flash_rejects_causal_with_more_queries_than_keys():
 def test_design_is_chosen_by_dtype_and_head_dim(dtype, d, tc):
     """bf16 at D 64 or 128 takes the tensor-core kernels; f32 (whose
     1e-5 tolerance TF32 would break) and the small head dims keep the
-    CUDA-core ones."""
+    CUDA-core ones.  The rule covers all three kernels, dK/dV included:
+    each has its tensor-core counter."""
     assert ta.uses_tensor_cores(dtype, d) is tc
+    assert ta.TENSOR_CORE_COUNTER == {ta.KERNEL: ta.FWD_TC, ta.DQ_KERNEL: ta.DQ_TC,
+                                      ta.DKV_KERNEL: ta.DKV_TC}
 
 
 @pytest.mark.parametrize("ptr,sizes,strides,why", [

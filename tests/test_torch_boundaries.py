@@ -79,17 +79,28 @@ def test_entry_points_raise_without_a_card(no_cuda):
 
 
 def test_flash_wrapper_on_cpu_counts_no_launch():
-    q = torch.randn(1, 2, 8, 16)
+    """Neither design counts on a CPU tensor: f32 at D 16, and bf16 at
+    D 64, which the card runs on the tensor cores (``DKV_TC`` and the
+    other tensor-core counters)."""
     before = dict(_build.launches)
-    out, lse = ta.flash_attention(q, q, q, True)
-    ta.attention(q, q, q, causal=True)
+    for dtype, d in ((torch.float32, 16), (torch.bfloat16, 64)):
+        q = torch.randn(1, 2, 8, d).to(dtype)
+        out, lse = ta.flash_attention(q, q, q, True)
+        ta.attention(q, q, q, causal=True)
+        delta = (out.float() * q.float()).sum(-1)
+        dq = ta.flash_bwd_dq(q, q, q, q, lse, delta, True)
+        dk, dv = ta.flash_bwd_dkv(q, q, q, q, lse, delta, True)
+        assert out.shape == dq.shape == dk.shape == dv.shape == q.shape
+        assert lse.shape == q.shape[:3]
     assert dict(_build.launches) == before
-    assert out.shape == q.shape and lse.shape == q.shape[:3]
 
 
 def test_reset_launches_zeroes_every_count():
-    _build.count_launch("probe")
-    assert _build.launches["probe"] >= 1
+    names = ("probe", *ta.TENSOR_CORE_COUNTER, *ta.TENSOR_CORE_COUNTER.values())
+    assert ta.DKV_TC in names
+    for name in names:
+        _build.count_launch(name)
+        assert _build.launches[name] >= 1
     _build.reset_launches()
     assert all(n == 0 for n in _build.launches.values())
     del _build.launches["probe"]

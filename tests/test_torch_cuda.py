@@ -14,8 +14,8 @@ absolute and relative (each gradient sums up to Tk or Tq products in
 another order, and dS = P·(dP − Δ) cancels); bf16 1e-2 as above (both
 sides round P and dS to bf16 at the same places; an f32 ulp of difference
 before a rounding can move it by one bf16 ulp).  bf16 at D 64 and 128 runs
-the tensor-core forward and dQ (``ta.uses_tensor_cores``), with the same
-tolerances.
+the tensor-core forward, dQ and dK/dV (``ta.uses_tensor_cores``), with the
+same tolerances.
 """
 
 import numpy as np
@@ -119,28 +119,24 @@ def _grads_on(device, q, k, v, w, causal, kv_repeat=1):
     return [t.grad for t in leaves]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kv_repeat", [1, 3])
-def test_flash_attn_gradients_match_the_plain_versions(cuda, dtype, kv_repeat):
-    """Gradients through FlashAttention on the card (forward and both
-    backward kernels) against the same function in f32 on CPU copies (the
-    plain versions): q/k/v as strided views of one fused projection, a
-    strided dO, and GQA's repeated KV heads.  f32: 1e-4 absolute and
-    relative.  bf16: within 1e-2 of each gradient's largest entry.  P, dS
-    and the outputs are rounded to bf16 (2^-8 relative each), and the
-    forward's bf16 output feeds Δ, where dP − Δ cancels; the plain version
-    run in bf16 is as far from the f32 gradients as the kernels are."""
-    b, t, h, d = 2, 80, 6, 32
+def _check_flash_attn_gradients(cuda, dtype, kv_repeat, d):
+    """Gradients through FlashAttention on the card against the plain
+    versions on CPU copies; each kernel launched once, on the design
+    ``ta.uses_tensor_cores`` picks."""
+    b, t, h = 2, 80, 6
     kv = h // kv_repeat
     qkv = torch.randn(b, t, (h + 2 * kv) * d, device=cuda, dtype=torch.float32).to(dtype)
     q, k, v = (x.reshape(b, t, -1, d).transpose(1, 2)
                for x in qkv.split([h * d, kv * d, kv * d], dim=-1))
     assert not q.is_contiguous()
     w = torch.randn(b, t, h * d, device=cuda)
-    before = {n: _build.launches.get(n, 0) for n in (ta.KERNEL, ta.DQ_KERNEL, ta.DKV_KERNEL)}
+    tc = ta.uses_tensor_cores(dtype, d)
+    want_launches = {n: 1 for n in ta.TENSOR_CORE_COUNTER}
+    want_launches.update({c: int(tc) for c in ta.TENSOR_CORE_COUNTER.values()})
+    before = {n: _build.launches.get(n, 0) for n in want_launches}
     got = _grads_on(cuda, q, k, v, w, True, kv_repeat)
     torch.cuda.synchronize()
-    assert all(_build.launches[n] == before[n] + 1 for n in before)
+    assert {n: _build.launches.get(n, 0) - before[n] for n in before} == want_launches
     want = _grads_on("cpu", q.float(), k.float(), v.float(), w, True, kv_repeat)
     for name, g, r in zip("qkv", got, want):
         assert g.shape == r.shape and g.dtype == dtype
@@ -149,29 +145,65 @@ def test_flash_attn_gradients_match_the_plain_versions(cuda, dtype, kv_repeat):
         torch.testing.assert_close(g.float().cpu(), r, atol=atol, rtol=rtol, msg=f"d{name}")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_repeat", [1, 3])
+def test_flash_attn_gradients_match_the_plain_versions(cuda, dtype, kv_repeat):
+    """Gradients through FlashAttention on the card (forward and both
+    backward kernels, at D 32: the CUDA-core designs) against the same
+    function in f32 on CPU copies (the plain versions): q/k/v as strided
+    views of one fused projection, a strided dO, and GQA's repeated KV
+    heads.  f32: 1e-4 absolute and relative.  bf16: within 1e-2 of each
+    gradient's largest entry.  P, dS and the outputs are rounded to bf16
+    (2^-8 relative each), and the forward's bf16 output feeds Δ, where
+    dP − Δ cancels; the plain version run in bf16 is as far from the f32
+    gradients as the kernels are."""
+    _check_flash_attn_gradients(cuda, dtype, kv_repeat, d=32)
+
+
+@pytest.mark.parametrize("kv_repeat", [1, 3])
+def test_flash_attn_gradients_cross_the_tensor_core_kernels(cuda, kv_repeat):
+    """The same in bf16 at D 64, the models' head dim: all three kernels
+    run their tensor-core designs, GQA's repeated KV heads included."""
+    _check_flash_attn_gradients(cuda, torch.bfloat16, kv_repeat, d=64)
+
+
 TC_SHAPES = [(97, 131, 64, True), (97, 131, 128, True), (97, 131, 64, False),
              (128, 256, 64, True), (1, 77, 64, True), (1, 77, 128, False), (200, 200, 128, True)]
 
 
+def _check_tensor_core_backward(q, k, v, do, lse, delta, causal):
+    """dQ, dK and dV against their plain versions within 1e-2 + 1e-2·|ref|,
+    each kernel launched once and on its tensor-core design."""
+    names = (ta.DQ_KERNEL, ta.DQ_TC, ta.DKV_KERNEL, ta.DKV_TC)
+    before = {n: _build.launches.get(n, 0) for n in names}
+    dq = ta.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = ta.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert {n: _build.launches[n] - before[n] for n in names} == dict.fromkeys(names, 1)
+    want = (ta.flash_dq_reference(q, k, v, do, lse, delta, causal),
+            *ta.flash_dkv_reference(q, k, v, do, lse, delta, causal))
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=1e-2, msg=name)
+
+
 @pytest.mark.parametrize("t_q,t_k,d,causal", TC_SHAPES)
 def test_tensor_core_kernels_match_plain_versions(cuda, t_q, t_k, d, causal):
-    """bf16 at D 64 and 128 takes the tensor-core forward and dQ: ragged
-    tiles, the bottom-right causal diagonal with Tq < Tk, one query row.
-    Tolerances as above; each launch counts on the design's counter."""
+    """bf16 at D 64 and 128 takes the tensor-core forward, dQ and dK/dV:
+    ragged tiles, the bottom-right causal diagonal with Tq < Tk, one query
+    row.  Tolerances as above; each launch counts on the design's
+    counter."""
     q, k, v = _qkv(cuda, torch.bfloat16, t_q, t_k, d)
     do = _qkv(cuda, torch.bfloat16, t_q, t_q, d, seed=1)[0]
-    names = (ta.KERNEL, ta.FWD_TC, ta.DQ_KERNEL, ta.DQ_TC)
+    names = (ta.KERNEL, ta.FWD_TC)
     before = {n: _build.launches.get(n, 0) for n in names}
     out, lse = ta.flash_attention(q, k, v, causal)
-    delta = (do.float() * out.float()).sum(-1)
-    dq = ta.flash_bwd_dq(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
     assert {n: _build.launches[n] - before[n] for n in names} == dict.fromkeys(names, 1)
     ref_out, ref_lse = ta.flash_attention_reference(q, k, v, causal)
     torch.testing.assert_close(out.float(), ref_out.float(), atol=1e-2, rtol=1e-2)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
-    ref_dq = ta.flash_dq_reference(q, k, v, do, lse, delta, causal)
-    torch.testing.assert_close(dq.float(), ref_dq.float(), atol=1e-2, rtol=1e-2)
+    delta = (do.float() * out.float()).sum(-1)
+    _check_tensor_core_backward(q, k, v, do, lse, delta, causal)
 
 
 def test_tensor_core_kernels_take_the_fused_projection_layout(cuda):
@@ -181,28 +213,39 @@ def test_tensor_core_kernels_take_the_fused_projection_layout(cuda):
     qkv = torch.randn(b, t, 3 * h * d, device=cuda).to(torch.bfloat16)
     q, k, v = (x.reshape(b, t, h, d).transpose(1, 2) for x in qkv.split(h * d, dim=-1))
     do = torch.randn(b, t, h * d, device=cuda).to(torch.bfloat16).reshape(b, t, h, d).transpose(1, 2)
-    before = _build.launches.get(ta.FWD_TC, 0), _build.launches.get(ta.DQ_TC, 0)
+    before = _build.launches.get(ta.FWD_TC, 0)
     out, lse = ta.flash_attention(q, k, v, True)
-    delta = (do.float() * out.float()).sum(-1)
-    dq = ta.flash_bwd_dq(q, k, v, do, lse, delta, True)
-    assert (_build.launches[ta.FWD_TC], _build.launches[ta.DQ_TC]) == (before[0] + 1, before[1] + 1)
+    assert _build.launches[ta.FWD_TC] == before + 1
     ref_out, ref_lse = ta.flash_attention_reference(q, k, v, True)
     torch.testing.assert_close(out.float(), ref_out.float(), atol=1e-2, rtol=1e-2)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
-    torch.testing.assert_close(dq.float(), ta.flash_dq_reference(q, k, v, do, lse, delta, True)
-                               .float(), atol=1e-2, rtol=1e-2)
+    delta = (do.float() * out.float()).sum(-1)
+    _check_tensor_core_backward(q, k, v, do, lse, delta, True)
+
+
+def _bwd_inputs_256(cuda):
+    q, k, v = _qkv(cuda, torch.bfloat16, 256, 256, 64)
+    do = _qkv(cuda, torch.bfloat16, 256, 256, 64, seed=1)[0]
+    out, lse = ta.flash_attention(q, k, v, True)
+    return q, k, v, do, lse, (do.float() * out.float()).sum(-1)
 
 
 def test_tensor_core_dq_is_deterministic(cuda):
     """Each block owns its dQ tile and loops over K/V in a fixed order: no
     atomics, the same bits on every call."""
-    q, k, v = _qkv(cuda, torch.bfloat16, 256, 256, 64)
-    do = _qkv(cuda, torch.bfloat16, 256, 256, 64, seed=1)[0]
-    out, lse = ta.flash_attention(q, k, v, True)
-    delta = (do.float() * out.float()).sum(-1)
-    first = ta.flash_bwd_dq(q, k, v, do, lse, delta, True)
-    second = ta.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    args = _bwd_inputs_256(cuda)
+    first = ta.flash_bwd_dq(*args, True)
+    second = ta.flash_bwd_dq(*args, True)
     assert torch.equal(first, second)
+
+
+def test_tensor_core_dkv_is_deterministic(cuda):
+    """Each block owns its dK/dV tile and loops over Q/dO in a fixed order:
+    the same bits on every call."""
+    args = _bwd_inputs_256(cuda)
+    first = ta.flash_bwd_dkv(*args, True)
+    second = ta.flash_bwd_dkv(*args, True)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 def test_tensor_core_kernels_reject_misaligned_rows(cuda):
@@ -219,6 +262,8 @@ def test_tensor_core_kernels_reject_misaligned_rows(cuda):
     lse = torch.zeros(2, 3, 40, device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
         ta.flash_bwd_dq(q, k, v, x, lse, lse, True)
+    with pytest.raises(ValueError, match="flash_bwd_dkv.*16-byte"):
+        ta.flash_bwd_dkv(q, k, v, x, lse, lse, True)
     assert dict(_build.launches) == before
 
 
