@@ -17,38 +17,55 @@ the backward kernels):
    serving shapes, at small f32 shapes, at the tensor-core design's
    edges (bf16 at D 64 and 128: ragged 97 x 131, causal 128 x 256 with
    the diagonal at the bottom right, one query row, the fused-projection
-   layout) and at both training paths' shapes and layouts (GPT-2 B 6 x
-   T 1024; Llama's GQA, B 2 x T 2048), the two backward kernels at those
-   training shapes and edges and at small f32, rectangular and ragged
-   shapes (dQ, dK and dV bit-identical across two calls); each kernel's time beside
-   the plain version's, one library call's and the bound the card sets,
-   at the shapes the main paths give it.
+   layout; ragged and fused non-causal at D 64), at both training paths'
+   shapes and layouts (GPT-2 B 6 x T 1024; Llama's GQA, B 2 x T 2048)
+   and non-causal at BERT's (16 x 128 and 4 x 512), the two backward
+   kernels at those training shapes and edges and at small f32,
+   rectangular and ragged shapes (dQ, dK and dV bit-identical across two
+   calls); each kernel's time beside the plain version's, one library
+   call's and the bound the card sets, at the shapes the main paths give
+   it.
 3. ``parity``: tiny GPT-2 and Llama in f32 (and GPT-2 at full width, two
    layers) with the same weights on the CPU and on the card: the prefill
    logits agree and the greedy token streams are equal.
-4. ``train_parity``: tiny GPT-2 and Llama in f32, 5 train steps from the
-   same weights on the CPU and on the card (remat "dots" on the card):
-   per-step losses and final params agree; GPT-2 at full width with two
-   layers: the loss and every gradient leaf agree.
-5. ``serve_gpt2``: GPT-2 125M in bf16 through ``GenerationEngine``: 16
+4. ``bert_parity``: tiny BERT and BERT-base's width with two layers, f32,
+   CPU and card, with and without token types: logits and labels.
+5. ``train_parity``: tiny GPT-2, Llama and GPT-2 with 4 experts in f32,
+   5 train steps from the same weights on the CPU and on the card (remat
+   "dots" on the card): per-step losses and final params agree; GPT-2 at
+   full width with two layers: the loss and every gradient leaf agree.
+6. ``mlp``: the MNIST MLP in f32, CPU and card: loss, gradients,
+   accuracy, and ``TorchPredictor`` labels of 10,000 inputs.
+7. ``serve_gpt2``: GPT-2 125M in bf16 through ``GenerationEngine``: 16
    slots, 32 requests of 16-99 random prompt tokens (numpy
    ``default_rng(0)``), 128 new tokens each.  Launch counts are set to 0
    just before the requests and read just after.
-6. ``decode_profile``: one eager decode step of GPT-2 125M at 17 slots:
+8. ``decode_profile``: one eager decode step of GPT-2 125M at 17 slots:
    host enqueue time, device time and kernels per step.
-7. ``serve_llama``: Llama 125M, the same traffic.
-8. ``train_gpt2``: the training path, GPT-2 125M at full width (bf16
-   compute over f32 master weights, remat "dots"), B 6 x T 1024,
-   ``make_optimizer(lr=3e-4)``: 3 warm-up steps, then 20 timed steps in
-   3 windows (the shape of ``bench.py``'s train loop).  Launch counts are
-   set to 0 just before the first step and read just after the last.
-9. ``train_profile``: one such step under ``torch.profiler``: device busy
-   and idle share, the three kernels' share of the step, top kernels.
-10. ``train_llama``: Llama 125M, B 2 x T 2048, 2 warm-up and 5 timed steps.
+9. ``serve_llama``: Llama 125M, the same traffic.
+10. ``serve_bert``: BERT-base in bf16 through ``Checkpoint`` and
+    ``TorchPredictor``, ``bench.py``'s config-5 traffic (768 sequences
+    of 128 ids in batches of 16): sequences/s, batch latency, device
+    work and idle share of one profiled batch.  Launch counts are set to
+    0 just before the batches and read just after.
+11. ``train_gpt2``: the training path, GPT-2 125M at full width (bf16
+    compute over f32 master weights, remat "dots"), B 6 x T 1024,
+    ``make_optimizer(lr=3e-4)``: 3 warm-up steps, then 20 timed steps in
+    3 windows (the shape of ``bench.py``'s train loop).  Launch counts are
+    set to 0 just before the first step and read just after the last.
+12. ``train_profile``: one such step under ``torch.profiler``: device busy
+    and idle share, the three kernels' share of the step, time by kind,
+    top kernels.
+13. ``train_llama``: Llama 125M, B 2 x T 2048, 2 warm-up and 5 timed steps.
+14. ``train_gpt2_moe``: GPT-2 125M's width with 4 Switch experts, B 6 x
+    T 1024, 2 warm-up and 5 timed steps; ``train_gpt2_moe_profile``, one
+    step under the profiler; ``train_gpt2_moe_layer``, one layer's MoE
+    FFN against the dense FFN (device time) and the MoE's share of the
+    step.
 
 Every bf16 launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 on the serving and training paths has to run the tensor-core design
-(their ``_tc`` launch counts equal their totals; ``train_profile`` finds
+(their ``_tc`` launch counts equal their totals; the profiled steps find
 only the ``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
 summed over the serving and training runs, and per run), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
@@ -86,6 +103,13 @@ SERVE = dict(n_slots=16, max_new_tokens=NEW_TOKENS, decode_chunk_steps=64,
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_WINDOWS = 6, 3, (7, 7, 6)
 # Llama 125M at its T 2048: B 2, 2 warm-up and 5 timed steps
 LLAMA_BATCH, LLAMA_WARMUP, LLAMA_WINDOWS = 2, 2, (5,)
+# GPT-2 125M's width with 4 Switch experts (cf 2.0, aux 0.01), GPT-2's
+# batch: 2 warm-up and 5 timed steps
+MOE_EXPERTS, MOE_WARMUP, MOE_WINDOWS = 4, 2, (5,)
+# bench.py's serve_bert traffic (BASELINE config 5): 64 clients x 12
+# requests of 128 token ids in [1, 30522), @serve.batch(max_batch_size=16)
+# batches padded to 16; 3 warm-up batches first
+BERT_REQUESTS, BERT_SEQ, BERT_BATCH, BERT_WARMUP, BERT_ID_HIGH = 64 * 12, 128, 16, 3, 30522
 
 
 _T0 = time.perf_counter()
@@ -117,7 +141,7 @@ def gpu_clocks() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, calls: int = 10, warmup: int = 3, tries: int = 3) -> float:
+def device_ms(fn, calls: int = 10, warmup: int = 3, tries: int = 6, counts=None) -> float:
     """Device time of one call of ``fn`` in ms as the sum of its kernels'
     own durations under torch.profiler (user annotations excluded), over
     ``calls`` calls after a warm-up (a warm L2).  Host time between
@@ -128,14 +152,20 @@ def device_ms(fn, calls: int = 10, warmup: int = 3, tries: int = 3) -> float:
     library time this script prints is taken this way.
 
     Each call launches the same kernels, so a session whose kernel count
-    is not a positive multiple of ``calls`` lost records (one session of
-    a run once came back with none); it is run again, up to ``tries``
-    times."""
+    is not a positive multiple of ``calls`` lost records (on an H100,
+    sessions have come back with none, and three in a row with 0, 0 and
+    9 events for 10 calls of one kernel); it is run again, up to
+    ``tries`` times.  Given a list ``counts``, ``fn`` may launch a number
+    of kernels that is no multiple of ``calls`` or varies (on an H100: the
+    MoE's forward, 405-427 in 10 calls from session to session; the dense
+    FFN's forward and backward, 237 in every session): all ``tries``
+    sessions run, their counts go into ``counts``, and the session with
+    the most events is taken, as a lost record can only lower the count."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    counts = []
+    varying, sessions = counts is not None, []
     for _ in range(tries):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(calls):
@@ -144,11 +174,15 @@ def device_ms(fn, calls: int = 10, warmup: int = 3, tries: int = 3) -> float:
         kernels = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)]
-        if kernels and len(kernels) % calls == 0:
-            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
-        counts.append(len(kernels))
-    raise RuntimeError(f"device_ms: the profiler recorded {counts} device events "
-                       f"for {calls} calls in {tries} sessions")
+        ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
+        if kernels and len(kernels) % calls == 0 and not varying:
+            return ms
+        sessions.append((len(kernels), ms))
+    if varying and max(sessions)[0]:
+        counts.extend(n for n, _ in sessions)
+        return max(sessions)[1]
+    raise RuntimeError(f"device_ms: the profiler recorded {[n for n, _ in sessions]} device "
+                       f"events for {calls} calls in {tries} sessions")
 
 
 def num_params(tree) -> int:
@@ -280,7 +314,15 @@ def flash_bound_ms(kernel, b, h, tq, tk, d, causal, dtype=torch.bfloat16):
 # row, and (a 9th field) the fused projection's strided layout
 TC_EDGE_CASES = [(2, 3, 97, 131, 64, True, torch.bfloat16), (2, 3, 97, 131, 128, True, torch.bfloat16),
                  (2, 3, 128, 256, 64, True, torch.bfloat16), (2, 3, 1, 77, 64, True, torch.bfloat16),
-                 (2, 4, 150, 150, 64, True, torch.bfloat16, "fused")]
+                 (2, 4, 150, 150, 64, True, torch.bfloat16, "fused"),
+                 # non-causal (BERT): ragged at D 64, and the fused layout
+                 (2, 3, 97, 131, 64, False, torch.bfloat16),
+                 (2, 4, 150, 150, 64, False, torch.bfloat16, "fused")]
+
+# BERT-base's attention (non-causal, bf16, D 64, q/k/v views of one fused
+# projection): serve_bert's 16 x 128 batch, and a 4 x 512 one at the
+# model's longest sequence
+BERT_ATTN_SHAPES = {"serve_bert 16x128": (16, 12, 128, 64), "bert 4x512": (4, 12, 512, 64)}
 
 
 def phase_kernels():
@@ -357,9 +399,33 @@ def phase_kernels():
             "shape": f"{b}x{h}x{t}x{t}x{d} bf16 causal, {kv} KV heads",
             "max_abs_err": train_err, "ms": train["kernel"], "plain_ms": train["plain"],
             "bound_ms": t_bound, "bound_by": t_by, "library_ms": train["library"]}
+    # BERT's shapes, non-causal: the serving path of bert runs it 12 times a
+    # batch
+    main["at_bert_shapes"] = {}
+    for i, (name, (b, h, t, d)) in enumerate(BERT_ATTN_SHAPES.items()):
+        q, k, v, _ = _model_qkv(b, h, h, t, d, seed=111 + i)
+        build.reset_launches()
+        out, lse = attn.flash_attention(q, k, v, False)
+        torch.cuda.synchronize()
+        check(build.launches.get(attn.FWD_TC, 0) == 1, f"flash_fwd at {name}: not on the tensor cores")
+        ref_out, ref_lse = attn.flash_attention_reference(q, k, v, False)
+        err, excess = _excess(out, ref_out, 1e-2)
+        err_lse = (lse - ref_lse).abs().max().item()
+        check(excess <= 0 and err_lse <= 1e-4,
+              f"flash_fwd non-causal at {name}: max err {err}, lse {err_lse}")
+        timed = {"kernel": device_ms(lambda: attn.flash_attention(q, k, v, False)),
+                 "plain": device_ms(lambda: attn.flash_attention_reference(q, k, v, False)),
+                 "library": device_ms(lambda: sdpa(q, k, v, is_causal=False))}
+        t_bound, t_by = flash_bound_ms(attn.KERNEL, b, h, t, t, d, False)
+        main["at_bert_shapes"][name] = {
+            "shape": f"{b}x{h}x{t}x{t}x{d} bf16 non-causal, fused qkv views",
+            "max_abs_err": err, "max_abs_err_lse": err_lse, "ms": timed["kernel"],
+            "plain_ms": timed["plain"], "bound_ms": t_bound, "bound_by": t_by,
+            "library_ms": timed["library"]}
     emit("kernels", cases=results, main_shape="16x12x128x128x64 bf16 causal",
          tolerance={"f32_out": "1e-5 + 1e-5|ref|", "bf16_out": "1e-2 + 1e-2|ref|",
                     "bf16_out_train_shapes": "2e-2 (one bf16 ulp below |out| 4)",
+                    "bf16_out_bert_shapes": "1e-2 + 1e-2|ref|",
                     "lse": 1e-4},
          kernel_ms=main["ms"], bound_us=bound_ms * 1e3,
          clocks_sm_max_power_after_timing=clocks, **main)
@@ -536,7 +602,8 @@ def phase_parity():
 
 def phase_train_parity():
     """The same weights and batches on the CPU and on the card, f32 with
-    TF32 off.  Tiny GPT-2 and Llama: 5 train steps of
+    TF32 off.  Tiny GPT-2, Llama and GPT-2 with 4 Switch experts: 5 train
+    steps of
     ``make_optimizer(lr=1e-3, warmup=2, total_steps=10)``, remat "dots" on
     the card and none on the CPU; per-step losses within 1e-4 and final
     params within 2e-4 (a fifth of one Adam step at lr 1e-3).  The sums
@@ -550,8 +617,10 @@ def phase_train_parity():
 
     rows = []
     rng = np.random.default_rng(1)
+    moe_tiny = lambda **kw: gpt2.GPT2Config.tiny(n_experts=MOE_EXPERTS, **kw)
     for name, mod, cfg_fn in (("gpt2_tiny", gpt2, gpt2.GPT2Config.tiny),
-                              ("llama_tiny", llama, llama.LlamaConfig.tiny)):
+                              ("llama_tiny", llama, llama.LlamaConfig.tiny),
+                              ("gpt2_moe_tiny", gpt2, moe_tiny)):
         cfgs = {"cpu": cfg_fn(dtype=torch.float32),
                 "cuda": cfg_fn(dtype=torch.float32, remat=True, remat_policy="dots")}
         params = mod.init(cfgs["cpu"], torch.Generator().manual_seed(2), device="cpu")
@@ -613,12 +682,12 @@ def _train_batch(vocab, b, t):
             "targets": torch.from_numpy(rng.integers(0, vocab, (b, t), np.int32)).long().cuda()}
 
 
-def train(family: str, cfg, batch_size: int, warmup: int, windows):
+def train(family: str, cfg, batch_size: int, warmup: int, windows, phase: str = None):
     """The training path through the port's entry points: ``init_state``,
     ``make_optimizer(lr=3e-4)``, ``make_train_step``; ``warmup`` steps,
     then timed windows of steps (host clock, each ending in a loss read).
     Launch counts are set to 0 just before the first step and read just
-    after the last."""
+    after the last.  Emits ``phase`` (``train_<family>`` when None)."""
     from ray_tpu_torch.models import gpt2, llama
     from ray_tpu_torch.util import flops
 
@@ -661,7 +730,9 @@ def train(family: str, cfg, batch_size: int, warmup: int, windows):
     n_params = mod.num_params(state["params"])
     fpt = flops.model_flops_per_token(cfg, n_params)
     kind = torch.cuda.get_device_name(0)
-    row = {"model": f"{family} 125M bf16 (f32 master weights), remat {cfg.remat_policy}",
+    experts = (f", {cfg.n_experts} experts (cf {cfg.capacity_factor}, aux "
+               f"{cfg.moe_aux_weight})" if getattr(cfg, "n_experts", 0) else "")
+    row = {"model": f"{family} 125M{experts} bf16 (f32 master weights), remat {cfg.remat_policy}",
            "params": n_params, "batch": batch_size, "seq_len": cfg.max_seq_len,
            "steps": n_steps, "warmup_steps": warmup, "windows": list(windows),
            "setup_s": setup_s, "warmup_s": warmup_s, "ms_per_step_by_window": ms_per_step,
@@ -671,27 +742,31 @@ def train(family: str, cfg, batch_size: int, warmup: int, windows):
            "mfu_best": flops.mfu(tok_s[-1], fpt, kind),
            "peak_mem_bytes": peak, "first_loss": first_loss, "window_last_losses": losses,
            "launches": launches, "launches_per_step": per_step}
-    emit(f"train_{family}", **row)
+    emit(phase or f"train_{family}", **row)
     return state, step, batch, launches, row
 
 
 # the device work of a step by kind, matched on the kernel's name in order
 _KINDS = (("flash attention", ("flash_fwd_kernel", "flash_bwd_")),
           ("matrix products", ("nvjet", "gemm", "cutlass", "xmma")),
+          ("indexing and scans (MoE routing, embeddings)",
+           ("index", "Index", "gather", "scatter", "scan", "embedding")),
           ("optimizer (foreach)", ("multi_tensor_apply",)),
           ("reductions", ("reduce_kernel",)),
           ("copies and casts", ("copy", "Memcpy", "Memset")),
           ("elementwise", ("elementwise",)))
 
 
-def phase_train_profile(state, step, batch, ms_per_step):
+def phase_train_profile(state, step, batch, ms_per_step, phase="train_profile",
+                        model="gpt2 125M bf16, B 6 x T 1024, remat dots"):
     """Where one training step's device time goes.  Device wall per step
     from CUDA events around 3 unprofiled steps; then one step under
     torch.profiler: kernel time (user annotations excluded, they overlap
     the kernels), the three flash kernels' time and share, the time by
     kind of kernel, and the top kernels.  The profiler slows the host, so
     the idle share is taken against the unprofiled device wall; the
-    profiled step's own wall is printed beside it."""
+    profiled step's own wall is printed beside it.  Returns the step's
+    device work in ms."""
     ev = lambda: torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start, end = ev(), ev()
@@ -712,7 +787,7 @@ def phase_train_profile(state, step, batch, ms_per_step):
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
-    check(bool(dev_events), "train_profile: the profiler saw no device time")
+    check(bool(dev_events), f"{phase}: the profiler saw no device time")
     by_name = {}
     for e in dev_events:
         n, us = by_name.get(e.name, (0, 0.0))
@@ -728,15 +803,14 @@ def phase_train_profile(state, step, batch, ms_per_step):
     for kern in flash:
         check(flash[kern]["launches"] > 0
               and flash[kern]["tensor_core_launches"] == flash[kern]["launches"],
-              f"train_profile: {kern} ran other kernels than the tensor-core design: {flash}")
+              f"{phase}: {kern} ran other kernels than the tensor-core design: {flash}")
     kinds = {}
     for n, (c, us) in by_name.items():
         kind = next((k for k, keys in _KINDS if any(key in n for key in keys)), "other")
         kc, kms = kinds.get(kind, (0, 0.0))
         kinds[kind] = (kc + c, kms + us / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
-    emit("train_profile", model="gpt2 125M bf16, B 6 x T 1024, remat dots",
-         step_device_wall_ms=wall_ms, host_ms_per_step=ms_per_step,
+    emit(phase, model=model, step_device_wall_ms=wall_ms, host_ms_per_step=ms_per_step,
          profiled_step_device_wall_ms=profiled_ms, device_busy_ms=busy_ms,
          busy_share=busy_ms / wall_ms, idle_share=1 - busy_ms / wall_ms,
          kernels_in_step=len(dev_events), flash=flash,
@@ -746,6 +820,7 @@ def phase_train_profile(state, step, batch, ms_per_step):
          top_kernels=[{"name": n[:100], "count": c, "ms": us / 1e3, "share_of_step": us / 1e3 / wall_ms}
                       for n, (c, us) in top],
          loss=m["loss"].item())
+    return busy_ms
 
 
 def serve(family: str):
@@ -880,6 +955,242 @@ def phase_decode_profile(params, cfg, n_slots: int, max_len: int):
                                    for n, (c, us) in top])
 
 
+def phase_bert_parity():
+    """Tiny BERT, and BERT-base's width with two layers, in f32 (TF32 off):
+    the same weights and tokens on the CPU and on the card, with and
+    without token types.  The logits agree within 1e-4 (post-LN keeps
+    them small: the pooler's tanh, then a 0.02-scale classifier) and the
+    argmax labels are equal.  The card runs the non-causal CUDA-core
+    forward (f32), once per layer per call."""
+    from ray_tpu_torch.models import bert
+
+    rows, atol = [], 1e-4
+    rng = np.random.default_rng(3)
+    for name, cfg in (("bert_tiny", bert.BertConfig.tiny(dtype=torch.float32)),
+                      ("bert_base_2layers", bert.BertConfig.base(n_layers=2, dtype=torch.float32))):
+        params = bert.init(cfg, torch.Generator().manual_seed(4), device="cpu")
+        toks = rng.integers(0, cfg.vocab_size, (4, 96))
+        types = rng.integers(0, cfg.type_vocab_size, (4, 96))
+        bert.check_tokens(toks, cfg, types)
+        out = {}
+        for dev, p in (("cpu", params), ("cuda", _to(params, "cuda"))):
+            build.reset_launches()
+            with torch.inference_mode():
+                for with_types in (False, True):
+                    tt = torch.from_numpy(types).to(dev) if with_types else None
+                    out[dev, with_types] = bert.apply(p, torch.from_numpy(toks).to(dev), cfg,
+                                                      tt).cpu()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                check(build.launches.get(attn.KERNEL, 0) == 2 * cfg.n_layers,
+                      f"{name}: {dict(build.launches)} flash launches, want {2 * cfg.n_layers}")
+        errs = {}
+        for with_types in (False, True):
+            cpu, card = out["cpu", with_types], out["cuda", with_types]
+            check(bool(torch.isfinite(card).all()), f"{name}: non-finite logits on the card")
+            errs[with_types] = (card - cpu).abs().max().item()
+            check(errs[with_types] <= atol, f"{name}: logits differ by {errs[with_types]}")
+            check(torch.equal(card.argmax(-1), cpu.argmax(-1)), f"{name}: labels differ")
+        rows.append({"model": name, "batch": "4 x 96", "atol": atol,
+                     "logits_max_abs_err": errs[False],
+                     "logits_max_abs_err_with_token_types": errs[True], "labels_equal": True})
+    emit("bert_parity", models=rows)
+
+
+def serve_bert():
+    """BASELINE config 5's replica body (``bench.py`` ``run_serve_bench``'s
+    ``Bert``) without the Serve runtime: BERT-base at full width in bf16,
+    random weights from seed 0, loaded as a user would,
+    ``Checkpoint.from_dict`` -> ``to_directory`` -> ``from_directory`` ->
+    ``TorchPredictor.from_checkpoint``.  The blocks are cast to bf16 once
+    before the checkpoint is written (``serve/llm.py``'s ``_cast_params``);
+    the embeddings, their norm, the pooler and the classifier stay f32, as
+    ``bert.apply`` reads them.  Traffic: ``BERT_REQUESTS`` sequences of
+    ``BERT_SEQ`` ids in batches of ``BERT_BATCH`` (a short batch padded
+    with zeros), each batch checked on the host, predicted, labels read
+    back; ``BERT_WARMUP`` batches first.  Launch counts are set to 0 just
+    before the batches and read just after: ``flash_fwd`` runs once per
+    layer per batch, on the tensor cores.  Then one batch under
+    torch.profiler (device work, kernels per batch, idle share against
+    the median batch's host wall), and batch 0's logits against the same
+    weights in f32 on the card (CUDA-core attention), within 5e-2 (bf16
+    through 12 blocks), with equal labels wherever the f32 logits' margin
+    exceeds twice that."""
+    import dataclasses
+    import tempfile
+
+    from ray_tpu_torch.air import Checkpoint
+    from ray_tpu_torch.models import bert
+    from ray_tpu_torch.train import TorchPredictor
+
+    cfg = bert.BertConfig.base()
+    t0 = time.perf_counter()
+    params = bert.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    served = dict(params, blocks={k: v.to(cfg.dtype) for k, v in params["blocks"].items()})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Checkpoint.from_dict({"params": served}).to_directory(os.path.join(tmp, "bert"))
+        ckpt_bytes = sum(e.stat().st_size for e in os.scandir(path))
+        pred = TorchPredictor.from_checkpoint(Checkpoint.from_directory(path),
+                                              lambda p, toks: bert.apply(p, toks, cfg),
+                                              device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    def replica(toks):  # bench.py's Bert.__call__
+        n = len(toks)
+        if n < BERT_BATCH:  # one static batch shape for every arrival pattern
+            toks = np.concatenate([toks, np.zeros((BERT_BATCH - n, toks.shape[1]), toks.dtype)])
+        bert.check_tokens(toks, cfg)
+        logits = pred.predict(toks)
+        return logits[:n].argmax(-1), logits[:n]
+
+    requests = np.random.default_rng(0).integers(1, BERT_ID_HIGH, (BERT_REQUESTS, BERT_SEQ))
+    batches = [requests[i:i + BERT_BATCH] for i in range(0, BERT_REQUESTS, BERT_BATCH)]
+    for b in batches[:BERT_WARMUP]:
+        replica(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat, labels, logits = [], [], []
+    build.reset_launches()
+    t_start = time.perf_counter()
+    for b in batches:
+        t0 = time.perf_counter()
+        lab, lg = replica(b)
+        lat.append(time.perf_counter() - t0)
+        labels.append(lab)
+        logits.append(lg)
+    wall = time.perf_counter() - t_start
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers * len(batches)
+    got = (launches.get(attn.KERNEL, 0), launches.get(attn.FWD_TC, 0))
+    check(got == (want, want), f"serve_bert: flash_fwd launches (all, tensor-core) {got}, "
+                               f"want {want} each")
+    logits = np.concatenate(logits)
+    check(logits.shape == (BERT_REQUESTS, cfg.num_classes) and bool(np.isfinite(logits).all()),
+          f"serve_bert: logits of shape {logits.shape}, finite {np.isfinite(logits).all()}")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        replica(batches[0])
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+    check(bool(dev_events), "serve_bert: the profiler saw no device time")
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    by_name = {}
+    for e in dev_events:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    flash_ms = sum(us for n, (_, us) in by_name.items() if "flash_fwd_kernel" in n) / 1e3
+
+    ref_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.inference_mode():
+        ref = bert.apply(_to(params, "cuda"), torch.from_numpy(batches[0]).cuda(), ref_cfg).cpu().numpy()
+    tol = 5e-2
+    err = float(np.abs(logits[:BERT_BATCH] - ref).max())
+    check(err <= tol, f"serve_bert: bf16 logits differ from f32 by {err}")
+    sure = np.abs(ref[:, 0] - ref[:, 1]) > 2 * tol
+    check(bool((labels[0][sure] == ref.argmax(-1)[sure]).all()),
+          "serve_bert: a bf16 label differs from f32 where the margin is clear")
+    p50 = pct(lat, 0.5) * 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    emit("serve_bert", model="bert-base bf16 (blocks bf16; embeddings, pooler, classifier f32)",
+         params=num_params(params), checkpoint_bytes=ckpt_bytes, load_s=load_s,
+         requests=BERT_REQUESTS, seq_len=BERT_SEQ, batch=BERT_BATCH, batches=len(batches),
+         warmup_batches=BERT_WARMUP, wall_s=wall, sequences_per_s=BERT_REQUESTS / wall,
+         batch_p50_ms=p50, batch_p99_ms=pct(lat, 0.99) * 1e3, batch_max_ms=max(lat) * 1e3,
+         device_ms_per_batch=busy_ms, kernels_per_batch=len(dev_events),
+         flash_ms_per_batch=flash_ms, idle_share_vs_p50=1 - busy_ms / p50,
+         peak_mem_bytes=peak, launches=launches, flash_launches_per_batch=want / len(batches),
+         label_counts=np.bincount(np.concatenate(labels), minlength=cfg.num_classes).tolist(),
+         batch0_logits_max_abs_err_vs_f32=err, tolerance_vs_f32=tol,
+         batch0_labels_checked=int(sure.sum()),
+         top_kernels=[{"name": n[:100], "count": c, "ms": us / 1e3} for n, (c, us) in top])
+    return launches
+
+
+def moe_layer_ms(cfg, b: int, t: int) -> dict:
+    """The device time of one layer's FFN at a train step's shape, as the
+    step runs it (f32 master weights cast to bf16 inside, the router f32):
+    the Switch MoE and, beside it, the dense FFN of the same width;
+    forward, and forward with backward (``device_ms``, each session's
+    kernel count beside it)."""
+    from ray_tpu_torch.ops import moe
+
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    g = torch.Generator().manual_seed(5)
+    mp = {k: v[0].clone().requires_grad_(True)
+          for k, v in moe.init_moe_params(g, 1, D, Fd, E, device="cuda").items()}
+    dp = {"w1": (torch.randn(D, Fd, generator=g) * 0.02).cuda().requires_grad_(True),
+          "b1": torch.zeros(Fd, device="cuda", requires_grad=True),
+          "w2": (torch.randn(Fd, D, generator=g) * 0.02).cuda().requires_grad_(True),
+          "b2": torch.zeros(D, device="cuda", requires_grad=True)}
+    x = torch.randn(b, t, D, device="cuda").to(cfg.dtype).requires_grad_(True)
+    dy = torch.randn(b, t, D, device="cuda").to(cfg.dtype)
+    c = lambda w: w.to(cfg.dtype)
+
+    def moe_fwd():
+        return moe.moe_ffn(x, mp["router"], c(mp["ew1"]), c(mp["eb1"]), c(mp["ew2"]),
+                           c(mp["eb2"]), capacity_factor=cfg.capacity_factor)
+
+    def dense_fwd():
+        h = torch.nn.functional.gelu(x @ c(dp["w1"]) + c(dp["b1"]), approximate="tanh")
+        return h @ c(dp["w2"]) + c(dp["b2"])
+
+    def moe_fwd_bwd():
+        y, aux = moe_fwd()
+        torch.autograd.grad((y, aux), [x, *mp.values()], (dy, torch.ones_like(aux)))
+
+    def dense_fwd_bwd():
+        torch.autograd.grad(dense_fwd(), [x, *dp.values()], dy)
+
+    fns = {"moe_fwd": moe_fwd, "moe_fwd_bwd": moe_fwd_bwd, "dense_fwd": dense_fwd,
+           "dense_fwd_bwd": dense_fwd_bwd}
+    counts = {name: [] for name in fns}
+    out = {f"{name}_ms": device_ms(fn, counts=counts[name]) for name, fn in fns.items()}
+    return {**out, "kernels_in_10_calls_by_session": counts}
+
+
+def phase_mlp():
+    """BASELINE config 2's MLP (784-512-256-10) in f32, TF32 off: the same
+    weights and batch on the CPU and on the card.  The loss within 1e-5,
+    every gradient leaf within 1e-4 of its largest entry, accuracy equal;
+    then ``TorchPredictor`` labels of 10,000 synthetic inputs on the card
+    equal the CPU's."""
+    from ray_tpu_torch.models import mlp
+    from ray_tpu_torch.train import TorchPredictor
+
+    cfg = mlp.MLPConfig()
+    params = mlp.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((256, cfg.in_dim)).astype(np.float32)
+    y = rng.integers(0, cfg.num_classes, 256)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev, copy=True).requires_grad_(True) for k, v in params.items()}
+        batch = {"x": torch.from_numpy(x).to(dev), "y": torch.from_numpy(y).to(dev)}
+        loss = mlp.loss_fn(p, batch, cfg)
+        loss.backward()
+        res[dev] = (loss.item(), {k: t.grad.cpu() for k, t in p.items()},
+                    mlp.accuracy(p, batch, cfg).item())
+    loss_err = abs(res["cpu"][0] - res["cuda"][0])
+    check(loss_err <= 1e-5, f"mlp: loss differs by {loss_err}")
+    worst = max((res["cuda"][1][k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                for k, g in res["cpu"][1].items())
+    check(worst <= 1e-4, f"mlp: a gradient differs by {worst} of its largest entry")
+    check(res["cpu"][2] == res["cuda"][2], f"mlp: accuracy {res['cpu'][2]} vs {res['cuda'][2]}")
+    images = rng.standard_normal((10_000, cfg.in_dim)).astype(np.float32)
+    apply = lambda p, xb: mlp.apply(p, xb, cfg)
+    labels = {dev: TorchPredictor(params, apply, device=dev).predict(images).argmax(-1)
+              for dev in ("cpu", "cuda")}
+    check(bool((labels["cpu"] == labels["cuda"]).all()), "mlp: predictor labels differ")
+    emit("mlp", model="mlp 784-512-256-10 f32", batch=256, loss_cpu=res["cpu"][0],
+         loss_cuda=res["cuda"][0], loss_abs_err=loss_err, grad_max_err_over_leaf_max=worst,
+         accuracy=res["cuda"][2], predictor_inputs=len(images), predictor_labels_equal=True,
+         label_counts=np.bincount(labels["cuda"], minlength=cfg.num_classes).tolist())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -893,13 +1204,17 @@ def main() -> int:
     fwd = phase_kernels()
     bwd = phase_bwd_kernels()
     phase_parity()
+    phase_bert_parity()
     phase_train_parity()
+    phase_mlp()
     serve_gpt2, params, cfg = serve("gpt2")
     n_slots = SERVE["n_slots"] + 1
     max_len = SERVE["prefill_buckets"][-1] + NEW_TOKENS + SERVE["decode_chunk_steps"]
     phase_decode_profile(params, cfg, n_slots, max_len)
     del params
     serve_llama = serve("llama")[0]
+    bert_launches = serve_bert()
+    torch.cuda.empty_cache()
 
     from ray_tpu_torch.models import gpt2, llama
     state, step, batch, train_launches, row = train(
@@ -909,9 +1224,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, _, _, llama_launches, _ = train("llama", llama.LlamaConfig.llama_125m(), LLAMA_BATCH,
                                        LLAMA_WARMUP, LLAMA_WINDOWS)
+    torch.cuda.empty_cache()
+    moe_cfg = gpt2.GPT2Config.gpt2_small(n_experts=MOE_EXPERTS)
+    state, step, batch, moe_launches, row = train(
+        "gpt2", moe_cfg, TRAIN_BATCH, MOE_WARMUP, MOE_WINDOWS, phase="train_gpt2_moe")
+    busy_ms = phase_train_profile(state, step, batch, row["ms_per_step_by_window"][0],
+                                  phase="train_gpt2_moe_profile",
+                                  model=f"{row['model']}, B {TRAIN_BATCH} x T {moe_cfg.max_seq_len}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    layer = moe_layer_ms(moe_cfg, TRAIN_BATCH, moe_cfg.max_seq_len)
+    # under remat "dots" each layer's MoE FFN runs forward, then forward
+    # again and backward (its bmm outputs are not saved); the dense FFN's
+    # mm outputs are saved, so the same sum is an upper bound for it
+    per_step = {k: moe_cfg.n_layers * (layer[f"{k}_fwd_bwd_ms"] + layer[f"{k}_fwd_ms"])
+                for k in ("moe", "dense")}
+    emit("train_gpt2_moe_layer", shape=f"B {TRAIN_BATCH} x T {moe_cfg.max_seq_len} x D "
+         f"{moe_cfg.d_model}, {moe_cfg.n_experts} experts of d_ff {moe_cfg.d_ff}", **layer,
+         moe_ms_per_step=per_step["moe"], dense_ffn_ms_per_step=per_step["dense"],
+         moe_share_of_step_device_work=per_step["moe"] / busy_ms,
+         step_device_work_ms=busy_ms)
 
-    runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama,
-            "train_gpt2": train_launches, "train_llama": llama_launches}
+    runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama, "serve_bert": bert_launches,
+            "train_gpt2": train_launches, "train_llama": llama_launches,
+            "train_gpt2_moe": moe_launches}
     for r in (fwd, *bwd.values()):
         kern = r["name"]
         r["launches_by_path"] = {path: n.get(kern, 0) for path, n in runs.items()

@@ -3,7 +3,9 @@
 The JAX package's params are a dict pytree with stacked ``[L, ...]``
 block leaves and weights laid out ``(in, out)`` for ``x @ W``.  The port
 keeps exactly that layout (its layers compute ``x @ W`` too), so the
-conversion is a leaf-by-leaf copy with no transpose.
+conversion is a leaf-by-leaf copy with no transpose.  That carries every
+model of the port: the decoders, BERT (``wtype``, ``pool_*``, ``cls_*``),
+the MLP (no ``blocks``) and the MoE leaves (``[L, E, ...]``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from ray_tpu_torch.models.transformer import named_leaves, train_state
 
 
 def _leaf(a: Any, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device, copy=True)
     a = np.array(a, order="C", copy=True)  # the port owns its weights
     if a.dtype.name == "bfloat16":
         # an ml_dtypes bfloat16 array, which torch.from_numpy refuses:
@@ -26,13 +30,14 @@ def _leaf(a: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def from_jax_params(np_params: Mapping[str, Any], cfg, device: DeviceLike = None
+def from_jax_params(np_params: Mapping[str, Any], cfg=None, device: DeviceLike = None
                     ) -> dict:
-    """The port's params for ``cfg`` from the JAX package's params as
-    numpy arrays (``jax.tree.map(np.asarray, params)``): the same tree of
-    dicts, each leaf a tensor on ``device`` (the card when None) in the
-    leaf's own dtype.  ``cfg`` is the port's config; its ``n_layers``
-    must match the stacked leaves."""
+    """The port's params from the JAX package's params as numpy arrays
+    (``jax.tree.map(np.asarray, params)``): the same tree of dicts, each
+    leaf a tensor on ``device`` (the card when None) in the leaf's own
+    dtype (a leaf that is a tensor already is copied).  Where the tree has
+    ``blocks``, every block leaf must stack the same number of layers,
+    and that number must be ``cfg.n_layers`` when a config is given."""
     dev = resolve_device(device)
 
     def convert(tree):
@@ -41,10 +46,11 @@ def from_jax_params(np_params: Mapping[str, Any], cfg, device: DeviceLike = None
         return _leaf(tree, dev)
 
     params = convert(np_params)
-    for name, leaf in params.get("blocks", {}).items():
-        if leaf.shape[0] != cfg.n_layers:
-            raise ValueError(f"blocks/{name} has {leaf.shape[0]} layers, "
-                             f"config says {cfg.n_layers}")
+    depths = {name: leaf.shape[0] for name, leaf in params.get("blocks", {}).items()}
+    wanted = set(depths.values()) | ({cfg.n_layers} if cfg is not None and depths else set())
+    if len(wanted) > 1:
+        raise ValueError(f"block leaves stack {depths} layers"
+                         + (f", config says {cfg.n_layers}" if cfg is not None else ""))
     return params
 
 

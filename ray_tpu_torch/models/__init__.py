@@ -1,2 +1,3 @@
-"""Decoder LMs of the port (GPT-2, Llama) over dict params with stacked
-``[L, ...]`` block leaves, and KV-cache generation (``generate``)."""
+"""Models of the port over dict params with stacked ``[L, ...]`` block
+leaves: the decoder LMs (GPT-2, dense or Switch-MoE; Llama), BERT, the
+MLP, and KV-cache generation (``generate``)."""

@@ -41,6 +41,12 @@ Cache = Dict[str, torch.Tensor]
 
 
 def family_of(cfg) -> str:
+    """``"gpt2"`` or ``"llama"``; raises for a config generation does not
+    take (an MoE GPT-2: the JAX package's generation has no MoE either)."""
+    if getattr(cfg, "n_experts", 0) > 0:
+        raise NotImplementedError(
+            "KV-cache generation has no MoE blocks (nor does the JAX package's); "
+            "use gpt2.apply for an MoE model's forward")
     if isinstance(cfg, LlamaConfig):
         return "llama"
     if isinstance(cfg, GPT2Config):
@@ -49,7 +55,7 @@ def family_of(cfg) -> str:
 
 
 def kv_heads(cfg) -> int:
-    return cfg.n_kv_heads if isinstance(cfg, LlamaConfig) else cfg.n_heads
+    return cfg.n_kv_heads if family_of(cfg) == "llama" else cfg.n_heads
 
 
 def init_cache(cfg, n_slots: int, max_len: int, device: DeviceLike = None) -> Cache:

@@ -1,7 +1,8 @@
 """GPT-2: the flagship decoder LM (GPT-2 125M), for inference and training.
 
 Counterpart of ``ray_tpu/models/gpt2.py``: the config, ``init``, the
-forward ``apply`` with the tied LM head in f32, the next-token loss, the
+forward ``apply`` with the tied LM head in f32, the next-token loss (plus
+``moe_aux_weight`` times the load-balance loss with experts), the
 AdamW recipe (:func:`make_optimizer`, the port's own copy of the optax
 chain the JAX package builds), ``make_train_step`` and ``init_state``.
 """
@@ -65,15 +66,17 @@ def init(cfg: GPT2Config, generator: Optional[torch.Generator] = None, *,
     }
 
 
-def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config
-          ) -> torch.Tensor:
-    """tokens [B, T] int -> logits [B, T, V] (f32)."""
+def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config, *,
+          return_aux: bool = False):
+    """tokens [B, T] int -> logits [B, T, V] (f32); with ``return_aux``,
+    ``(logits, aux)``, aux the MoE load-balance loss (0 when dense)."""
     B, T = tokens.shape
     x = params["wte"][tokens] + params["wpe"][:T]
     x = x.to(cfg.dtype)
-    x, _ = apply_stack(x, params["blocks"], cfg)
+    x, aux = apply_stack(x, params["blocks"], cfg)
     x = layernorm(x, params["lnf_w"].to(cfg.dtype), params["lnf_b"].to(cfg.dtype))
-    return (x @ params["wte"].T.to(cfg.dtype)).float()  # tied LM head
+    logits = (x @ params["wte"].T.to(cfg.dtype)).float()  # tied LM head
+    return (logits, aux) if return_aux else logits
 
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: GPT2Config
@@ -81,7 +84,11 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: GPT2Con
     """Next-token cross entropy (f32 scalar).  batch: ``{"tokens": [B,
     T+1]}`` or ``{"inputs": [B, T], "targets": [B, T]}``."""
     inputs, targets = split_batch(batch)
-    return cross_entropy_loss(apply(params, inputs, cfg), targets)
+    logits, aux = apply(params, inputs, cfg, return_aux=True)
+    loss = cross_entropy_loss(logits, targets)
+    if cfg.n_experts > 0:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +129,8 @@ class AdamW:
     betas (0.9, 0.95), eps 1e-8 and ``weight_decay``, its learning rate
     from the warmup-cosine schedule.  Weight decay goes to every leaf with
     ``ndim >= 2`` on the stacked tree, as optax's mask reads it: the
-    stacked block norms and biases are decayed, the final norm is not.
+    stacked block norms and biases are decayed, and so is every MoE leaf
+    (router, expert weights and biases); the final norm is not.
 
     Where it differs from optax, and by how much: ``clip_grad_norm_``
     scales by ``1 / (norm + 1e-6)`` where optax scales by ``1 / norm``, a

@@ -6,10 +6,10 @@ JAX package's layout: a dict of tensors, each with a leading ``[L, ...]``
 layer axis, and weights stored ``(in, out)`` so a layer computes
 ``x @ W``.  The forward is a Python loop over that axis (the JAX package
 scans it); when gradients are being recorded and ``cfg.remat`` is set,
-each layer runs under ``torch.utils.checkpoint`` (:func:`remat`).  A config
-with experts (MoE) or a mesh (pipeline or sequence parallel) raises
-``NotImplementedError``, and the post-LN order (BERT) comes with the BERT
-slice.
+each layer runs under ``torch.utils.checkpoint`` (:func:`remat`).  A block
+is pre-LN (GPT-2) or post-LN (``post_ln``, BERT), and its FFN dense or a
+Switch MoE of ``n_experts`` experts on one device (:mod:`ray_tpu_torch.ops.moe`).
+A mesh (pipeline, sequence or expert parallel) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.layers import layernorm
+from ray_tpu_torch.ops.moe import init_moe_params, moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +42,14 @@ class TransformerConfig:
     # "dots": save the weight products, recompute the rest; "full":
     # recompute everything (see remat())
     remat_policy: str = "dots"
-    n_experts: int = 0  # >0 (Switch MoE) is not ported yet
+    # pre-LN (GPT-2) by default; post-LN is original BERT's order
+    post_ln: bool = False
+    # MoE: >0 replaces every block's FFN with a Switch (top-1) MoE of this
+    # many experts, each holding capacity_factor * tokens / n_experts
+    # tokens; the loss adds moe_aux_weight * the load-balance loss
+    n_experts: int = 0
+    capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
 
     @property
     def head_dim(self) -> int:
@@ -51,10 +59,10 @@ class TransformerConfig:
 def init_block_params(cfg: TransformerConfig, generator: torch.Generator,
                       device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Stacked f32 block params, GPT-2 init (normal 0.02, residual
-    projections scaled by 1/sqrt(2L)).  Drawn on the CPU from
-    ``generator``, so a seed gives the same weights on every device."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE blocks are not ported yet")
+    projections scaled by 1/sqrt(2L)); with experts, the MoE leaves of
+    :func:`init_moe_params` in place of ``w1``/``b1``/``w2``/``b2``.  Drawn
+    on the CPU from ``generator``, so a seed gives the same weights on
+    every device."""
     dev = resolve_device(device)
     L, D, Fd = cfg.n_layers, cfg.d_model, cfg.d_ff
     std, res_std = 0.02, 0.02 / (2 * L) ** 0.5
@@ -69,20 +77,24 @@ def init_block_params(cfg: TransformerConfig, generator: torch.Generator,
         "wo": normal((L, D, D), res_std),
         "bo": torch.zeros(L, D),
         "ln2_w": torch.ones(L, D), "ln2_b": torch.zeros(L, D),
-        "w1": normal((L, D, Fd), std),
-        "b1": torch.zeros(L, Fd),
-        "w2": normal((L, Fd, D), res_std),
-        "b2": torch.zeros(L, D),
     }
+    if cfg.n_experts > 0:
+        p.update(init_moe_params(generator, L, D, Fd, cfg.n_experts,
+                                 std=std, res_std=res_std, device="cpu"))
+    else:
+        p.update({
+            "w1": normal((L, D, Fd), std),
+            "b1": torch.zeros(L, Fd),
+            "w2": normal((L, Fd, D), res_std),
+            "b2": torch.zeros(L, D),
+        })
     return {k: v.to(dev) for k, v in p.items()}
 
 
-def _check_dense(cfg: TransformerConfig, mesh) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE blocks are not ported yet")
+def _check_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "pipeline- and sequence-parallel forwards are not ported yet")
+            "pipeline-, sequence- and expert-parallel forwards are not ported yet")
 
 
 def named_leaves(tree: Dict[str, Any], prefix: str = ""):
@@ -103,9 +115,10 @@ def layer(blocks: Dict[str, torch.Tensor], l: int) -> Dict[str, torch.Tensor]:
 def apply_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
                 cfg: TransformerConfig, mesh=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One pre-LN (GPT-2) transformer block.  x: [B, T, D] in cfg.dtype.
-    Returns ``(x, aux)``; aux is 0 for a dense block."""
-    _check_dense(cfg, mesh)
+    """One transformer block, pre-LN (GPT-2) or post-LN (``cfg.post_ln``,
+    BERT).  x: [B, T, D] in cfg.dtype.  Returns ``(x, aux)``: aux is the
+    MoE load-balance loss (f32), 0 for a dense block."""
+    _check_mesh(mesh)
     B, T, D = x.shape
     H, dh = cfg.n_heads, cfg.head_dim
     c = lambda w: w.to(cfg.dtype)
@@ -118,13 +131,26 @@ def apply_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
         out = out.transpose(1, 2).reshape(B, T, D)
         return out @ c(p["wo"]) + c(p["bo"])
 
-    def ffn(h):
-        h = F.gelu(h @ c(p["w1"]) + c(p["b1"]), approximate="tanh")
-        return h @ c(p["w2"]) + c(p["b2"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.n_experts > 0:
+        def ffn(h):
+            nonlocal aux
+            # the router stays f32, as the JAX package passes it uncast
+            y, aux = moe_ffn(h, p["router"], c(p["ew1"]), c(p["eb1"]), c(p["ew2"]),
+                             c(p["eb2"]), capacity_factor=cfg.capacity_factor)
+            return y
+    else:
+        def ffn(h):
+            h = F.gelu(h @ c(p["w1"]) + c(p["b1"]), approximate="tanh")
+            return h @ c(p["w2"]) + c(p["b2"])
 
-    x = x + attn(layernorm(x, c(p["ln1_w"]), c(p["ln1_b"])))
-    x = x + ffn(layernorm(x, c(p["ln2_w"]), c(p["ln2_b"])))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.post_ln:  # original BERT: residual, then norm
+        x = layernorm(x + attn(x), c(p["ln1_w"]), c(p["ln1_b"]))
+        x = layernorm(x + ffn(x), c(p["ln2_w"]), c(p["ln2_b"]))
+    else:
+        x = x + attn(layernorm(x, c(p["ln1_w"]), c(p["ln1_b"])))
+        x = x + ffn(layernorm(x, c(p["ln2_w"]), c(p["ln2_b"])))
+    return x, aux
 
 
 # The counterpart of jax.checkpoint_policies.dots_with_no_batch_dims_saveable:
@@ -162,8 +188,8 @@ def apply_stack(x: torch.Tensor, blocks: Dict[str, torch.Tensor],
                 cfg: TransformerConfig, mesh: Optional[object] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the stacked layers in order, each under :func:`remat`; returns
-    ``(x, aux)``."""
-    _check_dense(cfg, mesh)
+    ``(x, aux)``, aux summed over the layers."""
+    _check_mesh(mesh)
     body = remat(lambda h, p: apply_block(h, p, cfg), cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(cfg.n_layers):

@@ -186,6 +186,7 @@ class GenerationEngine:
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
+        family = gen.family_of(cfg)  # raises for a config it cannot generate with
         if params is None:
             params = _default_init(cfg, seed, self.device)
         # inference-only params: f32 master weights cast to the compute
@@ -200,7 +201,7 @@ class GenerationEngine:
         self.eos_id = eos_id
 
         self._max_len = self.buckets[-1] + max_new_tokens + decode_chunk_steps
-        if gen.family_of(cfg) == "gpt2" and self._max_len > cfg.max_seq_len:
+        if family == "gpt2" and self._max_len > cfg.max_seq_len:
             raise ValueError(
                 f"largest bucket + max_new_tokens + decode_chunk_steps = "
                 f"{self._max_len} exceeds the model's {cfg.max_seq_len} positions")

@@ -44,6 +44,8 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.convert, ray_tpu_torch.serve.llm\n"
         "import ray_tpu_torch.models.generate, ray_tpu_torch.ops.attention\n"
+        "import ray_tpu_torch.models.bert, ray_tpu_torch.models.mlp, ray_tpu_torch.ops.moe\n"
+        "import ray_tpu_torch.air, ray_tpu_torch.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (FORBIDDEN,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -64,15 +66,21 @@ def test_resolve_device_defaults_to_the_card_and_never_falls_back(no_cuda):
 
 def test_entry_points_raise_without_a_card(no_cuda):
     from ray_tpu_torch.convert import from_jax_params
-    from ray_tpu_torch.models import generate, gpt2, llama
+    from ray_tpu_torch.models import bert, generate, gpt2, llama, mlp
+    from ray_tpu_torch.ops import moe
     from ray_tpu_torch.serve.llm import GenerationEngine, make_config
+    from ray_tpu_torch.train import TorchPredictor
 
     cfg = make_config("gpt2", "tiny")
     calls = [lambda: GenerationEngine(cfg),
              lambda: gpt2.init(cfg),
              lambda: llama.init(llama.LlamaConfig.tiny()),
              lambda: generate.init_cache(cfg, 2, 8),
-             lambda: from_jax_params({}, cfg)]
+             lambda: from_jax_params({}, cfg),
+             lambda: bert.init(bert.BertConfig.tiny()),
+             lambda: mlp.init(mlp.MLPConfig()),
+             lambda: TorchPredictor({}, lambda p, b: b),
+             lambda: moe.init_moe_params(torch.Generator(), 1, 8, 16, 2)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

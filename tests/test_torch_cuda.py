@@ -274,3 +274,80 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v = _qkv(cuda, torch.float32, 16, 16, 48)
     with pytest.raises(ValueError, match="head dim"):
         ta.flash_attention(q, k, v, False)
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.detach().to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("dtype,d_model,n_heads", [(torch.float32, 64, 4),
+                                                   (torch.bfloat16, 128, 2)])
+def test_bert_forward_on_card_matches_cpu(cuda, dtype, d_model, n_heads):
+    """Tiny BERT's logits on the card against the CPU in f32 from the same
+    weights: non-causal flash attention, once per layer, at D 16 (the
+    CUDA-core design) and in bf16 at D 64 (the tensor cores).  f32 1e-4;
+    bf16 2e-2 (the blocks round to bf16; the pooler and classifier are
+    f32)."""
+    from ray_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny(dtype=dtype, d_model=d_model, n_heads=n_heads)
+    params = bert.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 40)))
+    types = torch.from_numpy(rng.integers(0, cfg.type_vocab_size, (3, 40)))
+    before = {n: _build.launches.get(n, 0) for n in (ta.KERNEL, ta.FWD_TC)}
+    with torch.inference_mode():
+        got = bert.apply(_to(params, cuda), toks.to(cuda), cfg, types.to(cuda))
+        want = bert.apply(params, toks, bert.BertConfig.tiny(
+            dtype=torch.float32, d_model=d_model, n_heads=n_heads), types)
+    torch.cuda.synchronize()
+    tc = ta.uses_tensor_cores(dtype, cfg.head_dim)
+    assert {n: _build.launches.get(n, 0) - before[n] for n in before} == \
+        {ta.KERNEL: cfg.n_layers, ta.FWD_TC: cfg.n_layers * tc}
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=0)
+
+
+def test_moe_on_card_matches_cpu(cuda):
+    """moe_ffn on the card against the CPU, f32 (TF32 off), with tokens
+    dropped (cf 0.5): the output, the aux loss and every gradient within
+    1e-4 absolute and relative; then tiny MoE GPT-2's loss and gradients
+    (the flash kernels in its attention) within 1e-4 of each leaf's
+    largest entry."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.transformer import named_leaves
+    from ray_tpu_torch.ops import moe
+
+    rng = np.random.default_rng(0)
+    shapes = {"x": (2, 48, 32), "router": (32, 4), "w1": (4, 32, 64), "b1": (4, 64),
+              "w2": (4, 64, 32), "b2": (4, 32)}
+    base = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.3)
+            for k, s in shapes.items()}
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev, copy=True).requires_grad_(True) for k, v in base.items()}
+        y, aux = moe.moe_ffn(*p.values(), capacity_factor=0.5)
+        ((y * y).mean() + y.mean() + 0.1 * aux).backward()
+        out[str(dev)] = (y.detach().cpu(), aux.item(), {k: t.grad.cpu() for k, t in p.items()})
+    (y0, a0, g0), (y1, a1, g1) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(y1, y0, atol=1e-4, rtol=1e-4)
+    assert abs(a1 - a0) <= 1e-5
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], atol=1e-4, rtol=1e-4, msg=k)
+
+    cfg = gpt2.GPT2Config.tiny(dtype=torch.float32, n_experts=4)
+    params = gpt2.init(cfg, torch.Generator().manual_seed(1), device="cpu")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 33)))
+    res = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        for _, t in named_leaves(p):
+            t.requires_grad_(True)
+        loss = gpt2.loss_fn(p, {"tokens": toks.to(dev)}, cfg)
+        loss.backward()
+        res[str(dev)] = (loss.item(), {n: t.grad.cpu() for n, t in named_leaves(p)})
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-5
+    for n, g in res["cpu"][1].items():
+        scale = max(g.abs().max().item(), 1e-30)
+        assert (res["cuda"][1][n] - g).abs().max().item() / scale <= 1e-4, n

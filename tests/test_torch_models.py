@@ -72,14 +72,27 @@ def test_convert_rejects_wrong_depth():
                         tgpt2.GPT2Config.tiny(n_layers=3), device="cpu")
 
 
+def test_convert_without_a_config_rejects_uneven_depths():
+    """With no config (a predictor's checkpoint), the block leaves must
+    still agree with each other; a tree without blocks (the MLP) needs no
+    depth at all."""
+    blocks = {"w": np.zeros((2, 3), np.float32), "b": np.zeros((3, 3), np.float32)}
+    with pytest.raises(ValueError, match="layers"):
+        from_jax_params({"blocks": blocks}, None, device="cpu")
+    blocks["b"] = np.zeros((2, 3), np.float32)
+    assert from_jax_params({"blocks": blocks}, None, device="cpu")["blocks"]["b"].shape == (2, 3)
+    assert set(from_jax_params({"w0": np.ones((4, 2))}, None, device="cpu")) == {"w0"}
+
+
 def test_moe_and_mesh_are_not_ported():
+    """A mesh (pipeline, sequence or expert parallel) is not ported: the
+    stack raises for a dense and for an MoE config alike.  MoE on one
+    device is ported; its parity tests are in test_torch_moe.py."""
     from ray_tpu_torch.models import transformer
 
-    cfg = tgpt2.GPT2Config.tiny(n_experts=4)
-    with pytest.raises(NotImplementedError):
-        tgpt2.init(cfg, device="cpu")
-    cfg = tgpt2.GPT2Config.tiny(dtype=torch.float32)
-    params = tgpt2.init(cfg, device="cpu")
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError):
-        transformer.apply_stack(x, params["blocks"], cfg, mesh=object())
+    for cfg in (tgpt2.GPT2Config.tiny(dtype=torch.float32),
+                tgpt2.GPT2Config.tiny(dtype=torch.float32, n_experts=4)):
+        params = tgpt2.init(cfg, device="cpu")
+        x = torch.zeros(1, 4, cfg.d_model)
+        with pytest.raises(NotImplementedError):
+            transformer.apply_stack(x, params["blocks"], cfg, mesh=object())
