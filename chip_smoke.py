@@ -36,28 +36,42 @@ the backward kernels):
    full width with two layers: the loss and every gradient leaf agree.
 6. ``mlp``: the MNIST MLP in f32, CPU and card: loss, gradients,
    accuracy, and ``TorchPredictor`` labels of 10,000 inputs.
-7. ``serve_gpt2``: GPT-2 125M in bf16 through ``GenerationEngine``: 16
+7. ``rl_parity``: the RL learner stack in f32 (TF32 off for matmul and
+   cuDNN), the same weights on the CPU and the card: the Nature-CNN
+   actor-critic's logits and values at 84 x 84 x 4 uint8, the PPO, A2C,
+   IMPALA and DQN losses and every gradient leaf, one PPO
+   ``learn_on_minibatch``, DQN's TD targets and one SAC update given the
+   same noise.
+8. ``rl_ppo_atari``: BASELINE config 4's shape (``bench.py``'s RL row):
+   PPO on ``SyntheticAtariEnv`` through a ``RolloutWorker`` (64 envs,
+   fragments of 16, 4 fragments an iteration) and ``train_one_step``
+   (minibatches of 256, 4 epochs); 1 warm-up and 3 timed iterations:
+   env-steps/s, sample/GAE/learn seconds, one SGD minibatch and one
+   64-frame ``compute_actions`` under the profiler.  No kernel of the
+   repo lies on this path; its launch counts are set to 0 just before
+   the first iteration and read just after the last.
+9. ``serve_gpt2``: GPT-2 125M in bf16 through ``GenerationEngine``: 16
    slots, 32 requests of 16-99 random prompt tokens (numpy
    ``default_rng(0)``), 128 new tokens each.  Launch counts are set to 0
    just before the requests and read just after.
-8. ``decode_profile``: one eager decode step of GPT-2 125M at 17 slots:
-   host enqueue time, device time and kernels per step.
-9. ``serve_llama``: Llama 125M, the same traffic.
-10. ``serve_bert``: BERT-base in bf16 through ``Checkpoint`` and
+10. ``decode_profile``: one eager decode step of GPT-2 125M at 17 slots:
+    host enqueue time, device time and kernels per step.
+11. ``serve_llama``: Llama 125M, the same traffic.
+12. ``serve_bert``: BERT-base in bf16 through ``Checkpoint`` and
     ``TorchPredictor``, ``bench.py``'s config-5 traffic (768 sequences
     of 128 ids in batches of 16): sequences/s, batch latency, device
     work and idle share of one profiled batch.  Launch counts are set to
     0 just before the batches and read just after.
-11. ``train_gpt2``: the training path, GPT-2 125M at full width (bf16
+13. ``train_gpt2``: the training path, GPT-2 125M at full width (bf16
     compute over f32 master weights, remat "dots"), B 6 x T 1024,
     ``make_optimizer(lr=3e-4)``: 3 warm-up steps, then 20 timed steps in
     3 windows (the shape of ``bench.py``'s train loop).  Launch counts are
     set to 0 just before the first step and read just after the last.
-12. ``train_profile``: one such step under ``torch.profiler``: device busy
+14. ``train_profile``: one such step under ``torch.profiler``: device busy
     and idle share, the three kernels' share of the step, time by kind,
     top kernels.
-13. ``train_llama``: Llama 125M, B 2 x T 2048, 2 warm-up and 5 timed steps.
-14. ``train_gpt2_moe``: GPT-2 125M's width with 4 Switch experts, B 6 x
+15. ``train_llama``: Llama 125M, B 2 x T 2048, 2 warm-up and 5 timed steps.
+16. ``train_gpt2_moe``: GPT-2 125M's width with 4 Switch experts, B 6 x
     T 1024, 2 warm-up and 5 timed steps; ``train_gpt2_moe_profile``, one
     step under the profiler; ``train_gpt2_moe_layer``, one layer's MoE
     FFN against the dense FFN (device time) and the MoE's share of the
@@ -67,7 +81,7 @@ Every bf16 launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 on the serving and training paths has to run the tensor-core design
 (their ``_tc`` launch counts equal their totals; the profiled steps find
 only the ``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
-summed over the serving and training runs, and per run), the card's name
+summed over the serving, training and RL runs, and per run), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": {...}}``.  Exits non-zero,
 printing no result, when there is no CUDA device or any phase fails.
@@ -1191,6 +1205,269 @@ def phase_mlp():
          label_counts=np.bincount(labels["cuda"], minlength=cfg.num_classes).tolist())
 
 
+# BASELINE config 4 as bench.py runs it on a chip (run_rl_bench): PPO on
+# SyntheticAtariEnv(episode_len=400), 64 envs a worker, fragments of 16,
+# a train batch of 4 workers' fragments (4,096 env steps), minibatches of
+# 256, 4 SGD epochs, fcnet_hiddens (256,), entropy 0.01, seed 0; 1 warm-up
+# iteration, then 3 timed.  The port has no runtime: one local worker
+# samples the 4 fragments in turn.
+RL_OBS, RL_ACTIONS, RL_HIDDENS = (84, 84, 4), 6, (256,)
+RL_ENVS, RL_FRAGMENT, RL_FRAGMENTS = 64, 16, 4
+RL_MINIBATCH, RL_SGD_ITERS, RL_WARMUP, RL_ITERS = 256, 4, 1, 3
+# rl_parity's tolerances, CPU against card in f32 (TF32 off): forwards,
+# losses and TD targets absolute; gradients of each leaf's largest entry;
+# weights after one update absolute, a tenth of one Adam step (lr 3e-4)
+RL_TOL = {"forward": 1e-4, "loss": 1e-4, "grad": 1e-3, "weights": 3e-5}
+
+
+def _ppo_columns(rng, n):
+    """PPO's train columns over ``n`` random frames (numpy default_rng)."""
+    from ray_tpu_torch.rllib import SampleBatch
+
+    return {SampleBatch.OBS: rng.integers(0, 256, (n, *RL_OBS), dtype=np.uint8),
+            SampleBatch.ACTIONS: rng.integers(0, RL_ACTIONS, n),
+            SampleBatch.ACTION_LOGP: (np.log(1 / RL_ACTIONS)
+                                      + rng.normal(0, 0.2, n)).astype(np.float32),
+            SampleBatch.ADVANTAGES: rng.normal(0.3, 1.5, n).astype(np.float32),
+            SampleBatch.VALUE_TARGETS: rng.normal(0, 1.5, n).astype(np.float32)}
+
+
+def _tree_err(a, b) -> float:
+    """The largest absolute difference between two trees of arrays."""
+    from ray_tpu_torch.util.tree import tree_map
+
+    errs = []
+    tree_map(lambda x, y: errs.append(float(np.abs(np.asarray(x) - y).max())), a, b)
+    return max(errs)
+
+
+def phase_rl_parity():
+    """The RL learner stack with the same weights on the CPU and on the
+    card, f32 with TF32 off for matmul and cuDNN: the Nature-CNN
+    actor-critic (84 x 84 x 4 uint8, hiddens (256,), 6 actions) logits and
+    values; the PPO, A2C, IMPALA and DQN losses, their metrics and every
+    gradient leaf; one ``TorchPolicy.learn_on_minibatch`` (weights after
+    it); ``DQNPolicy.compute_td_targets``; one ``SACPolicy`` update at its
+    default (64, 64) with the same noise on both devices; and, on the card,
+    the log-prob of drawn actions against ``action_logp``.  Tolerances:
+    ``RL_TOL``."""
+    from ray_tpu_torch.rllib import (DQNPolicy, SACPolicy, SampleBatch, TorchPolicy, a2c, dqn,
+                                     impala, ppo)
+    from ray_tpu_torch.rllib.models import apply_model
+    from ray_tpu_torch.rllib.policy import to_device
+    from ray_tpu_torch.util.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    n, devs = 64, ("cpu", "cuda")
+    cols = _ppo_columns(rng, n)
+    kw = dict(hiddens=RL_HIDDENS, obs_shape=RL_OBS, lr=3e-4, seed=0,
+              loss_fn=ppo.make_ppo_loss(0.2, 10.0, 0.5, 0.01))
+    pol = {dev: TorchPolicy(int(np.prod(RL_OBS)), RL_ACTIONS, device=dev, **kw) for dev in devs}
+    pol["cuda"].set_weights(pol["cpu"].get_weights())
+    errs = {}
+    with torch.no_grad():
+        fwd = {dev: [t.cpu() for t in apply_model(p.params, to_device(cols[SampleBatch.OBS], dev))]
+               for dev, p in pol.items()}
+    errs["logits"], errs["values"] = [(c - g).abs().max().item()
+                                      for c, g in zip(fwd["cpu"], fwd["cuda"])]
+    check(max(errs["logits"], errs["values"]) <= RL_TOL["forward"], f"rl_parity: forward {errs}")
+    losses = {"ppo": ppo.make_ppo_loss(0.2, 10.0, 0.5, 0.01), "a2c": a2c.make_a2c_loss(0.5, 0.01),
+              "impala": impala.make_impala_loss(0.5, 0.01), "dqn": dqn.make_dqn_loss()}
+    for name, loss in losses.items():
+        res = {}
+        for dev, p in pol.items():
+            p.optimizer.zero_grad(set_to_none=True)
+            total, metrics = loss(p.module, p.params, {k: to_device(v, dev) for k, v in cols.items()})
+            total.backward()
+            res[dev] = ({"total": total.item(), **{k: v.item() for k, v in metrics.items()}},
+                        [t.grad.cpu() if t.grad is not None else torch.zeros(t.shape)
+                         for t in tree_leaves(p.params)])
+        errs[f"{name}_loss"] = max(abs(res["cpu"][0][k] - res["cuda"][0][k]) for k in res["cpu"][0])
+        errs[f"{name}_grad_over_leaf_max"] = max(
+            (g - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
+            for c, g in zip(res["cpu"][1], res["cuda"][1]))
+        check(errs[f"{name}_loss"] <= RL_TOL["loss"]
+              and errs[f"{name}_grad_over_leaf_max"] <= RL_TOL["grad"], f"rl_parity {name}: {errs}")
+    learn = {dev: p.learn_on_minibatch(cols) for dev, p in pol.items()}
+    errs["learn_metrics"] = max(abs(learn["cpu"][k] - learn["cuda"][k]) for k in learn["cpu"])
+    errs["weights_after_update"] = _tree_err(pol["cuda"].get_weights(), pol["cpu"].get_weights())
+    check(errs["learn_metrics"] <= RL_TOL["loss"]
+          and errs["weights_after_update"] <= RL_TOL["weights"], f"rl_parity learn: {errs}")
+    a, logp, _ = pol["cuda"].compute_actions(cols[SampleBatch.OBS])
+    errs["sampled_logp"] = float(np.abs(logp - pol["cuda"].action_logp(cols[SampleBatch.OBS], a)).max())
+    check(a.dtype == np.int64 and 0 <= a.min() and a.max() < RL_ACTIONS
+          and errs["sampled_logp"] <= RL_TOL["forward"], f"rl_parity: sampled actions {errs}")
+
+    q = {dev: DQNPolicy(int(np.prod(RL_OBS)), RL_ACTIONS, hiddens=RL_HIDDENS, obs_shape=RL_OBS,
+                        seed=0, device=dev) for dev in devs}
+    q["cuda"].set_weights(q["cpu"].get_weights())
+    q["cuda"].update_target()
+    mb = SampleBatch({SampleBatch.NEXT_OBS: cols[SampleBatch.OBS],
+                      SampleBatch.REWARDS: rng.normal(size=n).astype(np.float32),
+                      SampleBatch.TERMINATEDS: rng.random(n) < 0.2})
+    td = {dev: p.compute_td_targets(mb, 0.99) for dev, p in q.items()}
+    errs["dqn_td_targets"] = float(np.abs(td["cpu"] - td["cuda"]).max())
+    check(errs["dqn_td_targets"] <= RL_TOL["forward"], f"rl_parity dqn: {errs}")
+
+    obs_dim, act_dim, b = 17, 6, 256  # HalfCheetah's shapes, SACConfig's batch
+    sac = {dev: SACPolicy(obs_dim, act_dim, seed=0, device=dev) for dev in devs}
+    sac["cuda"].set_state(sac["cpu"].get_state())
+    batch = {SampleBatch.OBS: rng.standard_normal((b, obs_dim)).astype(np.float32),
+             SampleBatch.ACTIONS: rng.uniform(-1, 1, (b, act_dim)).astype(np.float32),
+             SampleBatch.REWARDS: rng.normal(size=b).astype(np.float32),
+             SampleBatch.TERMINATEDS: rng.random(b) < 0.1,
+             SampleBatch.NEXT_OBS: rng.standard_normal((b, obs_dim)).astype(np.float32)}
+    noise = tuple(rng.standard_normal((b, act_dim)).astype(np.float32) for _ in range(2))
+    upd = {dev: p.learn_on_minibatch(batch, noise=noise) for dev, p in sac.items()}
+    errs["sac_metrics"] = max(abs(upd["cpu"][k] - upd["cuda"][k]) for k in upd["cpu"])
+    errs["sac_weights_after_update"] = _tree_err(sac["cuda"].get_weights(), sac["cpu"].get_weights())
+    errs["sac_target_q"] = _tree_err(sac["cuda"].get_state()["target_q"],
+                                     sac["cpu"].get_state()["target_q"])
+    check(errs["sac_metrics"] <= RL_TOL["loss"]
+          and max(errs["sac_weights_after_update"], errs["sac_target_q"]) <= RL_TOL["weights"],
+          f"rl_parity sac: {errs}")
+    emit("rl_parity", model=f"nature-cnn actor-critic {RL_OBS} uint8, hiddens {RL_HIDDENS}, "
+         f"{RL_ACTIONS} actions, batch {n}; SAC ({obs_dim}, {act_dim}) hiddens (64, 64), batch {b}",
+         params=sum(t.numel() for t in tree_leaves(pol["cuda"].params)),
+         tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
+               "cudnn": torch.backends.cudnn.allow_tf32},
+         tolerances=RL_TOL, max_abs_err=errs)
+
+
+def profile_call(fn, reps: int = 20, top_n: int = 8) -> dict:
+    """One call of ``fn`` (which reads its result back): its host wall
+    (median of ``reps`` calls, each ending in a synchronize), then one
+    call under torch.profiler: device work (kernels and copies, user
+    annotations excluded), kernel and copy counts, the idle share of the
+    median wall, and the ``top_n`` kernels by device time."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    check(bool(dev), "profile_call: the profiler saw no device time")
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    wall = pct(walls, 0.5)
+    by_name = {}
+    for e in dev:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]
+    return {"host_wall_ms_p50": wall, "host_wall_ms_min": min(walls), "device_ms": busy,
+            "kernels": len(dev) - len(copies), "copies": len(copies),
+            "copy_ms": sum(e.time_range.elapsed_us() for e in copies) / 1e3,
+            "idle_share": 1 - busy / wall,
+            "top_kernels": [{"name": n[:100], "count": c, "ms": us / 1e3} for n, (c, us) in top]}
+
+
+def phase_rl_ppo_atari():
+    """BASELINE config 4's main path on the card: a ``RolloutWorker`` on
+    ``SyntheticAtariEnv`` with a ``TorchPolicy`` carrying PPO's loss
+    (``PPOConfig``'s defaults, entropy 0.01), sampling 4 fragments of 64
+    envs x 16 steps in turn, then ``train_one_step`` (4 epochs of 256-row
+    minibatches); 1 warm-up and 3 timed iterations.  Launch counts are set
+    to 0 just before the first iteration and read just after the last.
+    Prints env-steps/s, each iteration's seconds split into sample (env
+    steps, inference, connectors), GAE and learn, one SGD minibatch and one
+    64-observation ``compute_actions`` under the profiler, peak memory and
+    the mean loss terms."""
+    from ray_tpu_torch.rllib import RolloutWorker, SampleBatch, ppo, synthetic_atari_creator
+    from ray_tpu_torch.rllib import train_one_step
+    from ray_tpu_torch.rllib.policy import to_device
+    from ray_tpu_torch.util.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch_size = RL_ENVS * RL_FRAGMENT * RL_FRAGMENTS
+    cfg = dict(ppo.PPO_DEFAULTS, env_creator=synthetic_atari_creator,
+               env_config={"episode_len": 400}, num_envs_per_worker=RL_ENVS,
+               rollout_fragment_length=RL_FRAGMENT, train_batch_size=batch_size,
+               sgd_minibatch_size=RL_MINIBATCH, num_sgd_iter=RL_SGD_ITERS,
+               fcnet_hiddens=RL_HIDDENS, entropy_coeff=0.01, gamma=0.99, seed=0,
+               _loss_factory=ppo._ppo_loss_factory)
+    t0 = time.perf_counter()
+    worker = RolloutWorker(cfg)  # the card: the entry point's default
+    policy = worker.policy
+    sgd_rng = np.random.default_rng(cfg["seed"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    iters = []
+    for _ in range(RL_WARMUP + RL_ITERS):
+        t0 = time.perf_counter()
+        fragments, phases = [], {}
+        for _ in range(RL_FRAGMENTS):
+            fragments.append(worker.sample())
+            for k, v in worker.last_sample_phases.items():
+                phases[k] = phases.get(k, 0.0) + v
+        batch = SampleBatch.concat_samples(fragments)
+        t1 = time.perf_counter()
+        metrics = train_one_step(policy, batch, num_sgd_iter=RL_SGD_ITERS,
+                                 sgd_minibatch_size=RL_MINIBATCH, rng=sgd_rng,
+                                 required_keys=ppo.PPO_KEYS)
+        t2 = time.perf_counter()
+        iters.append({"wall_s": t2 - t0, "sample_s": t1 - t0 - phases["postprocess_s"],
+                      "gae_s": phases["postprocess_s"], "learn_s": t2 - t1,
+                      "env_s": phases["env_s"], "infer_s": phases["infer_s"],
+                      "connector_s": phases["connector_s"], "env_steps": batch.count,
+                      "loss_terms": metrics})
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    timed = iters[RL_WARMUP:]
+    wall = sum(r["wall_s"] for r in timed)
+    steps = sum(r["env_steps"] for r in timed)
+    check(all(r["env_steps"] == batch_size for r in iters), f"rl_ppo_atari: {iters}")
+    terms = {k: float(np.mean([r["loss_terms"][k] for r in timed])) for k in timed[0]["loss_terms"]}
+    check(set(terms) == {"total_loss", "policy_loss", "vf_loss", "entropy", "kl"}
+          and all(np.isfinite(v) for r in iters for v in r["loss_terms"].values()),
+          f"rl_ppo_atari: loss terms {[r['loss_terms'] for r in iters]}")
+    tensors = tree_leaves(policy.params) + [v for st in policy.optimizer.state.values()
+                                            for k, v in st.items() if k != "step"]
+    check(all(t.is_cuda for t in tensors) and len(policy.optimizer.state) == 14,
+          "rl_ppo_atari: a policy tensor is not on the card")
+    check(not any(launches.values()), f"rl_ppo_atari: kernel launches {launches}")
+    mb = {k: to_device(batch[k][:RL_MINIBATCH], policy.device) for k in ppo.PPO_KEYS}
+    sgd = profile_call(lambda: policy.learn_on_minibatch(mb))
+    obs = batch[SampleBatch.OBS][:RL_ENVS]
+    act = profile_call(lambda: policy.compute_actions(obs))
+    act["bytes_to_card"] = obs.nbytes
+    act["bytes_from_card"] = 3 * RL_ENVS * 4
+    emit("rl_ppo_atari",
+         model=f"PPO, nature-cnn actor-critic {RL_OBS} uint8, hiddens {RL_HIDDENS}, "
+               f"{RL_ACTIONS} actions, f32",
+         cut=f"bench.py's {RL_FRAGMENTS} remote rollout workers are one local RolloutWorker "
+             f"sampling {RL_FRAGMENTS} fragments in turn: the runtime is not ported",
+         tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
+               "cudnn": torch.backends.cudnn.allow_tf32},
+         params=sum(t.numel() for t in tree_leaves(policy.params)),
+         envs=RL_ENVS, fragment=RL_FRAGMENT, fragments_per_iter=RL_FRAGMENTS,
+         train_batch=batch_size, minibatch=RL_MINIBATCH, sgd_iters=RL_SGD_ITERS,
+         minibatches_per_iter=RL_SGD_ITERS * (batch_size // RL_MINIBATCH),
+         warmup_iters=RL_WARMUP, timed_iters=RL_ITERS, setup_s=setup_s,
+         env_steps_per_s=steps / wall, wall_s=wall,
+         s_per_iter={k: float(np.mean([r[k] for r in timed]))
+                     for k in ("wall_s", "sample_s", "gae_s", "learn_s", "env_s", "infer_s",
+                               "connector_s")},
+         iters=[{k: v for k, v in r.items() if k != "loss_terms"} for r in iters],
+         sgd_minibatch=sgd, compute_actions=act, peak_mem_bytes=peak,
+         mean_loss_terms=terms, loss_terms_finite=True, policy_tensors_on="cuda",
+         episodes_total=worker.get_metrics()["episodes_total"], launches=launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -1207,6 +1484,11 @@ def main() -> int:
     phase_bert_parity()
     phase_train_parity()
     phase_mlp()
+    build.reset_launches()
+    phase_rl_parity()
+    rl_parity_launches = dict(build.launches)
+    rl_launches = phase_rl_ppo_atari()
+    torch.cuda.empty_cache()
     serve_gpt2, params, cfg = serve("gpt2")
     n_slots = SERVE["n_slots"] + 1
     max_len = SERVE["prefill_buckets"][-1] + NEW_TOKENS + SERVE["decode_chunk_steps"]
@@ -1247,11 +1529,12 @@ def main() -> int:
 
     runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama, "serve_bert": bert_launches,
             "train_gpt2": train_launches, "train_llama": llama_launches,
-            "train_gpt2_moe": moe_launches}
+            "train_gpt2_moe": moe_launches, "rl_parity": rl_parity_launches,
+            "rl_ppo_atari": rl_launches}
     for r in (fwd, *bwd.values()):
         kern = r["name"]
         r["launches_by_path"] = {path: n.get(kern, 0) for path, n in runs.items()
-                                 if kern == attn.KERNEL or path.startswith("train")}
+                                 if kern == attn.KERNEL or path.startswith(("train", "rl_"))}
         r["launches"] = sum(r["launches_by_path"].values())
         # equal to launches: train() and serve() checked it
         tc = attn.TENSOR_CORE_COUNTER[kern]

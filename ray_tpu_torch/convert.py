@@ -6,17 +6,25 @@ keeps exactly that layout (its layers compute ``x @ W`` too), so the
 conversion is a leaf-by-leaf copy with no transpose.  That carries every
 model of the port: the decoders, BERT (``wtype``, ``pool_*``, ``cls_*``),
 the MLP (no ``blocks``) and the MoE leaves (``[L, E, ...]``).
+
+The RL nets (``rllib/models.py``) keep the JAX package's layouts too:
+dense ``(in, out)`` and conv kernels HWIO, so their weights carry across
+leaf by leaf as well (``from_jax_rl_params``), with the static
+``ConvSpec`` node rebuilt as the port's own; ``from_jax_rl_state`` carries
+a policy's optax Adam state into ``torch.optim.Adam``'s.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.transformer import named_leaves, train_state
+from ray_tpu_torch.rllib.models import ConvSpec
+from ray_tpu_torch.util.tree import tree_map
 
 
 def _leaf(a: Any, device: torch.device) -> torch.Tensor:
@@ -30,23 +38,19 @@ def _leaf(a: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def from_jax_params(np_params: Mapping[str, Any], cfg=None, device: DeviceLike = None
-                    ) -> dict:
+def from_jax_params(np_params: Any, cfg=None, device: DeviceLike = None
+                    ) -> Any:
     """The port's params from the JAX package's params as numpy arrays
     (``jax.tree.map(np.asarray, params)``): the same tree of dicts, each
     leaf a tensor on ``device`` (the card when None) in the leaf's own
-    dtype (a leaf that is a tensor already is copied).  Where the tree has
+    dtype (a leaf that is a tensor already is copied; lists and tuples
+    keep their place, other values stay as they are).  Where the tree has
     ``blocks``, every block leaf must stack the same number of layers,
     and that number must be ``cfg.n_layers`` when a config is given."""
     dev = resolve_device(device)
-
-    def convert(tree):
-        if isinstance(tree, Mapping):
-            return {k: convert(v) for k, v in tree.items()}
-        return _leaf(tree, dev)
-
-    params = convert(np_params)
-    depths = {name: leaf.shape[0] for name, leaf in params.get("blocks", {}).items()}
+    params = tree_map(lambda a: _leaf(a, dev), np_params)
+    blocks = params.get("blocks", {}) if isinstance(params, dict) else {}
+    depths = {name: leaf.shape[0] for name, leaf in blocks.items()}
     wanted = set(depths.values()) | ({cfg.n_layers} if cfg is not None and depths else set())
     if len(wanted) > 1:
         raise ValueError(f"block leaves stack {depths} layers"
@@ -80,3 +84,53 @@ def from_jax_train_state(np_state: Mapping[str, Any], cfg, optimizer,
         adamw.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
                           "exp_avg": mu[name], "exp_avg_sq": nu[name]}
     return state
+
+
+def from_jax_rl_params(np_params: Any, device: DeviceLike = None) -> Any:
+    """An RL net's params (``JaxPolicy.get_weights()``, or ``SACPolicy``'s:
+    dicts of lists of dicts, a 0-d ``log_alpha``) as tensors on ``device``
+    (the card when None).  The JAX package's ``ConvSpec`` node, metadata
+    and not a leaf, becomes the port's ``ConvSpec`` with the same filters,
+    so the port's optimizer never sees the strides."""
+    params = from_jax_params(np_params, None, device)
+    if isinstance(params, dict) and "conv_spec" in params:
+        params["conv_spec"] = ConvSpec(tuple(tuple(int(x) for x in f)
+                                             for f in params["conv_spec"].filters))
+    return params
+
+
+def _adam_state(node: Any) -> Optional[tuple]:
+    """The first optax ``ScaleByAdamState(count, mu, nu)`` in a chain's
+    state, depth first."""
+    if isinstance(node, tuple):
+        if {"count", "mu", "nu"} <= set(getattr(node, "_fields", ())):
+            return node.count, node.mu, node.nu
+        for child in node:
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def from_jax_rl_state(np_state: Mapping[str, Any], device: DeviceLike = None
+                      ) -> Dict[str, Any]:
+    """A policy's state in the port's form from ``JaxPolicy.get_state()``
+    (or ``DQNPolicy``'s, ``SACPolicy``'s), for ``set_state`` of the
+    matching port policy.  The optax state is ``(EmptyState,
+    (ScaleByAdamState(count, mu, nu), EmptyState))`` with a clip and
+    ``((ScaleByAdamState, EmptyState),)`` without one; it maps to
+    ``torch.optim.Adam``'s per-param ``step`` (the count), ``exp_avg`` (mu)
+    and ``exp_avg_sq`` (nu).  SAC's ``target_q`` comes across too."""
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {"weights": from_jax_rl_params(np_state["weights"], dev)}
+    if np_state.get("opt_state") is not None:
+        adam = _adam_state(np_state["opt_state"])
+        if adam is None:
+            raise ValueError("from_jax_rl_state: no ScaleByAdamState in the optax state")
+        count, mu, nu = adam
+        out["opt_state"] = {"step": int(np.asarray(count)),
+                            "exp_avg": from_jax_rl_params(mu, dev),
+                            "exp_avg_sq": from_jax_rl_params(nu, dev)}
+    if np_state.get("target_q") is not None:
+        out["target_q"] = from_jax_rl_params(np_state["target_q"], dev)
+    return out

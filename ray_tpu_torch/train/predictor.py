@@ -7,7 +7,7 @@ pool, needs the Data runtime and is not ported.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -15,13 +15,15 @@ import torch
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.air.checkpoint import Checkpoint
 from ray_tpu_torch.convert import from_jax_params
+from ray_tpu_torch.util.tree import tree_map
 
-Batch = Union[np.ndarray, Dict[str, np.ndarray]]
+# an array, or any tree of dicts, lists and tuples of arrays
+Batch = Any
 
 
 class Predictor:
     """Base predictor: subclasses implement :meth:`from_checkpoint` and
-    :meth:`predict` over a numpy batch (an array or a dict of arrays)."""
+    :meth:`predict` over a numpy batch (an array or a tree of them)."""
 
     @classmethod
     def from_checkpoint(cls, checkpoint: Checkpoint, **kwargs) -> "Predictor":
@@ -29,11 +31,6 @@ class Predictor:
 
     def predict(self, batch: Batch, **kwargs):
         raise NotImplementedError
-
-
-def _map(fn, batch):
-    """``fn`` over an array or over each value of a dict of them."""
-    return {k: fn(v) for k, v in batch.items()} if isinstance(batch, dict) else fn(batch)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -50,10 +47,12 @@ class TorchPredictor(Predictor):
 
     ``params`` is a tree of dicts whose leaves are tensors or numpy arrays
     (carried by ``convert.from_jax_params``, so a JAX package's checkpoint
-    loads); they are copied onto the device once.  :meth:`predict` moves a
-    numpy batch to the device, runs ``apply_fn`` under
-    ``torch.inference_mode()`` and returns numpy (a tensor or a dict of
-    them from ``apply_fn``; bf16 as f32).
+    loads); they are copied onto the device once.  :meth:`predict` moves
+    each array of a numpy batch (any tree of dicts, lists and tuples) to
+    the device, runs ``apply_fn`` under ``torch.inference_mode()`` and
+    returns each tensor of its output as numpy in the output's own tree
+    (bf16 as f32), as ``JaxPredictor.predict`` does; other values of either
+    tree stay as they are.
     ``apply_fn`` sees device tensors, so ids that index a table are
     checked on the host before :meth:`predict` (``bert.check_tokens``):
     on the card an index out of range is a device-side assert that ends
@@ -74,7 +73,7 @@ class TorchPredictor(Predictor):
         return cls(data.get(params_key, data), apply_fn, device=device)
 
     def predict(self, batch: Batch, **kwargs):
-        batch = _map(lambda a: torch.from_numpy(np.asarray(a)).to(self.device), batch)
+        batch = tree_map(lambda a: torch.from_numpy(np.asarray(a)).to(self.device), batch)
         with torch.inference_mode():
             out = self._apply(self._params, batch)
-        return _map(_to_numpy, out)
+        return tree_map(lambda t: _to_numpy(t) if isinstance(t, torch.Tensor) else t, out)

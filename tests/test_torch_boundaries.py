@@ -51,6 +51,38 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
+def _module_level_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_rllib_port_needs_no_gymnasium():
+    """The card's machine has no gymnasium: no file of the port imports it
+    at module level (``RolloutWorker`` imports it only to make a named
+    env), and importing every RL module and chip_smoke.py loads neither
+    it nor JAX nor ray_tpu."""
+    rl = sorted((ROOT / "ray_tpu_torch" / "rllib").rglob("*.py"))
+    assert len(rl) >= 17
+    bad = [(p.relative_to(ROOT).as_posix(), m) for p in _port_sources()
+           for m in _module_level_imports(p) if m.split(".")[0] in (*FORBIDDEN, "gymnasium")]
+    assert not bad, bad
+    mods = ["ray_tpu_torch.rllib." + p.relative_to(ROOT / "ray_tpu_torch" / "rllib")
+            .with_suffix("").as_posix().replace("/", ".").replace(".__init__", "")
+            for p in rl if p.name != "__init__.py" or p.parent.name == "connectors"]
+    code = (
+        "import sys, importlib\n"
+        "sys.path.insert(0, '.')\n"
+        "for m in %r + ['chip_smoke', 'ray_tpu_torch.util.tree']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n" % (mods, (*FORBIDDEN, "gymnasium")))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -81,6 +113,28 @@ def test_entry_points_raise_without_a_card(no_cuda):
              lambda: mlp.init(mlp.MLPConfig()),
              lambda: TorchPredictor({}, lambda p, b: b),
              lambda: moe.init_moe_params(torch.Generator(), 1, 8, 16, 2)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_rl_entry_points_raise_without_a_card(no_cuda):
+    from ray_tpu_torch import convert
+    from ray_tpu_torch.rllib import DQNPolicy, RolloutWorker, SACPolicy, TorchPolicy, models
+    from ray_tpu_torch.rllib import DefaultActorCriticModule, synthetic_atari_creator
+
+    g = torch.Generator()
+    calls = [lambda: TorchPolicy(4, 2),
+             lambda: DQNPolicy(4, 2),
+             lambda: SACPolicy(3, 1),
+             lambda: RolloutWorker({"env_creator": synthetic_atari_creator}),
+             lambda: DefaultActorCriticModule(4, 2).init(g),
+             lambda: models.init_actor_critic(g, 4, 2),
+             lambda: models.init_conv_actor_critic(g, (84, 84, 4), 6),
+             lambda: models.init_gaussian_actor(g, 3, 1),
+             lambda: models.init_q_network(g, 3, 1),
+             lambda: convert.from_jax_rl_params({}),
+             lambda: convert.from_jax_rl_state({"weights": {}})]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

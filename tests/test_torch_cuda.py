@@ -351,3 +351,46 @@ def test_moe_on_card_matches_cpu(cuda):
     for n, g in res["cpu"][1].items():
         scale = max(g.abs().max().item(), 1e-30)
         assert (res["cuda"][1][n] - g).abs().max().item() / scale <= 1e-4, n
+
+
+def test_rl_policy_on_card_matches_cpu(cuda):
+    """A CNN ``TorchPolicy`` with PPO's loss, the same weights on the CPU
+    and the card, f32 with TF32 off for cuDNN too: values and action
+    log-probs within 1e-5, the weights after one update within 1e-5."""
+    from ray_tpu_torch.rllib import TorchPolicy, ppo
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(0)
+        obs = rng.integers(0, 256, (32, 36, 36, 4), dtype=np.uint8)
+        acts = rng.integers(0, 6, 32)
+        batch = {"obs": obs, "actions": acts,
+                 "action_logp": np.full(32, np.log(1 / 6), np.float32),
+                 "advantages": rng.normal(size=32).astype(np.float32),
+                 "value_targets": rng.normal(size=32).astype(np.float32)}
+        pols = [TorchPolicy(36 * 36 * 4, 6, hiddens=(32,), obs_shape=(36, 36, 4), device=dev,
+                            loss_fn=ppo.make_ppo_loss(0.2, 10.0, 0.5, 0.01)) for dev in ("cpu", cuda)]
+        pols[1].set_weights(pols[0].get_weights())
+        np.testing.assert_allclose(pols[1].value(obs), pols[0].value(obs), atol=1e-5)
+        np.testing.assert_allclose(pols[1].action_logp(obs, acts), pols[0].action_logp(obs, acts),
+                                   atol=1e-5)
+        for p in pols:
+            p.learn_on_minibatch(batch)
+        for w1, w0 in zip(*(p.get_weights()["pi"] for p in pols)):
+            np.testing.assert_allclose(w1["w"], w0["w"], atol=1e-5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_rollout_worker_runs_on_the_card_by_default(cuda):
+    from ray_tpu_torch.rllib import RolloutWorker, ppo, synthetic_atari_creator
+
+    w = RolloutWorker(dict(ppo.PPO_DEFAULTS, env_creator=synthetic_atari_creator,
+                           env_config={"episode_len": 6}, num_envs_per_worker=3,
+                           rollout_fragment_length=4, fcnet_hiddens=(16,),
+                           _loss_factory=ppo._ppo_loss_factory))
+    assert all(t.is_cuda for layer in w.policy.params["conv"] for t in layer.values())
+    batch = w.sample()
+    assert batch["obs"].shape == (12, 84, 84, 4) and batch["obs"].dtype == np.uint8
+    assert np.isfinite(batch["advantages"]).all()

@@ -136,3 +136,28 @@ def test_torch_predictor_without_a_device_raises_without_a_card(monkeypatch, lin
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchPredictor.from_checkpoint(linear_checkpoint, _linear_apply)
+
+
+def _tree_apply(params, batch):
+    """A nested-dict batch in, a tuple holding a dict and a list out."""
+    x = batch["inputs"]["x"] @ params["w"]
+    scale = batch["inputs"]["scale"][0]
+    return x * scale, {"sum": x.sum(-1), "parts": [x[:, :1], batch["mask"]["m"]]}
+
+
+def test_torch_predictor_returns_jax_predictors_tree():
+    """A tuple output and a nested-dict batch: the same tree back as
+    ``JaxPredictor.predict`` gives (a tuple stays a tuple, a list a
+    list), with equal f32 values."""
+    rng = np.random.default_rng(0)
+    params = {"w": rng.standard_normal((3, 2)).astype(np.float32)}
+    batch = {"inputs": {"x": rng.standard_normal((4, 3)).astype(np.float32),
+                        "scale": np.array([2.0], np.float32)},
+             "mask": {"m": np.array([True, False, True, True])}}
+    want = JaxPredictor(params, _tree_apply).predict(jax.tree.map(jnp.asarray, batch))
+    got = TorchPredictor(params, _tree_apply, device="cpu").predict(batch)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    assert isinstance(got, tuple) and isinstance(got[1]["parts"], list)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert isinstance(g, np.ndarray) and g.dtype == w.dtype
+        np.testing.assert_allclose(g, w, atol=1e-6, rtol=1e-6)
