@@ -76,6 +76,24 @@ the backward kernels):
     step under the profiler; ``train_gpt2_moe_layer``, one layer's MoE
     FFN against the dense FFN (device time) and the MoE's share of the
     step.
+17. ``train_gpt2_sharded``: the parallelism layer on the card, a world of
+    one over NCCL (``parallel.init_world``) and a mesh of all six axes
+    at size 1 (``create_mesh(MeshSpec(), keep_unit_axes=True)``): GPT-2
+    125M at ``train_gpt2``'s recipe, its params made DTensors by
+    ``shard_params``; from the same init, 3 sharded steps against 3
+    unsharded steps: the largest loss difference, the flash launches per
+    step (equal to the unsharded step's, all on the tensor cores), ms per
+    step and device work per step of both, and each run's peak memory
+    above what was allocated before its state was built (the runs build
+    their states in turn, each after the other's is freed).  Launch
+    counts are set to 0 just before each run of steps and read just
+    after.  ``pp``, ``ep``, ``sp`` > 1 and a ``tp`` over several ranks
+    need more cards: they run on gloo ranks on the CPU in the tests.
+18. ``ring_attention_card``: ``ops.ring_attention.ring_attention`` over
+    that world's ``sp`` axis of 1 at GPT-2's training shape (6 x 12 x
+    1024 x 1024 x 64 bf16, causal) against ``flash_attn``, and the time
+    of both by CUDA events over 20 calls, with ``flash_fwd``'s profiler
+    time at that shape beside them.
 
 Every bf16 launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 on the serving and training paths has to run the tensor-core design
@@ -89,6 +107,7 @@ printing no result, when there is no CUDA device or any phase fails.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -1468,6 +1487,133 @@ def phase_rl_ppo_atari():
     return launches
 
 
+def phase_train_gpt2_sharded():
+    """The sharded train step on a world of one (see the module doc).
+    Returns the sharded run's launch counts."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.transformer import train_state
+    from ray_tpu_torch.parallel import (MeshSpec, create_mesh, get_abstract_mesh, init_world,
+                                        shard_params)
+    from ray_tpu_torch.parallel.sharding import rules_for_mesh
+
+    rdv = tempfile.mkdtemp()
+    init_world("nccl", 0, 1, "file://" + os.path.join(rdv, "rendezvous"))
+    try:
+        mesh = create_mesh(MeshSpec(), keep_unit_axes=True)
+        cfg = gpt2.GPT2Config.gpt2_small()
+        opt = gpt2.make_optimizer(lr=3e-4)
+        batch = _train_batch(cfg.vocab_size, TRAIN_BATCH, cfg.max_seq_len)
+
+        def build_run(name):
+            # the same seed for both runs; each builds its state only once
+            # the other's is freed, so a run's peak holds no tensor of the other
+            params = gpt2.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+            if name == "sharded":
+                return (train_state(shard_params(params, mesh, rules_for_mesh(mesh),
+                                                 gpt2.logical_axes(cfg)), opt),
+                        gpt2.make_train_step(cfg, opt, mesh))
+            return train_state(params, opt), gpt2.make_train_step(cfg, opt)
+
+        want = {attn.KERNEL: 2 * cfg.n_layers, attn.DQ_KERNEL: cfg.n_layers,
+                attn.DKV_KERNEL: cfg.n_layers}
+        out, launches_sharded = {}, None
+        for name in ("sharded", "unsharded"):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            state, step = build_run(name)
+            build.reset_launches()
+            losses, ms = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(m["loss"].item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(build.launches)
+            per_step = {k: launches.get(k, 0) / 3 for k in want}
+            check(per_step == want, f"{name} step: {per_step} flash launches per step, want {want}")
+            check(all(launches.get(c, 0) == launches[k]
+                      for k, c in attn.TENSOR_CORE_COUNTER.items()),
+                  f"{name} step: not every flash launch ran on the tensor cores: {launches}")
+            check(all(np.isfinite(losses)), f"{name} step: non-finite loss {losses}")
+            peak = torch.cuda.max_memory_allocated() - base
+            busy_ms = phase_train_profile(state, step, batch, ms[-1],
+                                          phase=f"train_gpt2_{name}_profile",
+                                          model=f"gpt2 125M bf16, B {TRAIN_BATCH} x T "
+                                                f"{cfg.max_seq_len}, remat dots, {name} step")
+            out[name] = {"losses": losses, "ms_per_step": ms, "host_ms_per_step_after_first":
+                         sum(ms[1:]) / 2, "device_work_ms_per_step": busy_ms,
+                         "launches_per_step": per_step, "peak_mem_bytes": peak,
+                         "mem_before_bytes": base}
+            if name == "sharded":
+                launches_sharded = launches
+            del state, step
+        diff = max(abs(a - b) for a, b in zip(out["sharded"]["losses"],
+                                              out["unsharded"]["losses"]))
+        check(diff <= 2e-3, f"sharded losses {out['sharded']['losses']} against unsharded "
+                            f"{out['unsharded']['losses']}")
+        emit("train_gpt2_sharded", mesh=get_abstract_mesh(mesh), backend=dist.get_backend(),
+             world_size=dist.get_world_size(), model="gpt2 125M bf16 (f32 master weights), "
+             f"remat dots, B {TRAIN_BATCH} x T {cfg.max_seq_len}",
+             max_loss_diff=diff, loss_tolerance=2e-3, **out)
+        return launches_sharded, mesh
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+
+
+def events_ms(fn, warmup=3, iters=20):
+    """Mean ms of ``iters`` back-to-back calls of ``fn`` between two CUDA
+    events, after ``warmup`` calls: device time plus whatever host gaps
+    the calls leave on the card."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_ring_attention_card(mesh, fwd):
+    """Ring attention over the world of one's sp axis at GPT-2's training
+    shape, held to flash_attn within phase_kernels' tolerance at the
+    training shapes (2e-2).  Both it and flash_attn on the same inputs are
+    timed with CUDA events over 20 back-to-back calls (the profiler lost
+    the last 3 kernel records of every session of the ring on an H100, 317
+    of 320), so their ratio compares one method; flash_fwd's profiler time
+    at the same shape from phase_kernels (``fwd``) is printed beside them
+    under its own name.  Ends the world."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.ops.ring_attention import ring_attention
+
+    try:
+        b, h, _, t, d = train_attn_shapes()["train_gpt2"]
+        q, k, v = _qkv(b, h, t, t, d, torch.bfloat16, seed=120)
+        ring = lambda: ring_attention(q, k, v, mesh, axis_name="sp", causal=True)
+        err = (ring().float() - attn.flash_attn(q, k, v, True).float()).abs().max().item()
+        check(bool(torch.isfinite(ring()).all()) and err <= 2e-2,
+              f"ring attention against flash_attn: max err {err}")
+        ring_ms = events_ms(ring)
+        flash_ms = events_ms(lambda: attn.flash_attn(q, k, v, True))
+        emit("ring_attention_card", shape=f"{b}x{h}x{t}x{t}x{d} bf16 causal", sp=1,
+             max_abs_err_vs_flash_attn=err, tolerance=2e-2,
+             ring_ms_cuda_events=ring_ms, flash_attn_ms_cuda_events=flash_ms,
+             ring_over_flash_attn=ring_ms / flash_ms,
+             flash_fwd_ms_profiler=fwd["at_train_shapes"]["train_gpt2"]["ms"])
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -1526,10 +1672,15 @@ def main() -> int:
          moe_ms_per_step=per_step["moe"], dense_ffn_ms_per_step=per_step["dense"],
          moe_share_of_step_device_work=per_step["moe"] / busy_ms,
          step_device_work_ms=busy_ms)
+    torch.cuda.empty_cache()
+    sharded_launches, mesh = phase_train_gpt2_sharded()
+    torch.cuda.empty_cache()
+    phase_ring_attention_card(mesh, fwd)
 
     runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama, "serve_bert": bert_launches,
             "train_gpt2": train_launches, "train_llama": llama_launches,
-            "train_gpt2_moe": moe_launches, "rl_parity": rl_parity_launches,
+            "train_gpt2_moe": moe_launches, "train_gpt2_sharded": sharded_launches,
+            "rl_parity": rl_parity_launches,
             "rl_ppo_atari": rl_launches}
     for r in (fwd, *bwd.values()):
         kern = r["name"]

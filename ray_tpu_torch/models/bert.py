@@ -4,9 +4,9 @@ Counterpart of ``ray_tpu/models/bert.py``: sequence classification with a
 pooled [CLS] head over the shared stacked-layer core, non-causal and
 post-LN.  The embedding sum and its norm, the pooler and the classifier
 read their params in f32, as the JAX package's do; the blocks run in
-``cfg.dtype``.  ``from_hf`` (loading ``bert-base-uncased`` through
-``transformers``) is not ported: it needs a local checkpoint and
-``transformers``, and the port runs on random weights from a seed.
+``cfg.dtype``.  :func:`from_hf` loads a Hugging Face BERT checkpoint from a
+local directory into this layout (it needs ``transformers``, which it
+imports only when called).
 
 Token ids that index past the embedding tables are a device-side assert on
 the card, which ends the process; :func:`check_tokens` checks a numpy
@@ -23,8 +23,14 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.models.transformer import TransformerConfig, apply_stack, init_block_params
+from ray_tpu_torch.models.transformer import (
+    TransformerConfig,
+    apply_stack,
+    block_logical_axes,
+    init_block_params,
+)
 from ray_tpu_torch.ops.layers import layernorm
+from ray_tpu_torch.parallel.sharding import ShardingRules, logical_to_sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +84,25 @@ def init(cfg: BertConfig, generator: Optional[torch.Generator] = None, *,
             for k, v in p.items()}
 
 
+def logical_axes(cfg: Optional[BertConfig] = None) -> Dict[str, Any]:
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "wtype": (None, "embed"),
+        "ln_emb_w": ("embed",), "ln_emb_b": ("embed",),
+        "blocks": block_logical_axes(cfg.n_experts if cfg else 0),
+        "pool_w": ("embed", "embed"),
+        "pool_b": ("embed",),
+        "cls_w": ("embed", None),
+        "cls_b": (None,),
+    }
+
+
+def param_shardings(mesh, rules: ShardingRules, cfg: Optional[BertConfig] = None):
+    """The DTensor placements of every leaf (see ``parallel.shard_params``)."""
+    return logical_to_sharding(logical_axes(cfg), mesh, rules)
+
+
 def check_tokens(tokens: np.ndarray, cfg: BertConfig,
                  token_types: Optional[np.ndarray] = None) -> None:
     """Raise ``ValueError`` unless ``tokens`` ``[B, T]`` (and ``token_types``)
@@ -96,8 +121,9 @@ def check_tokens(tokens: np.ndarray, cfg: BertConfig,
 
 
 def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: BertConfig,
-          token_types: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [B, T] int -> class logits [B, num_classes] (f32)."""
+          token_types: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
+    """tokens [B, T] int -> class logits [B, num_classes] (f32); ``mesh``
+    as ``gpt2.apply`` takes it."""
     B, T = tokens.shape
     if T > cfg.max_seq_len:
         raise ValueError(f"sequence length {T} exceeds max_seq_len {cfg.max_seq_len}")
@@ -105,6 +131,63 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: BertConfig,
     if token_types is not None:
         x = x + params["wtype"][token_types]
     x = layernorm(x, params["ln_emb_w"], params["ln_emb_b"]).to(cfg.dtype)
-    x, _ = apply_stack(x, params["blocks"], cfg)
+    x, _ = apply_stack(x, params["blocks"], cfg, mesh)
     cls = torch.tanh(x[:, 0].float() @ params["pool_w"] + params["pool_b"])
     return cls @ params["cls_w"] + params["cls_b"]
+
+
+def from_hf(model_name: str = "bert-base-uncased", num_classes: int = 2, *,
+            device: DeviceLike = None):
+    """``(cfg, params)`` from a Hugging Face BERT checkpoint (a local
+    directory or a name already in the local cache: ``local_files_only``,
+    so there is no download), as the JAX
+    package's ``from_hf`` lays them out: query, key and value stacked side
+    by side into ``wqkv``, weights transposed to ``(in, out)``, and a
+    classifier of zeros.  Like the reference it builds ``BertConfig``'s
+    12 x 768 stack and reads only the vocabulary size from the checkpoint.
+    The blocks' tanh GELU and LayerNorm eps 1e-5 are the port's, not HF's
+    erf GELU and 1e-12, so the outputs are not HF's own.  Params are f32
+    on ``device`` (the card when None)."""
+    dev = resolve_device(device)
+    from transformers import AutoModel
+
+    hf = AutoModel.from_pretrained(model_name, local_files_only=True)
+    sd = {k: v.detach().float() for k, v in hf.state_dict().items()}
+    cfg = BertConfig(num_classes=num_classes,
+                     vocab_size=sd["embeddings.word_embeddings.weight"].shape[0])
+    L, D = cfg.n_layers, cfg.d_model
+
+    def stack(fmt: str, t: bool = False) -> torch.Tensor:
+        return torch.stack([sd[fmt.format(i)].T if t else sd[fmt.format(i)]
+                            for i in range(L)])
+
+    attn = "encoder.layer.{}.attention."
+    params = {
+        "wte": sd["embeddings.word_embeddings.weight"],
+        "wpe": sd["embeddings.position_embeddings.weight"],
+        "wtype": sd["embeddings.token_type_embeddings.weight"],
+        "ln_emb_w": sd["embeddings.LayerNorm.weight"],
+        "ln_emb_b": sd["embeddings.LayerNorm.bias"],
+        "blocks": {
+            "ln1_w": stack(attn + "output.LayerNorm.weight"),
+            "ln1_b": stack(attn + "output.LayerNorm.bias"),
+            "wqkv": torch.cat([stack(attn + f"self.{n}.weight", t=True)
+                               for n in ("query", "key", "value")], dim=-1),
+            "bqkv": torch.cat([stack(attn + f"self.{n}.bias")
+                               for n in ("query", "key", "value")], dim=-1),
+            "wo": stack(attn + "output.dense.weight", t=True),
+            "bo": stack(attn + "output.dense.bias"),
+            "ln2_w": stack("encoder.layer.{}.output.LayerNorm.weight"),
+            "ln2_b": stack("encoder.layer.{}.output.LayerNorm.bias"),
+            "w1": stack("encoder.layer.{}.intermediate.dense.weight", t=True),
+            "b1": stack("encoder.layer.{}.intermediate.dense.bias"),
+            "w2": stack("encoder.layer.{}.output.dense.weight", t=True),
+            "b2": stack("encoder.layer.{}.output.dense.bias"),
+        },
+        "pool_w": sd["pooler.dense.weight"].T,
+        "pool_b": sd["pooler.dense.bias"],
+        "cls_w": torch.zeros(D, num_classes),
+        "cls_b": torch.zeros(num_classes),
+    }
+    return cfg, {k: ({n: t.contiguous().to(dev) for n, t in v.items()} if isinstance(v, dict)
+                     else v.contiguous().to(dev)) for k, v in params.items()}

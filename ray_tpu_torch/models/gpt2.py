@@ -19,6 +19,7 @@ from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     apply_stack,
+    block_logical_axes,
     init_block_params,
     make_train_step_from_loss,
     named_leaves,
@@ -26,6 +27,7 @@ from ray_tpu_torch.models.transformer import (
     train_state,
 )
 from ray_tpu_torch.ops.layers import cross_entropy_loss, layernorm
+from ray_tpu_torch.parallel.sharding import ShardingRules, logical_to_sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,25 +68,41 @@ def init(cfg: GPT2Config, generator: Optional[torch.Generator] = None, *,
     }
 
 
-def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config, *,
+def logical_axes(cfg: Optional[GPT2Config] = None) -> Dict[str, Any]:
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "blocks": block_logical_axes(cfg.n_experts if cfg else 0),
+        "lnf_w": ("embed",),
+        "lnf_b": ("embed",),
+    }
+
+
+def param_shardings(mesh, rules: ShardingRules, cfg: Optional[GPT2Config] = None):
+    """The DTensor placements of every leaf (see ``parallel.shard_params``)."""
+    return logical_to_sharding(logical_axes(cfg), mesh, rules)
+
+
+def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config, mesh=None, *,
           return_aux: bool = False):
     """tokens [B, T] int -> logits [B, T, V] (f32); with ``return_aux``,
-    ``(logits, aux)``, aux the MoE load-balance loss (0 when dense)."""
+    ``(logits, aux)``, aux the MoE load-balance loss (0 when dense).
+    ``mesh``: the DTensors' mesh, whose ``pp`` axis pipelines the stack."""
     B, T = tokens.shape
     x = params["wte"][tokens] + params["wpe"][:T]
     x = x.to(cfg.dtype)
-    x, aux = apply_stack(x, params["blocks"], cfg)
+    x, aux = apply_stack(x, params["blocks"], cfg, mesh)
     x = layernorm(x, params["lnf_w"].to(cfg.dtype), params["lnf_b"].to(cfg.dtype))
     logits = (x @ params["wte"].T.to(cfg.dtype)).float()  # tied LM head
     return (logits, aux) if return_aux else logits
 
 
-def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: GPT2Config
-            ) -> torch.Tensor:
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: GPT2Config,
+            mesh=None) -> torch.Tensor:
     """Next-token cross entropy (f32 scalar).  batch: ``{"tokens": [B,
     T+1]}`` or ``{"inputs": [B, T], "targets": [B, T]}``."""
     inputs, targets = split_batch(batch)
-    logits, aux = apply(params, inputs, cfg, return_aux=True)
+    logits, aux = apply(params, inputs, cfg, mesh, return_aux=True)
     loss = cross_entropy_loss(logits, targets)
     if cfg.n_experts > 0:
         loss = loss + cfg.moe_aux_weight * aux
@@ -189,9 +207,10 @@ def make_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
     return AdamW(lr, weight_decay, warmup, total_steps)
 
 
-def make_train_step(cfg: GPT2Config, optimizer: AdamW, mesh: Optional[object] = None):
+def make_train_step(cfg: GPT2Config, optimizer: AdamW, mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``, which
-    updates ``state`` in place (see ``make_train_step_from_loss``)."""
+    updates ``state`` in place (see ``make_train_step_from_loss``; with a
+    ``mesh`` it is the sharded step over DTensor params)."""
     return make_train_step_from_loss(loss_fn, cfg, optimizer, mesh)
 
 

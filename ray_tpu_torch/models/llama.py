@@ -21,17 +21,20 @@ import torch.nn.functional as F
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.gpt2 import make_optimizer, num_params  # same recipe
 from ray_tpu_torch.models.transformer import (
+    _attend,
+    constrain_activations,
     layer,
     make_train_step_from_loss,
     remat,
     split_batch,
     train_state,
 )
-from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.layers import cross_entropy_loss, rmsnorm, rope
+from ray_tpu_torch.parallel.sharding import ShardingRules, logical_to_sharding
 
 __all__ = ["LlamaConfig", "init", "apply", "loss_fn", "make_train_step",
-           "init_state", "num_params", "make_optimizer"]
+           "init_state", "num_params", "logical_axes", "param_shardings",
+           "make_optimizer"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +108,31 @@ def init(cfg: LlamaConfig, generator: Optional[torch.Generator] = None, *,
     }
 
 
+def logical_axes(cfg: Optional[LlamaConfig] = None) -> Dict[str, Any]:
+    return {
+        "tok_emb": ("vocab", "embed"),
+        "blocks": {
+            "wq": (None, "embed", "heads"),
+            "wk": (None, "embed", "heads"),
+            "wv": (None, "embed", "heads"),
+            "wo": (None, "heads", "embed"),
+            "w_gate": (None, "embed", "mlp"),
+            "w_up": (None, "embed", "mlp"),
+            "w_down": (None, "mlp", "embed"),
+            "attn_norm": (None, "embed"),
+            "ffn_norm": (None, "embed"),
+        },
+        "final_norm": ("embed",),
+    }
+
+
+def param_shardings(mesh, rules: ShardingRules, cfg: Optional[LlamaConfig] = None):
+    """The DTensor placements of every leaf (see ``parallel.shard_params``)."""
+    return logical_to_sharding(logical_axes(cfg), mesh, rules)
+
+
 def _block(x, p, cfg: LlamaConfig, positions):
+    x = constrain_activations(x)
     B, T, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.dtype
@@ -118,7 +145,7 @@ def _block(x, p, cfg: LlamaConfig, positions):
     if KV != H:
         k = k.repeat_interleave(cfg.q_per_kv, dim=1)
         v = v.repeat_interleave(cfg.q_per_kv, dim=1)
-    o = attention(q, k, v, causal=True)
+    o = _attend(q, k, v, causal=True)  # per rank on DTensors (ring over sp)
     o = o.transpose(1, 2).reshape(B, T, H * hd)
     x = x + o @ p["wo"].to(dt)
     h = rmsnorm(x, p["ffn_norm"].to(dt), eps=cfg.rms_eps)
@@ -139,14 +166,16 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig
     return (x @ params["tok_emb"].T.to(cfg.dtype)).float()
 
 
-def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: LlamaConfig
-            ) -> torch.Tensor:
-    """Next-token cross entropy; batch as ``gpt2.loss_fn`` takes it."""
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: LlamaConfig,
+            mesh=None) -> torch.Tensor:
+    """Next-token cross entropy; batch as ``gpt2.loss_fn`` takes it.  A
+    sharded step passes its ``mesh``; the stack does not pipeline, so the
+    DTensors' own layouts are all it reads."""
     inputs, targets = split_batch(batch)
     return cross_entropy_loss(apply(params, inputs, cfg), targets)
 
 
-def make_train_step(cfg: LlamaConfig, optimizer, mesh: Optional[object] = None):
+def make_train_step(cfg: LlamaConfig, optimizer, mesh=None):
     """``train_step(state, batch) -> (state, metrics)``, in place."""
     return make_train_step_from_loss(loss_fn, cfg, optimizer, mesh)
 

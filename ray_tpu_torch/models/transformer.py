@@ -8,8 +8,16 @@ layer axis, and weights stored ``(in, out)`` so a layer computes
 scans it); when gradients are being recorded and ``cfg.remat`` is set,
 each layer runs under ``torch.utils.checkpoint`` (:func:`remat`).  A block
 is pre-LN (GPT-2) or post-LN (``post_ln``, BERT), and its FFN dense or a
-Switch MoE of ``n_experts`` experts on one device (:mod:`ray_tpu_torch.ops.moe`).
-A mesh (pipeline, sequence or expert parallel) raises ``NotImplementedError``.
+Switch MoE of ``n_experts`` experts (:mod:`ray_tpu_torch.ops.moe`).
+
+Sharded, the same code runs on DTensor params from
+:func:`ray_tpu_torch.parallel.shard_params` (the layouts of
+:func:`block_logical_axes`) and a DTensor batch, and DTensor's sharding
+propagation inserts the collectives, as GSPMD does for the JAX package.
+Two regions are per-rank code, as they are ``shard_map`` there:
+attention (:func:`_attend`: the flash kernel on each rank's heads, or ring
+attention over ``sp``) and the ``pp`` pipeline (:func:`apply_stack` hands
+the stack to :func:`ray_tpu_torch.parallel.gpipe`).
 """
 
 from __future__ import annotations
@@ -20,12 +28,25 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.layers import layernorm
-from ray_tpu_torch.ops.moe import init_moe_params, moe_ffn
+from ray_tpu_torch.ops.moe import init_moe_params, moe_ffn, moe_logical_axes
+from ray_tpu_torch.ops.ring_attention import ring_attention
+from ray_tpu_torch.parallel.pipeline import gpipe, pp_size
+from ray_tpu_torch.parallel.sharding import (
+    P,
+    from_local,
+    local_tensor,
+    rules_for_mesh,
+    shard_batch,
+    spec_to_placements,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +71,9 @@ class TransformerConfig:
     n_experts: int = 0
     capacity_factor: float = 2.0
     moe_aux_weight: float = 0.01
+    # pipeline parallelism: microbatch count when the mesh has pp > 1
+    # (0 = one microbatch per stage)
+    pp_microbatches: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -91,10 +115,28 @@ def init_block_params(cfg: TransformerConfig, generator: torch.Generator,
     return {k: v.to(dev) for k, v in p.items()}
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "pipeline-, sequence- and expert-parallel forwards are not ported yet")
+def block_logical_axes(n_experts: int = 0) -> Dict[str, Tuple]:
+    """Logical axis names for the stacked block params.  The leading
+    ``layers`` axis shards over ``pp`` (and only ``pp``) when the mesh
+    pipelines."""
+    axes = {
+        "ln1_w": ("layers", "embed"), "ln1_b": ("layers", "embed"),
+        "wqkv": ("layers", "embed", "heads"),
+        "bqkv": ("layers", "heads"),
+        "wo": ("layers", "heads", "embed"),
+        "bo": ("layers", "embed"),
+        "ln2_w": ("layers", "embed"), "ln2_b": ("layers", "embed"),
+    }
+    if n_experts > 0:
+        axes.update(moe_logical_axes())
+    else:
+        axes.update({
+            "w1": ("layers", "embed", "mlp"),
+            "b1": ("layers", "mlp"),
+            "w2": ("layers", "mlp", "embed"),
+            "b2": ("layers", "embed"),
+        })
+    return axes
 
 
 def named_leaves(tree: Dict[str, Any], prefix: str = ""):
@@ -112,13 +154,53 @@ def layer(blocks: Dict[str, torch.Tensor], l: int) -> Dict[str, torch.Tensor]:
     return {k: v[l] for k, v in blocks.items()}
 
 
+def _batch_axes(names) -> Optional[Tuple[str, ...]]:
+    return tuple(a for a in ("dp", "fsdp") if a in names) or None
+
+
+def constrain_activations(x: torch.Tensor) -> torch.Tensor:
+    """A ``[B, T, ...]`` DTensor laid out batch over (dp, fsdp) and
+    sequence over sp of its mesh, the rest replicated: the residual
+    stream's layout at each block's input (a plain tensor is returned as
+    it is).  Left to itself, DTensor's propagation picks a layout per op,
+    and some are wrong after a reshape: in torch 2.13, under tp x sp,
+    Llama's ``h @ wq`` came out ``_StridedShard`` over sp, and its reshape
+    to heads gave wrong values."""
+    if not isinstance(x, DTensor):
+        return x
+    names = x.device_mesh.mesh_dim_names
+    spec = P(_batch_axes(names), "sp" if "sp" in names else None, *(None,) * (x.ndim - 2))
+    return x.redistribute(x.device_mesh, spec_to_placements(spec, x.device_mesh))
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
+            ) -> torch.Tensor:
+    """Attention on ``[B, H, T, D]`` q/k/v.  Plain tensors take
+    :func:`~ray_tpu_torch.ops.attention.attention`.  DTensors are laid out
+    batch over (dp, fsdp), heads over tp and sequence over sp of their
+    mesh, and each rank runs per-rank code on its own tensors: ring
+    attention over ``sp`` when that axis is longer than 1, else
+    ``attention`` on its heads and rows (the flash kernel on the card)."""
+    if not isinstance(q, DTensor):
+        return attention(q, k, v, causal=causal)
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    pl = spec_to_placements(P(_batch_axes(names), "tp" if "tp" in names else None,
+                              "sp" if "sp" in names else None, None), mesh)
+    ql, kl, vl = (local_tensor(t, pl) for t in (q, k, v))
+    if "sp" in names and mesh.size(names.index("sp")) > 1:
+        out = ring_attention(ql, kl, vl, mesh, axis_name="sp", causal=causal)
+    else:
+        out = attention(ql, kl, vl, causal=causal)
+    return from_local(out, mesh, pl)
+
+
 def apply_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
-                cfg: TransformerConfig, mesh=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                cfg: TransformerConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """One transformer block, pre-LN (GPT-2) or post-LN (``cfg.post_ln``,
     BERT).  x: [B, T, D] in cfg.dtype.  Returns ``(x, aux)``: aux is the
     MoE load-balance loss (f32), 0 for a dense block."""
-    _check_mesh(mesh)
+    x = constrain_activations(x)
     B, T, D = x.shape
     H, dh = cfg.n_heads, cfg.head_dim
     c = lambda w: w.to(cfg.dtype)
@@ -127,7 +209,7 @@ def apply_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
         qkv = h @ c(p["wqkv"]) + c(p["bqkv"])
         q, k, v = qkv.split(D, dim=-1)
         to_heads = lambda t: t.reshape(B, T, H, dh).transpose(1, 2)
-        out = attention(to_heads(q), to_heads(k), to_heads(v), causal=cfg.causal)
+        out = _attend(to_heads(q), to_heads(k), to_heads(v), causal=cfg.causal)
         out = out.transpose(1, 2).reshape(B, T, D)
         return out @ c(p["wo"]) + c(p["bo"])
 
@@ -185,17 +267,28 @@ def remat(fn: Callable, cfg: Any) -> Callable:
 
 
 def apply_stack(x: torch.Tensor, blocks: Dict[str, torch.Tensor],
-                cfg: TransformerConfig, mesh: Optional[object] = None
+                cfg: TransformerConfig, mesh: Optional[DeviceMesh] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the stacked layers in order, each under :func:`remat`; returns
-    ``(x, aux)``, aux summed over the layers."""
-    _check_mesh(mesh)
+    ``(x, aux)``, aux summed over the layers.  With a ``mesh`` the blocks
+    must be DTensors on it; a ``pp`` axis longer than 1 runs the stack as
+    :func:`~ray_tpu_torch.parallel.gpipe` stages of ``cfg.pp_microbatches``
+    microbatches (same math, microbatched)."""
+    if mesh is not None and not all(isinstance(v, DTensor) for v in blocks.values()):
+        raise ValueError("apply_stack with a mesh takes DTensor blocks "
+                         "(see parallel.shard_params)")
     body = remat(lambda h, p: apply_block(h, p, cfg), cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l in range(cfg.n_layers):
-        x, a = body(x, layer(blocks, l))
-        aux = aux + a
-    return x, aux
+
+    def stage(local_blocks, h):
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for l in range(next(iter(local_blocks.values())).shape[0]):
+            h, a = body(h, layer(local_blocks, l))
+            aux = aux + a
+        return h, aux
+
+    if pp_size(mesh) > 1:
+        return gpipe(stage, blocks, x, mesh=mesh, n_microbatches=cfg.pp_microbatches)
+    return stage(blocks, x)
 
 
 def split_batch(batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -207,7 +300,7 @@ def split_batch(batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Ten
 
 
 def make_train_step_from_loss(loss_fn: Callable, cfg: Any, optimizer,
-                              mesh: Optional[object] = None) -> Callable:
+                              mesh: Optional[DeviceMesh] = None) -> Callable:
     """The train step shared by the model families: the loss
     ``loss_fn(params, batch, cfg)`` and its gradients by autograd, then
     ``optimizer.update``.  Returns ``train_step(state, batch) -> (state,
@@ -217,15 +310,29 @@ def make_train_step_from_loss(loss_fn: Callable, cfg: Any, optimizer,
     param tensors and the optimizer's moments are written over (no second
     copy of either), ``state["step"]`` is advanced, and the same dict is
     returned.  ``metrics["loss"]`` is a detached device tensor, so a step
-    does not wait for the card."""
-    if mesh is not None:
-        raise NotImplementedError("sharded train steps are not ported yet")
+    does not wait for the card.
+
+    With a ``mesh`` the params must be DTensors on it
+    (:func:`ray_tpu_torch.parallel.shard_params`); a batch of plain
+    tensors (the whole batch, the same on every rank) is laid out
+    ``(batch, seq)`` under ``rules_for_mesh(mesh)``, the loss is
+    ``loss_fn(params, batch, cfg, mesh)`` (plain tensors the model makes,
+    such as masks and positions, count as replicated), and the update
+    reads the global gradient norm.  The loss comes back whole on every
+    rank."""
+    rules = rules_for_mesh(mesh) if mesh is not None else None
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         opt_state = state["opt_state"]
         optimizer.zero_grad(opt_state)
-        loss = loss_fn(state["params"], batch, cfg)
-        loss.backward()
+        if mesh is None:
+            loss = loss_fn(state["params"], batch, cfg)
+            loss.backward()
+        else:
+            with implicit_replication():
+                loss = loss_fn(state["params"], shard_batch(batch, mesh, rules), cfg, mesh)
+                loss.backward()
+            loss = loss.full_tensor()
         optimizer.update(opt_state)
         state["step"] += 1
         return state, {"loss": loss.detach(), "step": state["step"]}

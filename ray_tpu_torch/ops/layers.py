@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
@@ -53,6 +54,12 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     """Token-level cross entropy with optional z-loss; logits [..., V]
     reduced in f32, labels [...] int."""
     logits = logits.float()
+    if isinstance(logits, DTensor):
+        # the label gather needs each rank's rows whole: keep the plain
+        # shardings of the leading dims, replicate the rest
+        logits = logits.redistribute(placements=[
+            pl if type(pl) is Shard and pl.dim < logits.ndim - 1 else Replicate()
+            for pl in logits.placements])
     lse = torch.logsumexp(logits, dim=-1)
     label_logit = torch.gather(
         logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]

@@ -191,3 +191,32 @@ def test_an_edited_header_names_a_new_library(tmp_path, monkeypatch):
     assert _build.library_path("kern") != first
     (tmp_path / "other.cuh").write_text("// new\n")
     assert len({first, _build.library_path("kern")}) == 2
+
+
+def test_parallel_layer_loads_neither_jax_nor_ray_tpu():
+    """Nor ``transformers``, which only ``bert.from_hf`` imports, when
+    called (the card's machine has none); chip_smoke.py included."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.collective\n"
+        "import ray_tpu_torch.parallel.dryrun, ray_tpu_torch.parallel.spawn\n"
+        "import ray_tpu_torch.ops.ring_attention, ray_tpu_torch.util.profiling\n"
+        "sys.path.insert(0, '.')\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r + ('transformers',)]\n"
+        "assert not bad, bad\n" % (FORBIDDEN,))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_parallel_entry_points_raise_without_a_card(no_cuda):
+    from ray_tpu_torch.models import bert
+    from ray_tpu_torch.parallel import MeshSpec, create_mesh, init_world, local_mesh
+    from ray_tpu_torch.parallel.dryrun import dryrun_multichip
+    from ray_tpu_torch.parallel.spawn import run_world
+
+    calls = [lambda: init_world(), lambda: create_mesh(MeshSpec()), lambda: local_mesh(),
+             lambda: run_world(print, 2), lambda: dryrun_multichip(2),
+             lambda: bert.from_hf("no-such-checkpoint")]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

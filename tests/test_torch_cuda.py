@@ -394,3 +394,60 @@ def test_rollout_worker_runs_on_the_card_by_default(cuda):
     batch = w.sample()
     assert batch["obs"].shape == (12, 84, 84, 4) and batch["obs"].dtype == np.uint8
     assert np.isfinite(batch["advantages"]).all()
+
+
+@pytest.fixture
+def world_of_one(cuda, tmp_path):
+    """A one-rank NCCL world on the card and a mesh of six unit axes."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshSpec, create_mesh, init_world
+
+    init_world("nccl", 0, 1, f"file://{tmp_path}/rendezvous")
+    try:
+        yield create_mesh(MeshSpec(), keep_unit_axes=True)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("n_experts", [0, 4])
+def test_sharded_step_on_a_world_of_one_matches_unsharded(world_of_one, n_experts):
+    """The sharded step (DTensor params on the card, the flash kernels per
+    rank) against the unsharded one from the same init, f32: 2 steps'
+    losses and the params after them within 1e-5, and the same flash
+    launches."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.transformer import named_leaves, train_state
+    from ray_tpu_torch.parallel import shard_params
+    from ray_tpu_torch.parallel.sharding import rules_for_mesh
+
+    mesh = world_of_one
+    cfg = gpt2.GPT2Config.tiny(dtype=torch.float32, n_experts=n_experts)
+    opt = gpt2.make_optimizer(lr=1e-3, warmup=0, total_steps=10)
+    batch = {k: torch.from_numpy(np.random.default_rng(3).integers(0, 512, (4, 64))).cuda()
+             for k in ("inputs", "targets")}
+    runs = {}
+    for name, m in (("sharded", mesh), ("unsharded", None)):
+        params = gpt2.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+        if m is not None:
+            params = shard_params(params, m, rules_for_mesh(m), gpt2.logical_axes(cfg))
+        state, step = train_state(params, opt), gpt2.make_train_step(cfg, opt, m)
+        _build.reset_launches()
+        losses = [step(state, batch)[1]["loss"].item() for _ in range(2)]
+        leaves = {n: (t.full_tensor() if m is not None else t).detach()
+                  for n, t in named_leaves(state["params"])}
+        runs[name] = (losses, leaves, dict(_build.launches))
+    (ls, ps, ns), (lu, pu, nu) = runs["sharded"], runs["unsharded"]
+    np.testing.assert_allclose(ls, lu, rtol=1e-5)
+    for n in pu:
+        torch.testing.assert_close(ps[n], pu[n], atol=1e-5, rtol=1e-5)
+    assert ns == nu and ns[ta.KERNEL] == 2 * cfg.n_layers
+
+
+def test_ring_attention_on_a_world_of_one_matches_flash(world_of_one):
+    from ray_tpu_torch.ops.ring_attention import ring_attention
+
+    q, k, v = _qkv(torch.device("cuda"), torch.float32, 96, 96, 32)
+    for causal in (False, True):
+        torch.testing.assert_close(ring_attention(q, k, v, world_of_one, causal=causal),
+                                   ta.flash_attn(q, k, v, causal), atol=1e-5, rtol=1e-5)

@@ -85,14 +85,32 @@ def test_convert_without_a_config_rejects_uneven_depths():
 
 
 def test_moe_and_mesh_are_not_ported():
-    """A mesh (pipeline, sequence or expert parallel) is not ported: the
-    stack raises for a dense and for an MoE config alike.  MoE on one
-    device is ported; its parity tests are in test_torch_moe.py."""
+    """A mesh takes the params as DTensors on it (``parallel.shard_params``):
+    the stack raises for plain tensors with a mesh, for a dense and for an
+    MoE config alike.  The sharded paths are held to the JAX package in
+    test_torch_sharded_train.py; MoE on one device in test_torch_moe.py."""
     from ray_tpu_torch.models import transformer
 
     for cfg in (tgpt2.GPT2Config.tiny(dtype=torch.float32),
                 tgpt2.GPT2Config.tiny(dtype=torch.float32, n_experts=4)):
         params = tgpt2.init(cfg, device="cpu")
         x = torch.zeros(1, 4, cfg.d_model)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="DTensor"):
             transformer.apply_stack(x, params["blocks"], cfg, mesh=object())
+
+
+def test_logical_axes_match_jax():
+    """Every model's logical axes, dense and MoE, as the JAX package names
+    them (they decide each leaf's placements on a mesh)."""
+    from ray_tpu.models import bert as jbert
+    from ray_tpu.models import gpt2 as jgpt2
+    from ray_tpu.models import llama as jllama
+    from ray_tpu_torch.models import bert as tbert
+    from ray_tpu_torch.models import llama as tllama
+
+    assert tllama.logical_axes() == jllama.logical_axes()
+    for n in (0, 4):
+        assert (tgpt2.logical_axes(tgpt2.GPT2Config.tiny(n_experts=n))
+                == jgpt2.logical_axes(jgpt2.GPT2Config.tiny(n_experts=n)))
+        assert (tbert.logical_axes(tbert.BertConfig.tiny(n_experts=n))
+                == jbert.logical_axes(jbert.BertConfig.tiny(n_experts=n)))

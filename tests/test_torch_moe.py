@@ -95,9 +95,15 @@ def test_moe_ffn_bf16_matches_jax():
 
 
 def test_moe_ffn_rejects_a_mesh():
+    """The expert-parallel path runs on DTensors, on their own mesh
+    (tests/test_torch_sharded_train.py): plain tensors with a mesh raise."""
     a = {k: torch.from_numpy(v) for k, v in _moe_inputs().items()}
-    with pytest.raises(NotImplementedError, match="ep"):
+    with pytest.raises(ValueError, match="DTensors"):
         tmoe.moe_ffn(*(a[k] for k in NAMES), mesh=object())
+
+
+def test_moe_logical_axes_match_jax():
+    assert tmoe.moe_logical_axes() == jmoe.moe_logical_axes()
 
 
 def _configs(**kw):
