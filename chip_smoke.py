@@ -94,6 +94,31 @@ the backward kernels):
     1024 x 1024 x 64 bf16, causal) against ``flash_attn``, and the time
     of both by CUDA events over 20 calls, with ``flash_fwd``'s profiler
     time at that shape beside them.
+19. ``core_gpu_actor`` (BASELINE config 1): the port's runtime, its head
+    in this process (``ray_tpu_torch.init(num_cpus=4)``), finds the card;
+    a ``@remote(num_gpus=1)`` actor sees ``CUDA_VISIBLE_DEVICES`` equal
+    to its grant and ``get_gpu_ids() == [0]``, runs a 1024^2 bf16 matmul
+    whose sum is exact; a second such actor pends until the first is
+    killed, then runs.  The head's spawn-to-ready time (its actor events)
+    and the driver's to the first reply; both processes' peaks.
+20. ``train_mlp_trainer`` (BASELINE config 2's shape on one card):
+    ``TorchTrainer``, 1 worker with ``use_gpu=True``, the MNIST MLP in
+    f32 (TF32 off), 10 SGD steps with ``torch_utils.allreduce_grads``
+    through the ``shm`` group; per-step losses equal the same loop's in
+    this process within 1e-5; ``CheckpointConfig(num_to_keep=2)``.
+21. ``train_gpt2_trainer`` (BASELINE config 3's model on one card):
+    ``TorchTrainer``, 1 worker, ``TorchConfig(use_torch_distributed=True)``
+    (an NCCL world of one), GPT-2 125M at ``train_gpt2``'s recipe, 2
+    warm-up and 5 timed steps, the gradients all-reduced over the
+    ``torch`` group: each step's ``StepProfiler`` phases and live MFU, the
+    flash launches per step counted in the worker (24 / 12 / 12, all on
+    the tensor cores), the worker's peak memory, tokens/s beside
+    ``train_gpt2``'s; all 7 losses against the in-process step's from
+    the same seed and batch within ``TRAINER_LOSS_TOL``, and each leaf's
+    update over the 7 steps within ``TRAINER_UPDATE_TOL`` of the
+    in-process update's norm (the first update runs at lr 0 and the
+    losses barely move, so the update is what sees the step).  The
+    worker's counts stand for this path in ``launches_by_path``.
 
 Every bf16 launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 on the serving and training paths has to run the tensor-core design
@@ -1614,6 +1639,416 @@ def phase_ring_attention_card(mesh, fwd):
         dist.destroy_process_group()
 
 
+# The runtime phases (BASELINE configs 1-3's shapes on one card): the
+# MLP's 10 SGD steps (lr 0.1, batch 128 from default_rng(0)) and GPT-2's
+# train_gpt2 recipe with 2 warm-up and 5 timed steps in a Train worker
+MLP_STEPS, MLP_LR, MLP_BATCH = 10, 0.1, 128
+TRAINER_WARMUP, TRAINER_STEPS = 2, 5
+# the trainer's losses against the in-process steps from the same seed and
+# batch: train_gpt2_sharded's bf16 loss tolerance
+TRAINER_LOSS_TOL = 2e-3
+# ... and after its last step, each leaf's update (the params less their
+# init) against the in-process one: |u - u_ref| / |u_ref| at most this
+TRAINER_UPDATE_TOL = 1e-2
+
+
+def _head_spawn_to_ready_s(actor) -> float:
+    """The head's own record of an actor's start: from its
+    ``PENDING_CREATION`` to its ``ALIVE`` flight-recorder event (the head
+    runs in this process, so its ring is readable here)."""
+    from ray_tpu_torch._private import events
+
+    ts = {r["message"].rsplit(" -> ", 1)[-1]: r["ts"] for r in events.buffer().snapshot()
+          if r.get("source") == "actor" and r.get("entity_id") == actor._actor_id.hex()}
+    check({"PENDING_CREATION", "ALIVE"} <= set(ts), f"core_gpu_actor: head events {ts}")
+    return ts["ALIVE"] - ts["PENDING_CREATION"]
+
+
+def phase_core_gpu_actor(rt):
+    """BASELINE config 1: the runtime's head in this process autodetects
+    the card; a ``num_gpus=1`` actor sees its grant and runs a 1024^2 bf16
+    matmul (f32 accumulation) whose sum is exact; a second such actor
+    pends until the first is killed, then runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    driver_held = {"allocated_bytes": torch.cuda.memory_allocated(),
+                   "reserved_bytes": torch.cuda.memory_reserved()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4)
+    init_s = time.perf_counter() - t0
+    gpus = rt.cluster_resources().get("GPU", 0)
+    check(gpus == torch.cuda.device_count(),
+          f"core_gpu_actor: the head found {gpus} GPU, torch sees {torch.cuda.device_count()}")
+
+    @rt.remote(num_gpus=1)
+    class GpuMatmul:
+        def info(self):
+            import os
+
+            return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "gpu_ids": rt.get_runtime_context().get_gpu_ids(),
+                    "device_count": torch.cuda.device_count(), "pid": os.getpid()}
+
+        def matmul(self, n):
+            x = torch.ones(n, n, dtype=torch.bfloat16, device="cuda")
+            out = x @ x  # bf16 inputs, f32 accumulation in the tensor cores
+            torch.cuda.synchronize()
+            return float(out.float().sum().item()), torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    a = GpuMatmul.remote()
+    info_a = rt.get(a.info.remote(), timeout=120)
+    first_reply_s = time.perf_counter() - t0
+    grant = ",".join(str(i) for i in info_a["gpu_ids"])
+    check(info_a["gpu_ids"] == [0] and info_a["cuda_visible_devices"] == grant
+          and info_a["device_count"] == 1, f"core_gpu_actor: grant {info_a}")
+    t0 = time.perf_counter()
+    total, peak_a = rt.get(a.matmul.remote(1024), timeout=120)
+    matmul_s = time.perf_counter() - t0
+    check(total == 1024.0 ** 3, f"core_gpu_actor: sum {total}, want {1024.0 ** 3}")
+    b = GpuMatmul.remote()
+    info_b_ref = b.info.remote()
+    ready, _ = rt.wait([info_b_ref], timeout=5)
+    check(not ready, "core_gpu_actor: a second num_gpus=1 actor ran while the card was held")
+    rt.kill(a)
+    t0 = time.perf_counter()
+    info_b = rt.get(info_b_ref, timeout=120)
+    after_kill_s = time.perf_counter() - t0
+    check(info_b["gpu_ids"] == [0] and info_b["pid"] != info_a["pid"],
+          f"core_gpu_actor: second actor {info_b}")
+    total_b, _ = rt.get(b.matmul.remote(1024), timeout=120)
+    check(total_b == 1024.0 ** 3, f"core_gpu_actor: second actor's sum {total_b}")
+    rt.kill(b)
+    emit("core_gpu_actor", cluster_gpus=gpus, init_s=init_s, actor=info_a,
+         second_actor=info_b, head_spawn_to_ready_s=_head_spawn_to_ready_s(a),
+         driver_spawn_to_first_reply_s=first_reply_s,
+         first_matmul_s=matmul_s, matmul_sum=total, second_actor_pending_until_kill=True,
+         second_actor_ready_after_kill_s=after_kill_s, worker_peak_mem_bytes=peak_a,
+         driver_peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         driver_held_at_start=driver_held)
+
+
+def _mlp_batches(steps, batch, in_dim, classes):
+    rng = np.random.default_rng(0)
+    return [(rng.standard_normal((batch, in_dim)).astype(np.float32),
+             rng.integers(0, classes, batch)) for _ in range(steps)]
+
+
+def _mlp_steps(device, batches, lr, report=None):
+    """The MNIST MLP (784-512-256-10, f32, TF32 off) by SGD, its gradients
+    mean-all-reduced over the gang's group when ``report`` is set (a Train
+    worker), else plain (the driver).  Returns the per-step losses."""
+    from ray_tpu_torch.models import mlp
+    from ray_tpu_torch.train import torch_utils
+
+    torch.set_float32_matmul_precision("highest")  # TF32 off
+    cfg = mlp.MLPConfig()
+    params = mlp.init(cfg, torch.Generator().manual_seed(0), device=device)
+    losses = []
+    for i, (x, y) in enumerate(batches):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        batch = {"x": torch.tensor(x, device=device), "y": torch.tensor(y, device=device)}
+        loss = mlp.loss_fn(leaves, batch, cfg)
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        if report is not None:
+            grads = torch_utils.allreduce_grads(grads)
+        params = {k: leaves[k].detach() - lr * grads[k] for k in params}
+        losses.append(loss.item())
+        if report is not None:
+            report(i, losses[-1], params)
+    return losses
+
+
+def _mlp_train_loop(config):
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.air.checkpoint import Checkpoint
+    from ray_tpu_torch.train import torch_utils
+
+    from ray_tpu_torch.util import collective
+
+    dev = torch_utils.get_device()
+    group = collective.get_group_backend(os.environ["RAY_TRAIN_COLLECTIVE_GROUP"])
+    check(group == "shm", f"train_mlp_trainer: group {group}")
+    ckpt_every = config["checkpoint_every"]
+
+    def report(i, loss, params):
+        ckpt = (Checkpoint.from_dict({"step": i, "params": {k: v.cpu().numpy()
+                                                           for k, v in params.items()}})
+                if (i + 1) % ckpt_every == 0 else None)
+        session.report({"step": i, "loss": loss, "device": str(dev),
+                        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)},
+                       checkpoint=ckpt)
+
+    losses = _mlp_steps(dev, config["batches"], config["lr"], report)
+    session.report({"final": True, "losses": losses, "device": str(dev),
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
+
+
+def phase_train_mlp_trainer(rt):
+    """BASELINE config 2's shape on one card: ``TorchTrainer``, 1 worker
+    with ``use_gpu=True``, the MLP's gradients all-reduced through the
+    ``shm`` group; per-step losses equal the same loop's in this process
+    within 1e-5; ``CheckpointConfig(num_to_keep=2)`` keeps two."""
+    import tempfile
+
+    from ray_tpu_torch.air import CheckpointConfig, RunConfig, ScalingConfig
+    from ray_tpu_torch.models import mlp
+    from ray_tpu_torch.train import TorchConfig, TorchTrainer
+
+    cfg = mlp.MLPConfig()
+    batches = _mlp_batches(MLP_STEPS, MLP_BATCH, cfg.in_dim, cfg.num_classes)
+    want = _mlp_steps("cuda", batches, MLP_LR)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as storage:
+        t0 = time.perf_counter()
+        result = TorchTrainer(
+            _mlp_train_loop,
+            train_loop_config={"batches": batches, "lr": MLP_LR, "checkpoint_every": 2},
+            # the shm group on a GPU worker, asked for by name (the default
+            # there is the torch group): each step's gradients cross the host
+            torch_config=TorchConfig(use_torch_distributed=False),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="mlp", storage_path=storage,
+                                 checkpoint_config=CheckpointConfig(num_to_keep=2)),
+        ).fit()
+        fit_s = time.perf_counter() - t0
+        check(result.error is None, f"train_mlp_trainer: {result.error}")
+        kept = sorted(d for d in os.listdir(os.path.join(storage, "mlp"))
+                      if d.startswith("checkpoint_"))
+        best_step = result.checkpoint.to_dict()["step"]
+    check(len(kept) == 2, f"train_mlp_trainer: kept {kept}, want 2")
+    check(best_step == MLP_STEPS - 1, f"train_mlp_trainer: latest checkpoint at step {best_step}")
+    got = result.metrics
+    check(got.get("final") and got["device"] == "cuda:0", f"train_mlp_trainer: last report {got}")
+    diff = max(abs(a - b) for a, b in zip(got["losses"], want))
+    check(len(got["losses"]) == MLP_STEPS and diff <= 1e-5,
+          f"train_mlp_trainer: losses {got['losses']} against the driver's {want}")
+    emit("train_mlp_trainer", model="mlp 784-512-256-10 f32, TF32 off", steps=MLP_STEPS,
+         batch=MLP_BATCH, lr=MLP_LR, group="shm", worker_device=got["device"],
+         losses=got["losses"], driver_losses=want, max_loss_diff=diff, tolerance=1e-5,
+         checkpoints_kept=kept, fit_s=fit_s, worker_peak_mem_bytes=got["peak_mem_bytes"],
+         driver_peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+def _gpt2_train_loop(config):
+    """GPT-2 125M at train_gpt2's recipe in a Train worker on its granted
+    card: the step's forward and backward (wrapped: its first call is
+    billed to ``compile``), the gradients all-reduced in one round over the
+    gang's ``torch`` group (NCCL), AdamW; every step reports its loss, its
+    StepProfiler phases, the live MFU and the flash launches it made.  The
+    last report holds the update of all its steps against the in-process
+    one saved at ``config["reference_update"]``."""
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.transformer import named_leaves
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import attention as attn_mod
+    from ray_tpu_torch.train import torch_utils
+    from ray_tpu_torch.util import collective
+    from ray_tpu_torch.util.tree import tree_map
+
+    dev = torch_utils.get_device()
+    group = os.environ["RAY_TRAIN_COLLECTIVE_GROUP"]
+    check(collective.get_group_backend(group) == "torch"
+          and torch.distributed.get_backend() == "nccl",
+          f"train_gpt2_trainer: group {collective.get_group_backend(group)}")
+    cfg = gpt2.GPT2Config.gpt2_small()
+    opt = gpt2.make_optimizer(lr=3e-4)
+    state = gpt2.init_state(cfg, torch.Generator().manual_seed(0), opt, device=dev)
+    init = {k: p.detach().clone() for k, p in named_leaves(state["params"])}
+    rng = np.random.default_rng(0)
+    b, t = config["batch"], cfg.max_seq_len
+    batch = {"inputs": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t), np.int32)).long().to(dev),
+             "targets": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t), np.int32)).long().to(dev)}
+    n_params = gpt2.num_params(state["params"])
+    prof = torch_utils.step_profiler(cfg=cfg, n_params=n_params, tokens_per_step=b * t,
+                                     device=dev)
+
+    def forward_backward(params, batch):
+        loss = gpt2.loss_fn(params, batch, cfg)
+        loss.backward()
+        return loss.detach()
+
+    step_fn = prof.wrap_jit(forward_backward, name="gpt2_forward_backward")
+
+    def train_step(fwd_bwd):
+        gpt2.AdamW.zero_grad(state["opt_state"])
+        loss = fwd_bwd(state["params"], batch)
+        grads = torch_utils.allreduce_grads(tree_map(lambda p: p.grad, state["params"]))
+        tree_map(lambda p, g: setattr(p, "grad", g), state["params"], grads)
+        with prof.phase("compute"):
+            gpt2.AdamW.update(state["opt_state"])
+        state["step"] += 1
+        return loss
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    history = []
+    for i in range(config["warmup"] + config["steps"]):
+        _build.reset_launches()
+        with prof.step():
+            loss = train_step(step_fn)
+        launches = {k: _build.launches.get(k, 0) for k in (
+            attn_mod.KERNEL, attn_mod.DQ_KERNEL, attn_mod.DKV_KERNEL,
+            *attn_mod.TENSOR_CORE_COUNTER.values())}
+        s = prof.steps[-1]
+        history.append({"step": i, "loss": loss.item(), "wall_s": s["wall_s"],
+                        "phases": s["phases"], "mfu": s["mfu"], "launches": launches,
+                        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                        "device": str(dev)})
+        session.report(history[-1])
+    update = _update_error(state["params"], init, config["reference_update"])
+    del init
+    device_work = _step_device_work(lambda: train_step(forward_backward))
+    session.report({"final": True, "summary": prof.summary(), "history": history,
+                    "n_params": n_params, "device_work": device_work, "update": update})
+
+
+def _update_error(params, init, path):
+    """This run's update (``params`` less ``init``) against the one saved
+    at ``path``: the worst leaf's ``|u - u_ref| / |u_ref|`` (Frobenius
+    norms), that leaf, and the smallest ``|u_ref|`` of any leaf."""
+    from ray_tpu_torch.models.transformer import named_leaves
+
+    ref = torch.load(path)
+    worst, leaf, smallest = -1.0, None, float("inf")
+    for k, p in named_leaves(params):
+        u, u_ref = p.detach() - init[k], ref[k].to(p.device)
+        norm_ref = torch.linalg.vector_norm(u_ref).item()
+        rel = torch.linalg.vector_norm(u - u_ref).item() / max(norm_ref, 1e-30)
+        smallest = min(smallest, norm_ref)
+        if rel > worst:
+            worst, leaf = rel, k
+    return {"max_rel_err": worst, "worst_leaf": leaf, "min_ref_norm": smallest,
+            "leaves": len(ref)}
+
+
+def _step_device_work(step, reps=3):
+    """A step's device work, outside the StepProfiler (which syncs every
+    phase): the device wall of ``reps`` unsynchronised steps by CUDA
+    events, then one step under ``torch.profiler``: kernel time, kernels,
+    the collective's kernels (NCCL) and the card's idle share."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        step()
+    end.record()
+    end.synchronize()
+    wall_ms = start.elapsed_time(end) / reps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    check(bool(kernels), "train_gpt2_trainer: the profiler saw no device time in the worker")
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    return {"step_device_wall_ms": wall_ms, "device_busy_ms": busy, "kernels": len(kernels),
+            "idle_share": 1 - busy / wall_ms, "nccl_kernels": len(nccl),
+            "nccl_ms": sum(e.time_range.elapsed_us() for e in nccl) / 1e3}
+
+
+def _gpt2_reference(n, update_path):
+    """``n`` steps of the in-process step (make_train_step) from the same
+    seed and batch: their losses; each leaf's update over them (the params
+    less their init) is saved to ``update_path`` on the host."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.transformer import named_leaves
+
+    cfg = gpt2.GPT2Config.gpt2_small()
+    opt = gpt2.make_optimizer(lr=3e-4)
+    state = gpt2.init_state(cfg, torch.Generator().manual_seed(0), opt, device="cuda")
+    init = {k: p.detach().clone() for k, p in named_leaves(state["params"])}
+    step = gpt2.make_train_step(cfg, opt)
+    batch = _train_batch(cfg.vocab_size, TRAIN_BATCH, cfg.max_seq_len)
+    losses = []
+    for _ in range(n):
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+    torch.save({k: (p.detach() - init[k]).cpu() for k, p in named_leaves(state["params"])},
+               update_path)
+    del state, step, batch, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def phase_train_gpt2_trainer(rt, in_process_row):
+    """BASELINE config 3's model on one card (see the module doc);
+    returns the flash launches the Train worker made over all its steps."""
+    import tempfile
+
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import TorchConfig, TorchTrainer
+
+    n_steps = TRAINER_WARMUP + TRAINER_STEPS
+    with tempfile.TemporaryDirectory() as storage:
+        update_path = os.path.join(storage, "reference_update.pt")
+        want_losses = _gpt2_reference(n_steps, update_path)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = TorchTrainer(
+            _gpt2_train_loop,
+            train_loop_config={"batch": TRAIN_BATCH, "warmup": TRAINER_WARMUP,
+                               "steps": TRAINER_STEPS, "reference_update": update_path},
+            torch_config=TorchConfig(use_torch_distributed=True),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="gpt2", storage_path=storage)).fit()
+        fit_s = time.perf_counter() - t0
+    check(result.error is None, f"train_gpt2_trainer: {result.error}")
+    final = result.metrics
+    check(bool(final.get("final")), f"train_gpt2_trainer: last report {final}")
+    steps = final["history"]
+    check(len(steps) == n_steps, f"train_gpt2_trainer: {len(steps)} steps")
+    losses = [r["loss"] for r in steps]
+    check(all(np.isfinite(losses)), f"train_gpt2_trainer: non-finite loss {losses}")
+    diff = max(abs(a - b) for a, b in zip(losses, want_losses))
+    check(diff <= TRAINER_LOSS_TOL, f"train_gpt2_trainer: losses {losses} against the "
+          f"in-process {want_losses}")
+    update = final["update"]
+    check(update["max_rel_err"] <= TRAINER_UPDATE_TOL,
+          f"train_gpt2_trainer: the update of leaf {update['worst_leaf']} differs from the "
+          f"in-process one by {update['max_rel_err']} of its norm ({update})")
+    n_layers = gpt2.GPT2Config.gpt2_small().n_layers
+    want = {attn.KERNEL: 2 * n_layers, attn.DQ_KERNEL: n_layers, attn.DKV_KERNEL: n_layers}
+    for r in steps:
+        got = {k: r["launches"][k] for k in want}
+        check(got == want, f"train_gpt2_trainer: step {r['step']} launched {got}, want {want}")
+        check(all(r["launches"][c] == r["launches"][k]
+                  for k, c in attn.TENSOR_CORE_COUNTER.items()),
+              f"train_gpt2_trainer: not every flash launch ran on the tensor cores: {r['launches']}")
+    timed = steps[TRAINER_WARMUP:]
+    tokens = TRAIN_BATCH * gpt2.GPT2Config.gpt2_small().max_seq_len
+    tok_s = sorted(tokens / r["wall_s"] for r in timed)
+    launches = {}
+    for r in steps:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    emit("train_gpt2_trainer", model="gpt2 125M bf16 (f32 master weights), remat dots, "
+         f"B {TRAIN_BATCH} x T 1024, TorchTrainer 1 worker, TorchConfig(use_torch_distributed=True)",
+         worker_device=steps[0]["device"], fit_s=fit_s, losses=losses,
+         in_process_losses=want_losses, max_loss_diff=diff,
+         loss_tolerance=TRAINER_LOSS_TOL, update_vs_in_process=update,
+         update_tolerance=TRAINER_UPDATE_TOL,
+         phases_by_step=[{"step": r["step"], "wall_ms": r["wall_s"] * 1e3,
+                          "phases_ms": {k: v * 1e3 for k, v in r["phases"].items()},
+                          "mfu": r["mfu"]} for r in steps],
+         tokens_per_s_median=tok_s[len(tok_s) // 2], tokens_per_s_best=tok_s[-1],
+         in_process_train_gpt2_tokens_per_s_median=in_process_row["tokens_per_s_median"],
+         mfu_live_timed_median=sorted(r["mfu"] for r in timed)[len(timed) // 2],
+         mfu_live_mean_all_steps=final["summary"]["mfu"]["mean"],
+         profiler_summary=final["summary"], worker_step_device_work=final["device_work"],
+         flash_launches_per_step={k: v / len(steps) for k, v in launches.items()},
+         worker_peak_mem_bytes=steps[-1]["peak_mem_bytes"],
+         driver_peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -1645,9 +2080,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     from ray_tpu_torch.models import gpt2, llama
-    state, step, batch, train_launches, row = train(
+    state, step, batch, train_launches, gpt2_row = train(
         "gpt2", gpt2.GPT2Config.gpt2_small(), TRAIN_BATCH, TRAIN_WARMUP, TRAIN_WINDOWS)
-    phase_train_profile(state, step, batch, sorted(row["ms_per_step_by_window"])[1])
+    phase_train_profile(state, step, batch, sorted(gpt2_row["ms_per_step_by_window"])[1])
     del state, step, batch
     torch.cuda.empty_cache()
     _, _, _, llama_launches, _ = train("llama", llama.LlamaConfig.llama_125m(), LLAMA_BATCH,
@@ -1676,10 +2111,23 @@ def main() -> int:
     sharded_launches, mesh = phase_train_gpt2_sharded()
     torch.cuda.empty_cache()
     phase_ring_attention_card(mesh, fwd)
+    del mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    import ray_tpu_torch as rt
+
+    try:
+        phase_core_gpu_actor(rt)
+        phase_train_mlp_trainer(rt)
+        trainer_launches = phase_train_gpt2_trainer(rt, gpt2_row)
+    finally:
+        rt.shutdown()
 
     runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama, "serve_bert": bert_launches,
             "train_gpt2": train_launches, "train_llama": llama_launches,
             "train_gpt2_moe": moe_launches, "train_gpt2_sharded": sharded_launches,
+            "train_gpt2_trainer": trainer_launches,
             "rl_parity": rl_parity_launches,
             "rl_ppo_atari": rl_launches}
     for r in (fwd, *bwd.values()):

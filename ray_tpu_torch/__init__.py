@@ -12,6 +12,15 @@ dense or with Switch experts), predicts from a checkpoint
 (``train.TorchPredictor``) and learns RL policies without the runtime
 (``rllib.RolloutWorker``, ``TorchPolicy``, ``train_one_step``).
 
+It also carries its own copy of the runtime core (``_private/``,
+``actor.py``, ``remote_function.py``, ``runtime_context.py``), with the
+GPU as a first-class resource: ``init(num_gpus=...)``,
+``@remote(num_gpus=1)``, ``get``, ``put``, ``wait``, ``kill``,
+``get_actor`` (``_api.py``), and Ray Train's seat on it
+(``train.TorchTrainer``, ``TorchConfig``, ``train.torch_utils``,
+``util.perf.StepProfiler``, ``util.collective``).  Those names load on
+first use, so importing the package starts no thread or process.
+
 Entry points (``models.*.init`` and ``init_state``,
 ``models.generate.init_cache``, ``ops.moe.init_moe_params``,
 ``convert.from_jax_params``, ``from_jax_train_state``,
@@ -26,4 +35,19 @@ first use (``ops/_build.py``).
 
 from ray_tpu_torch._device import resolve_device
 
-__all__ = ["resolve_device"]
+# the core API, loaded from ``_api.py`` on first use
+_API = ("init", "shutdown", "is_initialized", "remote", "put", "get", "wait",
+        "kill", "cancel", "get_actor", "get_runtime_context",
+        "cluster_resources", "available_resources", "nodes",
+        "placement_group", "remove_placement_group", "exceptions",
+        "ObjectRef", "ActorClass", "ActorHandle", "RemoteFunction")
+
+__all__ = ["resolve_device", *_API]
+
+
+def __getattr__(name):
+    if name in _API:
+        from ray_tpu_torch import _api
+
+        return getattr(_api, name)
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,249 @@
+"""Zero-copy serialization for objects crossing process boundaries.
+
+Analog of the reference's ``SerializationContext``
+(``python/ray/_private/serialization.py:92``) and its zero-copy numpy path
+(``python/ray/_private/arrow_serialization.py``): we use pickle protocol 5
+with out-of-band buffers so that large contiguous payloads (numpy arrays,
+bytes) are written directly into a shared-memory segment
+and mapped back as zero-copy views on the consumer side.
+
+Wire layout of a serialized object (one blob, possibly inside one shm
+segment):
+
+    [u64 meta_len][meta pickle][buffer 0][pad to 64][buffer 1]...
+
+where ``meta pickle`` is the pickle-5 stream with ``PickleBuffer``s replaced
+by indices, plus a table of (offset, length) for each out-of-band buffer.
+
+ObjectRefs found inside values are serialized by id and re-hydrated on the
+other side (the reference does this through its serialization context's
+object-ref reducer so that the owner address travels with the ref).
+"""
+
+from __future__ import annotations
+
+import io
+import pickle
+import struct
+from typing import Any, List, Tuple
+
+_ALIGN = 64
+_HEADER = struct.Struct("<Q")
+
+
+def _pad(n: int) -> int:
+    return (n + _ALIGN - 1) // _ALIGN * _ALIGN
+
+
+import cloudpickle as _cloudpickle
+
+
+class _OOBPickler(_cloudpickle.Pickler):
+    """cloudpickle-based pickler (lambdas/closures work) that additionally
+    collects out-of-band buffers and contained ObjectRefs."""
+
+    def __init__(self, file, collected_refs: list):
+        super().__init__(file, protocol=5, buffer_callback=self._buffer_cb)
+        self.buffers: List[pickle.PickleBuffer] = []
+        self._collected_refs = collected_refs
+
+    def _buffer_cb(self, buf: pickle.PickleBuffer) -> bool:
+        self.buffers.append(buf)
+        return False  # do not serialize in-band
+
+    def reducer_override(self, obj):
+        from ray_tpu_torch._private.object_ref import ObjectRef
+
+        if isinstance(obj, ObjectRef):
+            self._collected_refs.append(obj)
+            return (_deserialize_object_ref, (obj.hex(),))
+        # cloudpickle's own reducer_override handles functions/classes
+        return super().reducer_override(obj)
+
+
+def _deserialize_object_ref(hex_id: str):
+    from ray_tpu_torch._private.object_ref import ObjectRef
+    from ray_tpu_torch._private.worker import global_worker
+
+    ref = ObjectRef.from_hex(hex_id)
+    if global_worker.connected:
+        # borrow registration: this process now holds a handle; the
+        # enclosing container (task spec or sealed object) is still pinned
+        # while we deserialize, so the add_ref cannot race the deletion
+        return global_worker.track_ref(ref, owned=False)
+    return ref
+
+
+def serialize(value: Any) -> Tuple[bytes, List[memoryview], list]:
+    """Serialize ``value``.
+
+    Returns (meta_blob, raw_buffers, contained_object_refs).  ``meta_blob``
+    is self-contained; ``raw_buffers`` must be written after it per the wire
+    layout above.
+    """
+    f = io.BytesIO()
+    refs: list = []
+    p = _OOBPickler(f, refs)
+    p.dump(value)
+    payload = f.getvalue()
+    # Non-contiguous buffers are rare (strided views); make them contiguous
+    # once, then the table is just nbytes of each final buffer.
+    out_views = []
+    for b in p.buffers:
+        try:
+            v = b.raw()  # flat contiguous view; raises if non-contiguous
+        except BufferError:
+            v = memoryview(memoryview(b).tobytes())
+        out_views.append(v)
+    table = [v.nbytes for v in out_views]
+    meta = pickle.dumps((payload, table), protocol=5)
+    return meta, out_views, refs
+
+
+def total_size(meta: bytes, buffers: List[memoryview]) -> int:
+    n = _HEADER.size + _pad(len(meta))
+    for b in buffers:
+        n += _pad(b.nbytes)
+    return n
+
+
+def write_into(dest: memoryview, meta: bytes, buffers: List[memoryview]) -> int:
+    """Write the wire layout into ``dest`` (e.g. an shm buffer). Returns bytes written."""
+    off = 0
+    _HEADER.pack_into(dest, off, len(meta))
+    off += _HEADER.size
+    dest[off : off + len(meta)] = meta
+    off = _HEADER.size + _pad(len(meta))
+    for b in buffers:
+        dest[off : off + b.nbytes] = b
+        off += _pad(b.nbytes)
+    return off
+
+
+# A single writer thread hits the tmpfs page-allocation ceiling well below
+# memory bandwidth; os.pwrite releases the GIL, so sharding one huge buffer
+# across a few threads overlaps shmem page allocation + copy.  Past ~8
+# writers the shmem lock serializes them (measured plateau), so cap there.
+_PAR_WRITE_MIN = 512 << 20  # parallelize only multi-100MB buffers
+_PAR_WRITE_THREADS = 8
+_PAR_WRITE_CHUNK = 256 << 20  # per-syscall cap (far below pwrite's 2 GiB)
+
+
+def _pwrite_span(fd: int, view: memoryview, pos: int, end: int,
+                 base: int) -> None:
+    """pwrite ``view[pos:end]`` at file offset ``base + pos``."""
+    import os
+
+    while pos < end:
+        pos += os.pwrite(fd, view[pos:min(end, pos + _PAR_WRITE_CHUNK)],
+                         base + pos)
+
+
+def _pwrite_buffer(fd: int, view: memoryview, file_off: int) -> None:
+    """Write one buffer at ``file_off``, sharded across threads when big
+    enough for the parallelism to win."""
+    import concurrent.futures
+
+    n = view.nbytes
+    if n < _PAR_WRITE_MIN:
+        _pwrite_span(fd, view, 0, n, file_off)
+        return
+    nt = _PAR_WRITE_THREADS
+    shard = (n + nt - 1) // nt
+    with concurrent.futures.ThreadPoolExecutor(nt) as ex:
+        list(ex.map(lambda i: _pwrite_span(
+            fd, view, i * shard, min(n, (i + 1) * shard), file_off),
+            range(nt)))
+
+
+def write_to_fd(fd: int, meta: bytes, buffers: List[memoryview]) -> int:
+    """Write the wire layout straight to ``fd`` with ``os.write``.
+
+    On tmpfs this is ~2.4x faster than memcpy into a fresh mmap: the write
+    syscall allocates pages directly instead of zero-filling each page and
+    then faulting it in again for the copy.  Multi-100MB buffers shard
+    across pwrite threads (see ``_pwrite_buffer``).  Returns bytes
+    written."""
+    import os
+
+    off = 0
+
+    def put(view) -> None:
+        nonlocal off
+        view = memoryview(view).cast("B")
+        if view.nbytes >= _PAR_WRITE_MIN:
+            _pwrite_buffer(fd, view, off)
+            off += view.nbytes
+            os.lseek(fd, off, os.SEEK_SET)  # keep the cursor in sync
+            return
+        while view.nbytes:
+            n = os.write(fd, view)
+            off += n
+            view = view[n:]
+
+    put(_HEADER.pack(len(meta)))
+    put(meta)
+    pad = _pad(len(meta)) - len(meta)  # matches write_into's layout
+    if pad:
+        put(b"\0" * pad)
+    for b in buffers:
+        put(b)
+        rem = _pad(b.nbytes) - b.nbytes
+        if rem:
+            put(b"\0" * rem)
+    return off
+
+
+def write_to_fd_at(fd: int, offset: int, meta: bytes,
+                   buffers: List[memoryview]) -> int:
+    """Write the wire layout at ``offset`` of ``fd`` with ``os.pwrite``.
+
+    The arena's big-object path: one pass over the payload through the
+    file write path instead of memcpy into the arena mmap.  On a fresh
+    (never-faulted) arena region the mmap path pays a userspace page
+    fault + kernel zero-fill + copy per 4 KiB page — on multi-GiB values
+    (checkpoint-sized blocks) that fault loop is the 45x put cliff.
+    pwrite allocates and fills each tmpfs page in one kernel pass, stays
+    page-cache-coherent with every reader's mmap of the arena, and chunks
+    below the ~2 GiB single-syscall cap.  Multi-100MB buffers shard across
+    pwrite threads (see ``_pwrite_buffer``).  Returns bytes written."""
+    pos = offset
+
+    def put(view) -> None:
+        nonlocal pos
+        view = memoryview(view).cast("B")
+        _pwrite_buffer(fd, view, pos)
+        pos += view.nbytes
+
+    put(_HEADER.pack(len(meta)))
+    put(meta)
+    pad = _pad(len(meta)) - len(meta)
+    if pad:
+        put(b"\0" * pad)
+    for b in buffers:
+        put(b)
+        rem = _pad(b.nbytes) - b.nbytes
+        if rem:
+            put(b"\0" * rem)
+    return pos - offset
+
+
+def to_bytes(meta: bytes, buffers: List[memoryview]) -> bytes:
+    out = bytearray(total_size(meta, buffers))
+    write_into(memoryview(out), meta, buffers)
+    return bytes(out)
+
+
+def deserialize(src: memoryview) -> Any:
+    """Deserialize from the wire layout; buffers are zero-copy views of
+    ``src``, so they live exactly as long as ``src``'s exporting object
+    (the arena store passes a pinned mmap — see ``_pinned_arena_slice``)."""
+    (meta_len,) = _HEADER.unpack_from(src, 0)
+    meta = bytes(src[_HEADER.size : _HEADER.size + meta_len])
+    payload, table = pickle.loads(meta)
+    off = _HEADER.size + _pad(meta_len)
+    bufs = []
+    for n in table:
+        bufs.append(pickle.PickleBuffer(src[off : off + n]))
+        off += _pad(n)
+    return pickle.loads(payload, buffers=bufs)

@@ -1,12 +1,12 @@
 """Checkpoint: one object that converts losslessly among a dict, a local
-directory and a URI.
+directory, a URI and an object-store ref.
 
 The port's own copy of ``ray_tpu/air/checkpoint.py`` (which imports no
 JAX, but the port imports nothing of ``ray_tpu``).  A dict is written as
 ``checkpoint.pkl`` in the directory, the same layout, so a directory the
 JAX package's ``Checkpoint`` wrote with numpy leaves reads here.  The
-object-store forms (``from_object_ref``, ``to_object_ref``) need the
-runtime, which the port does not have yet, and raise.  The JAX package's
+object-store forms (``from_object_ref``, ``to_object_ref``) go through
+the port's runtime (``ray_tpu_torch.put`` / ``get``).  The JAX package's
 orbax pair ``save_jax``/``load_jax`` becomes :meth:`Checkpoint.save_torch`
 / :meth:`Checkpoint.load_torch`: ``torch.save`` of the whole tree as one
 file in the directory.
@@ -25,18 +25,19 @@ import torch
 
 _DICT_FILE = "checkpoint.pkl"
 _TORCH_FILE = "torch_state.pt"
-_NO_OBJECT_STORE = ("object-store checkpoints need the runtime, which the port does "
-                    "not have yet (ROADMAP A3/A4)")
 
 
 class Checkpoint:
-    """Exactly one of ``_data`` (a dict) and ``_local_path`` is set."""
+    """Exactly one of ``_data`` (a dict), ``_local_path`` and ``_obj_ref``
+    is set."""
 
-    def __init__(self, data: Optional[Dict] = None, local_path: Optional[str] = None):
-        if (data is None) == (local_path is None):
-            raise ValueError("Checkpoint takes exactly one of data/local_path")
+    def __init__(self, data: Optional[Dict] = None, local_path: Optional[str] = None,
+                 obj_ref=None):
+        if sum(x is not None for x in (data, local_path, obj_ref)) != 1:
+            raise ValueError("Checkpoint takes exactly one of data/local_path/obj_ref")
         self._data = data
         self._local_path = local_path
+        self._obj_ref = obj_ref
         self._uuid = uuid.uuid4().hex
 
     # -- constructors -------------------------------------------------
@@ -57,7 +58,12 @@ class Checkpoint:
 
     @classmethod
     def from_object_ref(cls, ref) -> "Checkpoint":
-        raise NotImplementedError(_NO_OBJECT_STORE)
+        """A checkpoint whose dict lives in the object store."""
+        from ray_tpu_torch._private.object_ref import ObjectRef
+
+        if not isinstance(ref, ObjectRef):
+            raise TypeError(f"from_object_ref takes an ObjectRef, got {type(ref)}")
+        return cls(obj_ref=ref)
 
     # -- conversions --------------------------------------------------
     def to_dict(self) -> Dict:
@@ -65,6 +71,10 @@ class Checkpoint:
         dict payload gives its files' bytes by name."""
         if self._data is not None:
             return dict(self._data)
+        if self._obj_ref is not None:
+            import ray_tpu_torch
+
+            return Checkpoint.from_dict(ray_tpu_torch.get(self._obj_ref)).to_dict()
         fp = os.path.join(self._local_path, _DICT_FILE)
         if os.path.exists(fp):
             with open(fp, "rb") as f:
@@ -95,7 +105,12 @@ class Checkpoint:
         return uri
 
     def to_object_ref(self):
-        raise NotImplementedError(_NO_OBJECT_STORE)
+        """The dict put into the object store (its ref, for one made so)."""
+        if self._obj_ref is not None:
+            return self._obj_ref
+        import ray_tpu_torch
+
+        return ray_tpu_torch.put(self.to_dict())
 
     # -- torch state --------------------------------------------------
     @classmethod
@@ -115,7 +130,9 @@ class Checkpoint:
                           map_location=map_location, weights_only=True)
 
     def __repr__(self):
-        return f"Checkpoint({'dict' if self._data is not None else 'dir'})"
+        kind = ("dict" if self._data is not None
+                else "dir" if self._local_path else "objref")
+        return f"Checkpoint({kind})"
 
 
 def _uri_path(uri: str) -> str:

@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` into ``ray_tpu_torch/_build/lib<name>_<hash>.so`` at first use,
 then loaded with ``ctypes``.  The hash covers the source, the shared
 headers ``csrc/*.cuh`` and the flags, so an edited source or header builds
-anew and an unchanged one is reused.  Nothing
+anew and an unchanged one is reused.  A build holds an ``fcntl`` lock on
+``_build/.lock``, so processes that load the same library at once (the
+Train workers, the driver beside them) compile it once: the others wait,
+then find it built.  Nothing
 is built or loaded when this module is imported: the CPU tests import
 every module on a host with no ``nvcc``.
 
@@ -15,7 +18,9 @@ through the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -66,14 +71,33 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Hold the build directory's lock, across processes (threads of one
+    process serialize on ``_lock`` in :func:`load` as well)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Iterable[str], *, ptxas_verbose: bool = False
           ) -> Dict[str, Dict[str, object]]:
     """Compile every named source whose library is missing, one ``nvcc``
     per source, all started together.  Returns ``{name: {"seconds",
     "log"}}`` (``seconds`` 0.0 and ``log`` "" for a library already
-    built).  Raises ``RuntimeError`` with the compiler's output on a
-    failed build."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    built, here or by another process while this one waited for the
+    lock).  Raises ``RuntimeError`` with the compiler's output on a failed
+    build."""
+    with _build_lock():
+        return _build_locked(names, ptxas_verbose)
+
+
+def _build_locked(names: Iterable[str], ptxas_verbose: bool
+                  ) -> Dict[str, Dict[str, object]]:
     t0 = time.perf_counter()
     out: Dict[str, Dict[str, object]] = {}
     procs = {}

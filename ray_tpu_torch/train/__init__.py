@@ -1,7 +1,29 @@
-"""The port's Train layer: ``Predictor`` and ``TorchPredictor``
-(``train/predictor.py``).  The Train runtime (worker group, backend,
-``BatchPredictor``) is not ported."""
+"""The port's Train layer: ``TorchTrainer`` over the port's runtime
+(``trainer.py``, ``backend.py`` ``TorchConfig``, ``worker_group.py``,
+``backend_executor.py``), the helpers a train loop calls
+(``torch_utils``), and ``Predictor`` / ``TorchPredictor``
+(``predictor.py``).  ``BatchPredictor`` waits for the port of Data."""
 
+from ray_tpu_torch.air import Checkpoint, Result, RunConfig, ScalingConfig
+from ray_tpu_torch.train import torch_utils
+from ray_tpu_torch.train.backend import Backend, BackendConfig, TorchConfig
 from ray_tpu_torch.train.predictor import Predictor, TorchPredictor
+from ray_tpu_torch.train.trainer import BaseTrainer, DataParallelTrainer, TorchTrainer
+from ray_tpu_torch.train.worker_group import WorkerGroup
 
-__all__ = ["Predictor", "TorchPredictor"]
+__all__ = [
+    "Predictor",
+    "TorchPredictor",
+    "Backend",
+    "BackendConfig",
+    "TorchConfig",
+    "BaseTrainer",
+    "DataParallelTrainer",
+    "TorchTrainer",
+    "WorkerGroup",
+    "torch_utils",
+    "Checkpoint",
+    "Result",
+    "RunConfig",
+    "ScalingConfig",
+]

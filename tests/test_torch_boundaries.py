@@ -220,3 +220,59 @@ def test_parallel_entry_points_raise_without_a_card(no_cuda):
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_two_processes_build_a_library_once(tmp_path):
+    """Two processes that load the same kernel at once (Train workers
+    beside their driver) compile it once: the build holds a lock on the
+    build directory, and the second finds the library built.  A stand-in
+    compiler takes nvcc's place (none here): it counts its runs, sleeps,
+    and writes the ``-o`` file."""
+    csrc, build_dir, runs = tmp_path / "csrc", tmp_path / "build", tmp_path / "runs"
+    csrc.mkdir()
+    (csrc / "kern.cu").write_text("// kernel\n")
+    fake_nvcc = tmp_path / "fake_nvcc"
+    fake_nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys, time\n"
+        f"open({str(runs)!r}, 'a').write('run\\n')\n"
+        "time.sleep(1.0)\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'wb').write(b'lib')\n")
+    fake_nvcc.chmod(0o755)
+    code = (
+        "import sys\n"
+        "from pathlib import Path\n"
+        "from ray_tpu_torch.ops import _build\n"
+        "_build.CSRC, _build.BUILD_DIR = Path(sys.argv[1]), Path(sys.argv[2])\n"
+        "_build._nvcc = lambda: sys.argv[3]\n"
+        "out = _build.build(['kern'])['kern']\n"
+        "print(out['seconds'] > 0, _build.library_path('kern'))\n")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(csrc), str(build_dir),
+                               str(fake_nvcc)], cwd=ROOT, stdout=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=120)[0].split() for p in procs]
+    assert all(p.returncode == 0 for p in procs)
+    assert sorted(o[0] for o in outs) == ["False", "True"]  # one compiled, one waited
+    assert outs[0][1] == outs[1][1] and pathlib.Path(outs[0][1]).read_bytes() == b"lib"
+    assert runs.read_text() == "run\n"
+    assert [p.name for p in build_dir.iterdir() if p.suffix == ".so"] == [pathlib.Path(outs[0][1]).name]
+
+
+def test_runtime_core_loads_neither_jax_nor_ray_tpu_and_starts_nothing():
+    """The copied runtime (``_private/``, the core API, Train, the
+    collective group, the step profiler) imports no JAX and nothing of
+    ``ray_tpu``, and importing it starts no thread and no process."""
+    code = (
+        "import sys, threading\n"
+        "import ray_tpu_torch\n"
+        "assert 'ray_tpu_torch._api' not in sys.modules  # the core API loads on first use\n"
+        "ray_tpu_torch.remote\n"
+        "import ray_tpu_torch._private.node, ray_tpu_torch._private.worker\n"
+        "import ray_tpu_torch._private.forkserver, ray_tpu_torch._private.native\n"
+        "import ray_tpu_torch.protocol, ray_tpu_torch.util.metrics\n"
+        "import ray_tpu_torch.train, ray_tpu_torch.train.torch_utils, ray_tpu_torch.air\n"
+        "import ray_tpu_torch.util.perf, ray_tpu_torch.util.collective\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n" % (FORBIDDEN,))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

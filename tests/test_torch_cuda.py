@@ -18,6 +18,8 @@ the tensor-core forward, dQ and dK/dV (``ta.uses_tensor_cores``), with the
 same tolerances.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -451,3 +453,69 @@ def test_ring_attention_on_a_world_of_one_matches_flash(world_of_one):
     for causal in (False, True):
         torch.testing.assert_close(ring_attention(q, k, v, world_of_one, causal=causal),
                                    ta.flash_attn(q, k, v, causal), atol=1e-5, rtol=1e-5)
+
+
+def _tiny_gpt2_trainer_loop(config):
+    """A tiny GPT-2's steps in a Train worker on its granted card, the
+    gradients all-reduced over the gang's ``torch`` group (NCCL)."""
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import torch_utils
+    from ray_tpu_torch.util import collective
+    from ray_tpu_torch.util.tree import tree_map
+
+    dev = torch_utils.get_device()
+    cfg = gpt2.GPT2Config.tiny(dtype=torch.bfloat16, d_model=128, n_heads=2)
+    opt = gpt2.make_optimizer(lr=1e-3, warmup=0)
+    state = gpt2.init_state(cfg, torch.Generator().manual_seed(0), opt, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, cfg.max_seq_len + 1),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    _build.reset_launches()
+    for _ in range(config["steps"]):
+        gpt2.AdamW.zero_grad(state["opt_state"])
+        loss = gpt2.loss_fn(state["params"], {"tokens": tokens}, cfg)
+        loss.backward()
+        grads = torch_utils.allreduce_grads(tree_map(lambda p: p.grad, state["params"]))
+        tree_map(lambda p, g: setattr(p, "grad", g), state["params"], grads)
+        gpt2.AdamW.update(state["opt_state"])
+        session.report({"loss": loss.item(), "device": str(dev),
+                        "flash_fwd": _build.launches.get(ta.KERNEL, 0),
+                        "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                        "group": (collective.get_group_backend(
+                            os.environ["RAY_TRAIN_COLLECTIVE_GROUP"]),
+                            torch.distributed.get_backend())})
+
+
+def test_gpu_actor_and_trainer_on_the_card(cuda):
+    """The port's runtime on the card: a ``num_gpus=1`` actor gets the card
+    as its ``CUDA_VISIBLE_DEVICES``, and a ``TorchTrainer`` worker in an NCCL
+    world of one, which the default ``TorchConfig`` chooses for a worker
+    that holds a card, trains through the flash kernels."""
+    import ray_tpu_torch
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.train import TorchConfig, TorchTrainer
+
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        @ray_tpu_torch.remote(num_gpus=1)
+        class OnCard:
+            def probe(self):
+                x = torch.ones(256, 256, dtype=torch.bfloat16, device="cuda")
+                return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                        ray_tpu_torch.get_runtime_context().get_gpu_ids(),
+                        float((x @ x).float().sum()))
+
+        a = OnCard.remote()
+        visible, ids, total = ray_tpu_torch.get(a.probe.remote(), timeout=120)
+        assert (visible, ids, total) == (str(ids[0]), [ids[0]], 256.0 ** 3)
+        ray_tpu_torch.kill(a)
+        result = TorchTrainer(_tiny_gpt2_trainer_loop, train_loop_config={"steps": 2},
+                              torch_config=TorchConfig(),
+                              scaling_config=ScalingConfig(num_workers=1)).fit()
+        assert result.error is None
+        m = result.metrics
+        assert m["device"] == "cuda:0" and m["visible"] == str(ids[0])
+        assert np.isfinite(m["loss"]) and m["flash_fwd"] > 0
+        assert m["group"] == ("torch", "nccl")
+    finally:
+        ray_tpu_torch.shutdown()

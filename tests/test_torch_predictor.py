@@ -80,11 +80,13 @@ def test_save_and_load_torch(tmp_path):
         Checkpoint.from_dict(state).load_torch()
 
 
-def test_object_ref_forms_raise(linear_checkpoint):
-    with pytest.raises(NotImplementedError, match="runtime"):
+def test_object_ref_forms_raise():
+    """Only an ``ObjectRef`` makes an object-store checkpoint (the round
+    trip through the runtime is ``test_torch_trainer.py``'s)."""
+    with pytest.raises(TypeError, match="ObjectRef"):
         Checkpoint.from_object_ref(object())
-    with pytest.raises(NotImplementedError, match="runtime"):
-        linear_checkpoint.to_object_ref()
+    with pytest.raises(ValueError, match="exactly one"):
+        Checkpoint(data={}, obj_ref=object())
 
 
 def test_torch_predictor_single_batch(linear_checkpoint):

@@ -330,3 +330,60 @@ def sharded_train(np_params):
         out[case] = res
     moe._experts = experts
     return out
+
+
+# ---------------------------------------------------------------------------
+# util/collective's "torch" group over a world's default process group
+# ---------------------------------------------------------------------------
+
+def collective_group_inputs(rank: int) -> dict:
+    """Each rank's inputs to the group ops (numpy, drawn from the rank)."""
+    rng = np.random.default_rng(100 + rank)
+    return {"x": rng.normal(size=(5, 3)).astype(np.float32),
+            "p2p": rng.normal(size=(2, 4)).astype(np.float32)}
+
+
+def collective_group_ops(group_name: str = "g"):
+    """Every op of ``ray_tpu_torch.util.collective`` on the ``"torch"``
+    group over this world; returns numpy results by op name."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.util import collective as col
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    col.init_collective_group(world, rank, backend="torch", group_name=group_name)
+    assert col.get_group_backend(group_name) == "torch"
+    inp = collective_group_inputs(rank)
+    out = {f"allreduce_{op}": col.allreduce(inp["x"], group_name, op=op).numpy()
+           for op in ("sum", "mean", "max", "min")}
+    out["allgather"] = np.stack([t.numpy() for t in col.allgather(inp["x"], group_name)])
+    out["reducescatter"] = col.reducescatter(inp["x"], group_name).numpy()
+    out["broadcast"] = col.broadcast(inp["x"], src_rank=1, group_name=group_name).numpy()
+    if rank == 0:
+        col.send(inp["p2p"], 1, group_name)
+        out["recv"] = col.recv((2, 4), np.float32, 1, group_name).numpy()
+    else:
+        out["recv"] = col.recv((2, 4), np.float32, 0, group_name).numpy()
+        col.send(inp["p2p"], 0, group_name)
+    col.barrier(group_name)
+    # torch_utils.allreduce_grads: one flat round over the group, the means
+    # back in the tree's shape, billed to the open step's collective phase
+    import torch
+
+    from ray_tpu_torch.train import torch_utils
+    from ray_tpu_torch.util.perf import StepProfiler
+
+    tree = {"w": torch.from_numpy(inp["x"]), "b": [torch.from_numpy(inp["p2p"])]}
+    prof = StepProfiler(rank=rank).install()
+    try:
+        with prof.step():
+            mean = torch_utils.allreduce_grads(tree, group_name)
+    finally:
+        prof.uninstall()
+    out["grads_w"], out["grads_b"] = mean["w"].numpy(), mean["b"][0].numpy()
+    out["grads_phases"] = sorted(prof.steps[-1]["phases"])
+    col.destroy_collective_group(group_name)
+
+    mesh = torch_utils.global_mesh(device="cpu")
+    out["global_mesh"] = (tuple(mesh.mesh_dim_names), tuple(mesh.shape))
+    return out
