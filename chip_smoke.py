@@ -119,12 +119,40 @@ the backward kernels):
     in-process update's norm (the first update runs at lr 0 and the
     losses barely move, so the update is what sees the step).  The
     worker's counts stand for this path in ``launches_by_path``.
+22. ``serve_bert_http`` (BASELINE config 5, ``bench.py``'s serve row):
+    Serve on the same runtime (controller, asyncio proxy), BERT-base bf16
+    from ``serve_bert``'s checkpoint in one ``num_gpus=1`` replica with
+    ``@serve.batch(max_batch_size=16, batch_wait_timeout_s=0.005,
+    max_concurrent_batches=8)``, padded to 16 x 128; warm-up 16 threads x
+    3 requests, then 64 keep-alive clients x 12 requests of 128 ids:
+    requests/s, p50, p99, the light-load p50 (1 client x 15), the ingress
+    mode, one batch's device work in the replica (profiler).  Gate: 16
+    fixed sequences sent at once get the labels of an in-process
+    ``TorchPredictor`` from the same checkpoint.
+23. ``serve_llm_deployment``: GPT-2 125M through ``llm_deployment`` (a
+    ``num_gpus=1`` replica, the ``SERVE`` settings, seed 0).  Gate in f32
+    first: GPT-2's width with two layers, 8 of ``serve_gpt2``'s prompts,
+    greedy streams through the replica equal to an in-process engine's.
+    Then bf16: ``serve_gpt2``'s 32 requests through the handle and 8 of
+    them again as HTTP token streams; tokens/s beside ``serve_gpt2``'s,
+    request p50/p99, the replica's TTFT and ITL, and the share of streams
+    equal to ``serve_gpt2``'s (recorded, no gate).
+24. ``prefill_decode_graph``: GPT-2 125M bf16, prompt bucket 128, 32 new
+    tokens, the two stages at ``num_gpus=0.5`` on card 0; 16 prompts one
+    at a time, each request's wall split into prefill, channel hop and
+    decode from the stages' ``compiled_dag`` spans, with the cache's
+    bytes and whether the channel spilled it (its in-process cost beside
+    it), then the 16 pipelined.  Gate: every stream equals the in-process
+    ``prefill`` + greedy ``decode_chunk`` on the same weights.
+    In 22-24 each replica's or stage's own launch counts (read in its
+    process through the compiled-graph control lane) are set to 0 just
+    before the traffic and read just after.
 
 Every bf16 launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 on the serving and training paths has to run the tensor-core design
 (their ``_tc`` launch counts equal their totals; the profiled steps find
 only the ``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
-summed over the serving, training and RL runs, and per run), the card's name
+summed over the serving, training, RL, Serve and graph runs, and per run), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": {...}}``.  Exits non-zero,
 printing no result, when there is no CUDA device or any phase fails.
@@ -314,13 +342,13 @@ def train_attn_shapes():
             "train_llama": (LLAMA_BATCH, lc.n_heads, lc.n_kv_heads, lc.max_seq_len, lc.head_dim)}
 
 
-def _model_qkv(b, h, kv, t, d, seed):
-    """bf16 (q, k, v, dO) laid out as a train step hands them to the kernels:
+def _model_qkv(b, h, kv, t, d, seed, dtype=torch.bfloat16):
+    """(q, k, v, dO) laid out as a train step hands them to the kernels:
     head-split views ``[B, T, heads, D] -> [B, heads, T, D]`` of one fused
     projection (unit stride on D only), k and v repeated to H heads by
     ``repeat_interleave`` when KV < H (GQA), dO a strided view as well."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    mk = lambda n: torch.randn(b, t, n, d, generator=g, device="cuda").to(torch.bfloat16)
+    mk = lambda n: torch.randn(b, t, n, d, generator=g, device="cuda").to(dtype)
     fused = mk(h + 2 * kv)
     q, k, v = (fused[:, :, a:a + n].transpose(1, 2)
                for a, n in ((0, h), (h, kv), (h + kv, kv)))
@@ -377,6 +405,13 @@ TC_EDGE_CASES = [(2, 3, 97, 131, 64, True, torch.bfloat16), (2, 3, 97, 131, 128,
                  (2, 3, 97, 131, 64, False, torch.bfloat16),
                  (2, 4, 150, 150, 64, False, torch.bfloat16, "fused")]
 
+# the Serve paths' own shapes, on the model's fused qkv layout: the
+# prefill stage of prefill_decode_graph (one request, bucket 128, bf16,
+# tensor cores) and the f32 gate of serve_llm_deployment (an admission of
+# 16 slots at 128, f32, CUDA cores)
+SERVE_PATH_CASES = [(1, 12, 128, 128, 64, True, torch.bfloat16, "fused"),
+                    (16, 12, 128, 128, 64, True, torch.float32, "fused")]
+
 # BERT-base's attention (non-causal, bf16, D 64, q/k/v views of one fused
 # projection): serve_bert's 16 x 128 batch, and a 4 x 512 one at the
 # model's longest sequence
@@ -396,11 +431,11 @@ def phase_kernels():
     cases += [(2, 4, 128, 128, d, c, torch.float32) for d in (16, 64) for c in (False, True)]
     cases += [(2, 4, 128, 256, 64, c, torch.float32) for c in (False, True)]
     cases += [(2, 3, 97, 97, 32, True, torch.float32), (2, 3, 97, 131, 128, False, torch.bfloat16)]
-    cases += TC_EDGE_CASES
+    cases += TC_EDGE_CASES + SERVE_PATH_CASES
     results = []
     for i, (b, h, tq, tk, d, causal, dtype, *fused) in enumerate(cases):
-        if fused:  # head-split views of one fused bf16 projection (tq == tk)
-            q, k, v, _ = _model_qkv(b, h, h, tq, d, seed=i)
+        if fused:  # head-split views of one fused projection (tq == tk)
+            q, k, v, _ = _model_qkv(b, h, h, tq, d, seed=i, dtype=dtype)
         else:
             q, k, v = _qkv(b, h, tq, tk, d, dtype, seed=i)
         build.reset_launches()
@@ -935,6 +970,8 @@ def serve(family: str):
         "req_p50_ms": pct(lats, 0.5) * 1e3, "req_p99_ms": pct(lats, 0.99) * 1e3,
         "ttft_p50_ms": ms(perf["ttft"]["p50_s"]), "ttft_p99_ms": ms(perf["ttft"]["p99_s"]),
         "itl_p50_ms": ms(perf["itl"]["p50_s"]), "itl_p99_ms": ms(perf["itl"]["p99_s"]),
+        "itl_samples": perf["itl"]["count"], "itl_tokens_per_sample": perf["itl"]["tokens_per_sample"],
+        "itl_back_to_back": perf["itl"]["back_to_back"],
         "peak_mem_bytes": peak, "flash_launches": flash,
         "flash_launches_tensor_core": launches.get(attn.FWD_TC, 0), "admissions": stats["prefills"],
         "ticks": perf["ticks"], "decode_tick_baseline_ms": ms(perf["decode_tick_baseline_s"]),
@@ -942,7 +979,7 @@ def serve(family: str):
                                                           if k != "prefill_buckets"},
     }
     emit(f"serve_{family}", **row)
-    return launches, params, cfg
+    return launches, params, cfg, row, dict(zip(map(tuple, prompts), outs))
 
 
 def phase_decode_profile(params, cfg, n_slots: int, max_len: int):
@@ -2049,6 +2086,503 @@ def phase_train_gpt2_trainer(rt, in_process_row):
     return launches
 
 
+# BASELINE config 5 behind HTTP (bench.py run_serve_bench): the replica's
+# @serve.batch settings, the warm-up (threads x requests), the load
+# (keep-alive clients x requests) and the light load (1 client)
+HTTP_BATCH = dict(max_batch_size=BERT_BATCH, batch_wait_timeout_s=0.005, max_concurrent_batches=8)
+HTTP_WARMUP, HTTP_CLIENTS, HTTP_PER_CLIENT, HTTP_LIGHT = (16, 3), 64, 12, 15
+# serve_llm_deployment: the f32 gate's prompts (of serve_gpt2's 32) and
+# the HTTP token streams after the handle's requests
+LLM_F32_PROMPTS, LLM_HTTP_STREAMS = 8, 8
+# prefill_decode_graph: GPT-2 125M bf16, one prompt bucket, 32 new tokens,
+# 16 prompts, each stage on half of card 0
+GRAPH_BUCKET, GRAPH_NEW_TOKENS, GRAPH_PROMPTS, GRAPH_GPUS = 128, 32, 16, 0.5
+
+
+def _launch_counts(instance, reset):
+    """Run in an actor's process (the compiled-graph control lane): that
+    process's kernel launch counts, zeroed afterwards when ``reset``."""
+    from ray_tpu_torch.ops import _build
+
+    counts = dict(_build.launches)
+    if reset:
+        _build.reset_launches()
+    return counts
+
+
+def _card_grant(instance):
+    import os
+
+    import ray_tpu_torch
+
+    return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+            ray_tpu_torch.get_runtime_context().get_gpu_ids())
+
+
+def actor_launches(rt, actors, reset=False) -> dict:
+    """The launch counts of the processes of ``actors``, summed."""
+    total = {}
+    for counts in rt.get([a._submit_compiled_task(_launch_counts, (reset,), name="launches")
+                          for a in actors], timeout=120):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def replica_actors(rt, rt_serve, name):
+    info = rt.get(rt_serve.api._get_client().controller.get_routing_info.remote(name),
+                  timeout=60)
+    return [h for _, h in info["replicas"]]
+
+
+def check_tensor_cores(phase, launches, want=None):
+    flash, tc = launches.get(attn.KERNEL, 0), launches.get(attn.FWD_TC, 0)
+    check(flash > 0, f"{phase}: no flash_fwd launch on the main path")
+    check(tc == flash, f"{phase}: {tc} of {flash} flash_fwd launches on the tensor cores")
+    if want is not None:
+        check(flash == want, f"{phase}: {flash} flash_fwd launches, want {want}")
+
+
+def _http_post(conn, path, payload):
+    t0 = time.perf_counter()
+    conn.request("POST", path, body=json.dumps(payload),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    check(resp.status == 200, f"HTTP {path}: {resp.status} {data[:200]!r}")
+    return time.perf_counter() - t0, data
+
+
+def phase_serve_bert_http(rt, rt_serve):
+    """BASELINE config 5 in the shape of ``bench.py`` ``run_serve_bench``:
+    BERT-base bf16 (``serve_bert``'s weights and checkpoint) in one
+    ``num_gpus=1`` replica with ``@serve.batch(max_batch_size=16,
+    batch_wait_timeout_s=0.005, max_concurrent_batches=8)``, padded to
+    16 x 128, behind the asyncio proxy.  Returns the replica's launches
+    over the load."""
+    import http.client
+    import tempfile
+
+    from ray_tpu_torch.air import Checkpoint
+    from ray_tpu_torch.models import bert
+    from ray_tpu_torch.train import TorchPredictor
+
+    cfg = bert.BertConfig.base()
+    params = bert.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    served = dict(params, blocks={k: v.to(cfg.dtype) for k, v in params["blocks"].items()})
+    del params
+    tmp = tempfile.mkdtemp(prefix="serve_bert_http_")
+    path = Checkpoint.from_dict({"params": served}).to_directory(os.path.join(tmp, "bert"))
+    del served
+
+    @rt_serve.deployment(ray_actor_options={"num_gpus": 1, "max_concurrency": 256},
+                         max_concurrent_queries=256)
+    class Bert:
+        def __init__(self, ckpt_path):
+            # the grant is this process's CUDA_VISIBLE_DEVICES by now
+            self.cfg = bert.BertConfig.base()
+            self.pred = TorchPredictor.from_checkpoint(
+                Checkpoint.from_directory(ckpt_path),
+                lambda p, toks: bert.apply(p, toks, self.cfg), device="cuda")
+            self.batch_s = []  # each batch's wall in the replica
+
+        def _batch(self, toks):
+            n = len(toks)
+            if n < BERT_BATCH:  # one static batch shape for every arrival pattern
+                toks = np.concatenate([toks, np.zeros((BERT_BATCH - n, toks.shape[1]),
+                                                      toks.dtype)])
+            bert.check_tokens(toks, self.cfg)
+            # predict runs under inference_mode (grad mode is per thread);
+            # its numpy result is the batch's one sync
+            return self.pred.predict(toks)[:n].argmax(-1)
+
+        @rt_serve.batch(**HTTP_BATCH)
+        def __call__(self, requests):
+            t0 = time.perf_counter()
+            labels = self._batch(np.stack([r.json()["tokens"] for r in requests]))
+            self.batch_s.append(time.perf_counter() - t0)  # list.append is atomic
+            return [{"label": int(l)} for l in labels]
+
+        def batch_walls(self):
+            return list(self.batch_s)
+
+        def profile_batch(self, toks):
+            """One padded batch under torch.profiler: device ms, kernels."""
+            toks = np.asarray(toks)
+            self._batch(toks)
+            torch.cuda.synchronize()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=acts) as prof:
+                self._batch(toks)
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+            return {"device_ms": sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+                    "kernels": len(dev), "profiled_wall_ms": wall_ms,
+                    "flash_ms": sum(e.time_range.elapsed_us() for e in dev
+                                    if "flash_fwd_kernel" in e.name) / 1e3}
+
+    t0 = time.perf_counter()
+    handle = rt_serve.run(Bert.bind(path), host="127.0.0.1", port=0, timeout_s=600)
+    deploy_s = time.perf_counter() - t0
+    host, port = rt_serve.get_http_address()
+    (replica,) = replica_actors(rt, rt_serve, "Bert")
+    grant = rt.get(replica._submit_compiled_task(_card_grant, (), name="grant"), timeout=60)
+    check(grant == ("0", [0]), f"serve_bert_http: replica grant {grant}")
+    rng = np.random.default_rng(0)
+    body = {"tokens": rng.integers(1, BERT_ID_HIGH, BERT_SEQ).tolist()}
+
+    def clients(n_threads, per_thread, lats=None, path="/Bert"):
+        def loop():
+            conn = http.client.HTTPConnection(host, port, timeout=600)
+            mine = [_http_post(conn, path, body)[0] for _ in range(per_thread)]
+            conn.close()
+            if lats is not None:
+                lats.extend(mine)  # list.extend is atomic
+
+        threads = [threading.Thread(target=loop) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    # warm CONCURRENTLY: every batch size up to 16 meets the first calls of
+    # its padded shape here, not inside the measured window
+    clients(*HTTP_WARMUP)
+    actor_launches(rt, [replica], reset=True)
+    batches0 = len(rt.get(handle.batch_walls.remote(), timeout=60))
+    lats = []
+    t0 = time.perf_counter()
+    clients(HTTP_CLIENTS, HTTP_PER_CLIENT, lats)
+    wall = time.perf_counter() - t0
+    launches = actor_launches(rt, [replica])
+    batch_s = rt.get(handle.batch_walls.remote(), timeout=60)[batches0:]
+    batches = len(batch_s)
+    n = len(lats)
+    check(n == HTTP_CLIENTS * HTTP_PER_CLIENT, f"serve_bert_http: {n} replies")
+    check_tensor_cores("serve_bert_http", launches, cfg.n_layers * batches)
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    light = [_http_post(conn, "/Bert", body)[0] for _ in range(HTTP_LIGHT)]
+    conn.close()
+    # the gate: one fixed set of 16 sequences, sent at once over HTTP,
+    # against an in-process TorchPredictor from the same checkpoint
+    gate = np.random.default_rng(1).integers(1, BERT_ID_HIGH, (BERT_BATCH, BERT_SEQ))
+    got = [None] * BERT_BATCH
+
+    def one(i):
+        c = http.client.HTTPConnection(host, port, timeout=600)
+        got[i] = json.loads(_http_post(c, "/Bert", {"tokens": gate[i].tolist()})[1])["label"]
+        c.close()
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(BERT_BATCH)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    pred = TorchPredictor.from_checkpoint(Checkpoint.from_directory(path),
+                                          lambda p, toks: bert.apply(p, toks, cfg), device="cuda")
+    want = pred.predict(gate).argmax(-1).tolist()
+    del pred
+    check(got == want, f"serve_bert_http: labels over HTTP {got}, in-process {want}")
+    prof = rt.get(handle.profile_batch.remote(gate.tolist()), timeout=120)
+    stats = rt.get(rt_serve.api._get_client().proxy.ingress_stats.remote(), timeout=60)
+    rt_serve.delete("Bert")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # the serving plane alone: the same load against a replica that
+    # batches the same way and runs no model (what the proxy, router and
+    # actor calls allow)
+    @rt_serve.deployment(ray_actor_options={"max_concurrency": 256},
+                         max_concurrent_queries=256)
+    class Echo:
+        @rt_serve.batch(**HTTP_BATCH)
+        def __call__(self, requests):
+            return [{"label": len(r.json()["tokens"])} for r in requests]
+
+    rt_serve.run(Echo.bind(), host="127.0.0.1", port=0, timeout_s=600)
+    clients(*HTTP_WARMUP, path="/Echo")
+    plane_lats = []
+    t0 = time.perf_counter()
+    clients(HTTP_CLIENTS, HTTP_PER_CLIENT, plane_lats, path="/Echo")
+    plane_wall = time.perf_counter() - t0
+    rt_serve.delete("Echo")
+    check(len(plane_lats) == n, f"serve_bert_http: {len(plane_lats)} replies from Echo")
+    lats.sort()
+    emit("serve_bert_http", model="bert-base bf16 (blocks bf16; embeddings, pooler, classifier "
+         "f32), one num_gpus=1 replica", batch=HTTP_BATCH, seq_len=BERT_SEQ,
+         ingress_mode=stats["mode"], deploy_s=deploy_s, clients=HTTP_CLIENTS,
+         requests_per_client=HTTP_PER_CLIENT, requests=n, wall_s=wall, requests_per_s=n / wall,
+         req_p50_ms=pct(lats, 0.5) * 1e3, req_p99_ms=pct(lats, 0.99) * 1e3,
+         req_max_ms=lats[-1] * 1e3, light_load_p50_ms=pct(light, 0.5) * 1e3,
+         batches=batches, mean_batch_size=n / batches,
+         replica_batch_wall_p50_ms=pct(batch_s, 0.5) * 1e3,
+         replica_batch_wall_sum_s=sum(batch_s),
+         serving_plane_requests_per_s=len(plane_lats) / plane_wall,
+         serving_plane_req_p50_ms=pct(plane_lats, 0.5) * 1e3,
+         replica_batch_device_ms=prof["device_ms"], replica_batch_kernels=prof["kernels"],
+         replica_batch_flash_ms=prof["flash_ms"],
+         replica_batch_profiled_wall_ms=prof["profiled_wall_ms"],
+         flash_launches=launches.get(attn.KERNEL, 0),
+         flash_launches_tensor_core=launches.get(attn.FWD_TC, 0),
+         labels_equal_in_process_predictor=True, ingress_stats=stats)
+    return launches
+
+
+def _llm_requests(rt, handle, prompts, max_new):
+    """All requests through the handle at once; (outputs, per-request
+    latencies, wall)."""
+    t0 = time.perf_counter()
+    refs = [handle.remote({"tokens": p, "max_new_tokens": max_new}) for p in prompts]
+    index = {r: i for i, r in enumerate(refs)}  # ObjectRef hashes by id
+    done_at, pending = {}, list(refs)
+    while pending:
+        ready, pending = rt.wait(pending, num_returns=1, timeout=900)
+        check(bool(ready), "serve_llm_deployment: no reply within 900 s")
+        for r in ready:
+            done_at[index[r]] = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    outs = [o["tokens"] for o in rt.get(refs, timeout=60)]
+    return outs, [done_at[i] for i in range(len(prompts))], wall
+
+
+def phase_serve_llm_deployment(rt, rt_serve, gpt2_row, gpt2_outs):
+    """GPT-2 125M through ``llm_deployment`` (a ``num_gpus=1`` replica).
+    Gate first, in f32: ``parity``'s GPT-2 at full width with two layers,
+    the first ``LLM_F32_PROMPTS`` of ``serve_gpt2``'s prompts, greedy
+    streams through the replica equal to an in-process engine's of the
+    same settings and seed.  Then bf16 with the ``SERVE`` settings, seed
+    0: ``serve_gpt2``'s 32 requests through the handle and
+    ``LLM_HTTP_STREAMS`` of them again as HTTP token streams.  Returns the
+    replica's launches over those."""
+    import http.client
+
+    from ray_tpu_torch.serve.llm import GenerationEngine, llm_deployment, make_config
+
+    prompts = [list(p) for p in gpt2_outs]
+    f32 = dict(n_layers=2, dtype=torch.float32)
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # the replica's default: TF32 off
+    try:
+        dep = llm_deployment("gpt2", "125m", name="llm_f32", config_kwargs=f32,
+                             engine_kwargs=dict(SERVE, seed=0))
+        handle = rt_serve.run(dep.bind(), host="127.0.0.1", port=0, timeout_s=600)
+        got, _, _ = _llm_requests(rt, handle, prompts[:LLM_F32_PROMPTS], NEW_TOKENS)
+        rt_serve.delete("llm_f32")
+        ref = GenerationEngine(make_config("gpt2", "125m", **f32), seed=0, device="cuda",
+                               **SERVE).start()
+        try:
+            want = [f.result(timeout=900) for f in
+                    [ref.submit(p, NEW_TOKENS) for p in prompts[:LLM_F32_PROMPTS]]]
+        finally:
+            ref.stop()
+        del ref
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    torch.cuda.empty_cache()
+    check(got == want, "serve_llm_deployment: f32 streams through the replica differ from "
+                       "the in-process engine's")
+
+    cfg = make_config("gpt2", "125m")
+    t0 = time.perf_counter()
+    handle = rt_serve.run(llm_deployment("gpt2", "125m", engine_kwargs=dict(SERVE, seed=0)).bind(),
+                          host="127.0.0.1", port=0, timeout_s=600)
+    deploy_s = time.perf_counter() - t0
+    (replica,) = replica_actors(rt, rt_serve, "llm")
+    grant = rt.get(replica._submit_compiled_task(_card_grant, (), name="grant"), timeout=60)
+    check(grant == ("0", [0]), f"serve_llm_deployment: replica grant {grant}")
+    rt.get(handle.remote({"tokens": [1] * 8, "max_new_tokens": 4}), timeout=600)  # first calls
+    actor_launches(rt, [replica], reset=True)
+    prefills0 = rt.get(handle.stats.remote(), timeout=60)["prefills"]
+    outs, lats, wall = _llm_requests(rt, handle, prompts, NEW_TOKENS)
+    host, port = rt_serve.get_http_address()
+    streams = [None] * LLM_HTTP_STREAMS
+
+    def stream(i):
+        conn = http.client.HTTPConnection(host, port, timeout=900)
+        _, data = _http_post(conn, "/llm", {"tokens": prompts[i], "max_new_tokens": NEW_TOKENS,
+                                            "stream": True})
+        conn.close()
+        streams[i] = [int(t) for t in data.decode().split()]
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=stream, args=(i,)) for i in range(LLM_HTTP_STREAMS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    stream_wall = time.perf_counter() - t0
+    launches = actor_launches(rt, [replica])
+    stats = rt.get(handle.stats.remote(), timeout=60)
+    perf = rt.get(handle.perf_stats.remote(), timeout=60)
+    rt_serve.delete("llm")
+    for i, o in enumerate(outs + streams):
+        check(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o),
+              f"serve_llm_deployment: reply {i} holds {len(o)} tokens or one out of range")
+    check_tensor_cores("serve_llm_deployment", launches,
+                       cfg.n_layers * (stats["prefills"] - prefills0))
+    ms = lambda s: None if s is None else s * 1e3
+    same_as_engine = sum(o == gpt2_outs[tuple(p)] for o, p in zip(outs, prompts))
+    emit("serve_llm_deployment", model="gpt2 125M bf16, one num_gpus=1 replica",
+         engine={k: v for k, v in SERVE.items() if k != "prefill_buckets"},
+         prefill_bucket=SERVE["prefill_buckets"][-1], deploy_s=deploy_s, requests=len(prompts),
+         new_tokens_per_req=NEW_TOKENS, wall_s=wall,
+         tokens_per_s=sum(map(len, outs)) / wall,
+         in_process_serve_gpt2_tokens_per_s=gpt2_row["tokens_per_s"],
+         req_p50_ms=pct(lats, 0.5) * 1e3, req_p99_ms=pct(lats, 0.99) * 1e3,
+         replica_ttft_p50_ms=ms(perf["ttft"]["p50_s"]), replica_ttft_p99_ms=ms(perf["ttft"]["p99_s"]),
+         replica_itl_p50_ms=ms(perf["itl"]["p50_s"]), replica_itl_p99_ms=ms(perf["itl"]["p99_s"]),
+         replica_itl_samples=perf["itl"]["count"],
+         replica_itl_tokens_per_sample=perf["itl"]["tokens_per_sample"],
+         replica_itl_back_to_back=perf["itl"]["back_to_back"],
+         replica_decode_tick_baseline_ms=ms(perf["decode_tick_baseline_s"]),
+         serve_gpt2_itl={k: gpt2_row[k] for k in (
+             "itl_p50_ms", "itl_samples", "itl_tokens_per_sample", "itl_back_to_back",
+             "decode_tick_baseline_ms")},
+         http_streams=LLM_HTTP_STREAMS, http_streams_wall_s=stream_wall,
+         http_streams_equal_handle_replies=sum(s == o for s, o in zip(streams, outs)),
+         bf16_streams_equal_serve_gpt2=same_as_engine,
+         bf16_share_equal_serve_gpt2=same_as_engine / len(outs),
+         f32_gate={"model": "gpt2 125M width, 2 layers, f32", "prompts": LLM_F32_PROMPTS,
+                   "streams_equal_in_process_engine": True},
+         admissions=stats["prefills"] - prefills0, flash_launches=launches.get(attn.KERNEL, 0),
+         flash_launches_tensor_core=launches.get(attn.FWD_TC, 0))
+    return launches
+
+
+def _graph_spans(rt, gid, n_seq):
+    """The stages' exec spans by (label, seq) from the head's event table
+    (shipped by each stage's worker)."""
+    from ray_tpu_torch._private.worker import global_worker
+
+    deadline = time.monotonic() + 60
+    while True:
+        spans = {(r["message"], r["data"]["seq"]): r["span_dur"]
+                 for r in global_worker.node.events.list(limit=100_000, source="compiled_dag")
+                 if (r.get("entity_id") or "").startswith(gid)
+                 and r["message"].split(":")[0] in ("prefill", "decode")}
+        if len(spans) >= 2 * n_seq or time.monotonic() > deadline:
+            return spans
+        time.sleep(0.25)
+
+
+def _spill_hop_ms(payload: bytes, slot_bytes: int, reps: int = 10) -> float:
+    """One put + get of ``payload`` through a shm ring of ``slot_bytes``
+    slots in this process (the overflow spill when it is larger)."""
+    from ray_tpu_torch._private.shm import session_shm_name
+    from ray_tpu_torch.dag.channel import ShmChannel
+
+    name = session_shm_name(f"spillprobe{os.getpid()}")
+    w = ShmChannel.create(name, 2, slot_bytes)
+    r = ShmChannel.attach(name)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            w.put(payload)
+            r.get(timeout=60)
+        return (time.perf_counter() - t0) / reps * 1e3
+    finally:
+        r.close()
+        w.close(unlink=True)
+
+
+def phase_prefill_decode_graph(rt):
+    """``prefill_decode_graph``: GPT-2 125M bf16, ``prefill_bucket`` 128,
+    32 new tokens, both stages at ``num_gpus=0.5`` on card 0.  16 prompts
+    one at a time (the per-request split), then the same 16 pipelined.
+    Gate: each stream equals the in-process ``prefill`` + greedy
+    ``decode_chunk`` on ``_default_init(cfg, 0)`` cast as the stages cast
+    it.  Returns both stages' launches over the 32 executions."""
+    from ray_tpu_torch._private import serialization
+    from ray_tpu_torch.models import generate as gen
+    from ray_tpu_torch.serve.llm import (_cache_to_host, _cast_params, _default_init,
+                                         make_config, prefill_decode_graph)
+
+    cfg = make_config("gpt2", "125m")
+    t0 = time.perf_counter()
+    g = prefill_decode_graph("gpt2", "125m", max_new_tokens=GRAPH_NEW_TOKENS,
+                             prefill_bucket=GRAPH_BUCKET, num_gpus=GRAPH_GPUS, seed=0)
+    compile_s = time.perf_counter() - t0
+    try:
+        grants = rt.get([a._submit_compiled_task(_card_grant, (), name="grant")
+                         for a in g.actors], timeout=60)
+        check(grants == [("0", [0])] * 2, f"prefill_decode_graph: stage grants {grants}")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, min(50000, cfg.vocab_size), rng.integers(16, 100)).tolist()
+                   for _ in range(GRAPH_PROMPTS)]
+        g.execute(prompts[0]).get(timeout=600)  # first calls of every shape
+        actor_launches(rt, g.actors, reset=True)
+        seq0 = g._seq
+        outs, walls = [], []
+        for p in prompts:
+            t1 = time.perf_counter()
+            outs.append(g.execute(p).get(timeout=600))
+            walls.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        piped = rt.get([g.execute(p) for p in prompts], timeout=600)
+        piped_wall = time.perf_counter() - t1
+        launches = actor_launches(rt, g.actors)
+        spans = _graph_spans(rt, g._gid, seq0 + 2 * GRAPH_PROMPTS)
+        slot_bytes = g._slot_bytes
+    finally:
+        g.teardown()
+    check(piped == outs, "prefill_decode_graph: pipelined streams differ from one-at-a-time")
+    check_tensor_cores("prefill_decode_graph", launches, 2 * GRAPH_PROMPTS * cfg.n_layers)
+    # the in-process reference: the same weights, shapes and steps
+    params = _cast_params(_default_init(cfg, 0, torch.device("cuda")), cfg.dtype,
+                          torch.device("cuda"))
+    want, payload_bytes = [], None
+    with torch.inference_mode():
+        for p in prompts:
+            toks = torch.zeros(1, GRAPH_BUCKET, dtype=torch.long, device="cuda")
+            toks[0, :len(p)] = torch.tensor(p)
+            cache = gen.init_cache(cfg, 1, GRAPH_BUCKET + GRAPH_NEW_TOKENS + 1, "cuda")
+            last, cache = gen.prefill(params, cfg, toks, torch.tensor([len(p)], device="cuda"),
+                                      cache, 0)
+            first = int(torch.argmax(last[0]))
+            if payload_bytes is None:  # what the prefill stage ships
+                state = {"cache": _cache_to_host(cache), "first": first,
+                         "max_new": GRAPH_NEW_TOKENS}
+                payload = serialization.to_bytes(*serialization.serialize(state)[:2])
+                payload_bytes = len(payload)
+            emitted, _, _ = gen.decode_chunk(params, cfg, cache,
+                                             torch.tensor([first], device="cuda"),
+                                             torch.ones(1, dtype=torch.bool, device="cuda"),
+                                             None, steps=GRAPH_NEW_TOKENS - 1, temperature=0.0)
+            want.append([first] + emitted[0].tolist())
+    del params
+    torch.cuda.empty_cache()
+    check(outs == want, "prefill_decode_graph: streams differ from in-process prefill + "
+                        "decode_chunk")
+    split = []
+    for k, wall in enumerate(walls):
+        seq = seq0 + k
+        pre, dec = spans.get(("prefill:0", seq)), spans.get(("decode:1", seq))
+        check(pre is not None and dec is not None,
+              f"prefill_decode_graph: no exec span of execution {seq}")
+        split.append({"wall_ms": wall * 1e3, "prefill_ms": pre * 1e3, "decode_ms": dec * 1e3,
+                      "channel_hop_ms": (wall - pre - dec) * 1e3})
+    med = lambda key: pct([r[key] for r in split], 0.5)
+    cache_bytes = 2 * cfg.n_layers * cfg.n_heads * (GRAPH_BUCKET + GRAPH_NEW_TOKENS + 1) \
+        * cfg.head_dim * torch.finfo(cfg.dtype).bits // 8
+    emit("prefill_decode_graph", model="gpt2 125M bf16, 2 stages at num_gpus=0.5 on card 0",
+         compile_s=compile_s, prompts=GRAPH_PROMPTS, prefill_bucket=GRAPH_BUCKET,
+         new_tokens=GRAPH_NEW_TOKENS, per_request=split, wall_p50_ms=med("wall_ms"),
+         prefill_p50_ms=med("prefill_ms"), decode_p50_ms=med("decode_ms"),
+         channel_hop_p50_ms=med("channel_hop_ms"), kv_cache_bytes=cache_bytes,
+         channel_payload_bytes=payload_bytes, slot_bytes=slot_bytes,
+         spilled=payload_bytes > slot_bytes,
+         spill_hop_ms_in_process=_spill_hop_ms(payload, slot_bytes),
+         pipelined_requests_per_s=GRAPH_PROMPTS / piped_wall,
+         one_at_a_time_requests_per_s=GRAPH_PROMPTS / sum(walls),
+         streams_equal_in_process=True, flash_launches=launches.get(attn.KERNEL, 0),
+         flash_launches_tensor_core=launches.get(attn.FWD_TC, 0))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -2070,7 +2604,7 @@ def main() -> int:
     rl_parity_launches = dict(build.launches)
     rl_launches = phase_rl_ppo_atari()
     torch.cuda.empty_cache()
-    serve_gpt2, params, cfg = serve("gpt2")
+    serve_gpt2, params, cfg, serve_gpt2_row, serve_gpt2_outs = serve("gpt2")
     n_slots = SERVE["n_slots"] + 1
     max_len = SERVE["prefill_buckets"][-1] + NEW_TOKENS + SERVE["decode_chunk_steps"]
     phase_decode_profile(params, cfg, n_slots, max_len)
@@ -2117,10 +2651,22 @@ def main() -> int:
 
     import ray_tpu_torch as rt
 
+    # the compiled graph's spans reach the head's table within a flush
+    os.environ.setdefault("RAY_TPU_TORCH_EVENTS_FLUSH_S", "0.5")
     try:
         phase_core_gpu_actor(rt)
         phase_train_mlp_trainer(rt)
         trainer_launches = phase_train_gpt2_trainer(rt, gpt2_row)
+        from ray_tpu_torch import serve as rt_serve
+
+        try:
+            rt_serve.start(rt_serve.HTTPOptions(host="127.0.0.1", port=0))
+            bert_http_launches = phase_serve_bert_http(rt, rt_serve)
+            llm_launches = phase_serve_llm_deployment(rt, rt_serve, serve_gpt2_row,
+                                                      serve_gpt2_outs)
+        finally:
+            rt_serve.shutdown()
+        graph_launches = phase_prefill_decode_graph(rt)
     finally:
         rt.shutdown()
 
@@ -2128,6 +2674,8 @@ def main() -> int:
             "train_gpt2": train_launches, "train_llama": llama_launches,
             "train_gpt2_moe": moe_launches, "train_gpt2_sharded": sharded_launches,
             "train_gpt2_trainer": trainer_launches,
+            "serve_bert_http": bert_http_launches, "serve_llm_deployment": llm_launches,
+            "prefill_decode_graph": graph_launches,
             "rl_parity": rl_parity_launches,
             "rl_ppo_atari": rl_launches}
     for r in (fwd, *bwd.values()):

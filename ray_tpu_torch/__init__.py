@@ -18,7 +18,10 @@ GPU as a first-class resource: ``init(num_gpus=...)``,
 ``@remote(num_gpus=1)``, ``get``, ``put``, ``wait``, ``kill``,
 ``get_actor`` (``_api.py``), and Ray Train's seat on it
 (``train.TorchTrainer``, ``TorchConfig``, ``train.torch_utils``,
-``util.perf.StepProfiler``, ``util.collective``).  Those names load on
+``util.perf.StepProfiler``, ``util.collective``), Ray Serve's
+(``serve``: deployments whose replicas hold a card or a share of one,
+the HTTP proxy, ``serve.llm.llm_deployment``) and compiled actor graphs
+(``dag``, ``serve.llm.prefill_decode_graph``).  Those names load on
 first use, so importing the package starts no thread or process.
 
 Entry points (``models.*.init`` and ``init_state``,

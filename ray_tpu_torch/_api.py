@@ -210,6 +210,48 @@ def get(refs: Union[ObjectRef, Sequence[ObjectRef]], *, timeout: Optional[float]
     _ensure_connected()
     if isinstance(refs, ObjectRef):
         return global_worker.get([refs], timeout=timeout)[0]
+    # A CompiledDAGRef can only exist if dag.compiled is already imported,
+    # so a sys.modules probe keeps get() import-free for every process
+    # that never compiles a graph (the dag package's lazy-load contract).
+    import sys as _sys
+
+    compiled_mod = _sys.modules.get("ray_tpu_torch.dag.compiled")
+    CompiledDAGRef = (compiled_mod.CompiledDAGRef if compiled_mod is not None
+                      else None)
+    if CompiledDAGRef is not None and isinstance(refs, CompiledDAGRef):
+        # compiled-graph results read their pre-allocated output channel
+        # directly — no object plane involved (dag/compiled.py)
+        return refs.get(timeout=timeout)
+    if not isinstance(refs, (list, tuple)):
+        raise TypeError(f"get() takes an ObjectRef or a list of them, got {type(refs)}")
+    if CompiledDAGRef is not None and any(
+            isinstance(r, CompiledDAGRef) for r in refs):
+        import time as _time
+
+        for r in refs:
+            if not isinstance(r, (ObjectRef, CompiledDAGRef)):
+                raise TypeError(
+                    f"get() list elements must be ObjectRefs or "
+                    f"CompiledDAGRefs, got {type(r)}")
+        # one overall deadline across the list, matching the pure-
+        # ObjectRef path's timeout semantics; the ObjectRef elements still
+        # fetch as ONE batched call (a single CompiledDAGRef must not
+        # degrade a 1000-ref get into 1000 head round trips)
+        deadline = None if timeout is None else _time.monotonic() + timeout
+        plain = [r for r in refs if isinstance(r, ObjectRef)]
+        values: dict = {}
+        if plain:
+            fetched = global_worker.get(plain, timeout=timeout)
+            values = {id(r): v for r, v in zip(plain, fetched)}
+        out = []
+        for r in refs:
+            if isinstance(r, ObjectRef):
+                out.append(values[id(r)])
+            else:
+                remaining = (None if deadline is None
+                             else max(0.0, deadline - _time.monotonic()))
+                out.append(r.get(timeout=remaining))
+        return out
     for r in refs:
         if not isinstance(r, ObjectRef):
             raise TypeError(f"get() list elements must be ObjectRefs, got {type(r)}")

@@ -11,7 +11,7 @@ seams so they can be split later:
   (``policy/hybrid_scheduling_policy.h:48``)
 - ``NodeState`` resource accounting      <-> ``ClusterResourceManager`` /
   ``LocalResourceManager`` with **GPU as a predefined resource** next to
-  CPU: granted card ids leave ``NodeState.gpu_free`` with the worker's
+  CPU: granted card shares leave ``NodeState.gpu_share`` with the worker's
   ``CUDA_VISIBLE_DEVICES`` and return when it ends
 - worker pool + dedicated actor workers  <-> ``WorkerPool``
   (``src/ray/raylet/worker_pool.h:156``)
@@ -297,14 +297,42 @@ def _release(req: Dict[str, float], avail: Dict[str, float]) -> None:
         avail[k] = avail.get(k, 0.0) + v
 
 
-def _take_gpus(ns: "NodeState", n: int) -> List[int]:
-    """Grant the ``n`` lowest free card ids of ``ns`` (the ``"GPU"``
-    resource was acquired with them; released ids go back to
-    ``gpu_free`` in any order)."""
-    ids = sorted(ns.gpu_free)[:n]
+def _gpu_fits(ns: "NodeState", amount: float) -> bool:
+    """Whether ``ns`` has cards for a ``"GPU"`` request of ``amount``: a
+    fraction needs one card with that share left, a whole count that
+    many wholly free cards."""
+    if amount <= 0:
+        return True
+    if amount < 1:
+        return any(s + 1e-9 >= amount for s in ns.gpu_share.values())
+    return sum(s + 1e-9 >= 1.0 for s in ns.gpu_share.values()) >= amount
+
+
+def _take_gpus(ns: "NodeState", amount: float) -> List[int]:
+    """Grant a ``"GPU"`` request of ``amount`` from ``ns`` (the resource
+    was acquired with it): a fraction takes its share of the lowest card
+    with enough share left, a whole count the lowest wholly free cards.
+    Returns the granted card ids; :func:`_give_gpus` returns them."""
+    if amount <= 0:
+        return []
+    if amount < 1:
+        for i in sorted(ns.gpu_share):
+            if ns.gpu_share[i] + 1e-9 >= amount:
+                ns.gpu_share[i] -= amount
+                return [i]
+        return []
+    ids = [i for i in sorted(ns.gpu_share)
+           if ns.gpu_share[i] + 1e-9 >= 1.0][:int(amount)]
     for i in ids:
-        ns.gpu_free.remove(i)
+        ns.gpu_share[i] = 0.0
     return ids
+
+
+def _give_gpus(ns: "NodeState", ids: List[int], amount: float) -> None:
+    """Return the cards :func:`_take_gpus` granted for ``amount``."""
+    share = amount if 0 < amount < 1 else 1.0
+    for i in ids:
+        ns.gpu_share[i] = min(1.0, ns.gpu_share.get(i, 0.0) + share)
 
 
 @dataclass(eq=False)  # identity semantics: handles live in sets/lists
@@ -342,7 +370,8 @@ class NodeState:
     node_id: str
     total: Dict[str, float]
     available: Dict[str, float]
-    gpu_free: List[int]
+    # card id -> the share of it not granted (1.0 free, 0.0 fully held)
+    gpu_share: Dict[int, float]
     env: Dict[str, str] = field(default_factory=dict)
     idle: List[WorkerHandle] = field(default_factory=list)
     starting: int = 0
@@ -797,7 +826,7 @@ class Node:
                 node_id=node_id,
                 total=dict(total),
                 available=dict(total),
-                gpu_free=list(gpu_ids or []),
+                gpu_share={i: 1.0 for i in gpu_ids or []},
                 env=dict(env or {}),
                 slice_id=slice_id,
                 shard=self.shards.for_node(node_id),
@@ -1346,6 +1375,9 @@ class Node:
                                "value": (aid, info.creation_spec.get("class_blob_id") if info else None)})
         elif mtype == "state_snapshot":
             self._reply(conn, {"type": "reply", "req_id": msg["req_id"], "value": self._state_snapshot()})
+        elif mtype == "actor_states":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self._actor_states(msg["actor_ids"])})
         elif mtype == "subscribe":
             with self.lock:
                 subs = self.subscribers.setdefault(msg["channel"], [])
@@ -2322,19 +2354,22 @@ class Node:
             candidates = pgrt.bundles if idx < 0 else [pgrt.bundles[idx]]
             for b in candidates:
                 ns = self.nodes.get(b.node_id)
-                if ns and ns.alive and _fits(req, b.available):
+                if (ns and ns.alive and _fits(req, b.available)
+                        and _gpu_fits(ns, req.get(GPU, 0))):
                     return ns, b
             return None
         if isinstance(strategy, dict) and strategy.get("kind") == "node_affinity":
             ns = self.nodes.get(strategy["node_id"])
-            if ns and ns.alive and _fits(req, ns.available):
+            if (ns and ns.alive and _fits(req, ns.available)
+                    and _gpu_fits(ns, req.get(GPU, 0))):
                 return ns, None
             if strategy.get("soft"):
                 pass  # fall through to default policy
             else:
                 return None
         alive = [n for n in self.nodes.values() if n.alive and _fits(req, n.total)]
-        avail = [n for n in alive if _fits(req, n.available)]
+        avail = [n for n in alive if _fits(req, n.available)
+                 and _gpu_fits(n, req.get(GPU, 0))]
         if not avail:
             return None
         thr = self.cfg.scheduler_spread_threshold
@@ -2591,9 +2626,8 @@ class Node:
                 pool = bundle.available if bundle is not None else ns.available
                 _acquire(req, pool)
                 gpu_ids: List[int] = []
-                n_gpu = int(req.get(GPU, 0))
-                if n_gpu > 0:
-                    gpu_ids = _take_gpus(ns, n_gpu)
+                if req.get(GPU, 0) > 0:
+                    gpu_ids = _take_gpus(ns, req[GPU])
                 with ns.shard.lock:  # runnable queues live in shard space
                     ns.ready_queue.append((spec, gpu_ids, bundle))
 
@@ -2729,7 +2763,7 @@ class Node:
                             # error is sealed below, outside the lock
                             pool = bundle.available if bundle is not None else ns.available
                             _release(spec.get("resources", {}), pool)
-                            ns.gpu_free.extend(gpu_ids)
+                            _give_gpus(ns, gpu_ids, spec.get("resources", {}).get(GPU, 0))
                             env_failed.append((spec, key))
                         else:
                             with ns.shard.lock:
@@ -2787,7 +2821,7 @@ class Node:
         bundle = rt.get("bundle")
         pool = bundle.available if bundle is not None and not bundle.detached else ns.available
         _release(held, pool)
-        ns.gpu_free.extend(rt.get("gpu_ids", []))
+        _give_gpus(ns, rt.get("gpu_ids", []), held.get(GPU, 0))
         self._wake_scheduler()
 
     def _on_task_done(self, w: WorkerHandle, msg: dict) -> None:
@@ -3130,8 +3164,7 @@ class Node:
                     art.held = dict(req)
                     art.node_id = ns.node_id
                     art.bundle = bundle
-                    n_gpu = int(req.get(GPU, 0))
-                    art.gpu_ids = _take_gpus(ns, n_gpu)
+                    art.gpu_ids = _take_gpus(ns, req.get(GPU, 0))
                     # dedicated worker for the actor
                     worker_id = os.urandom(8)  # raylint: disable=R3 (per actor)
                     extra_env: Dict[str, str] = {}
@@ -3156,7 +3189,7 @@ class Node:
                         # actor — re-acquiring every pass would drain the
                         # node's availability with nothing to show for it
                         _release(art.held, pool)
-                        ns.gpu_free.extend(art.gpu_ids)
+                        _give_gpus(ns, art.gpu_ids, art.held.get(GPU, 0))
                         art.held = {}
                         art.gpu_ids = []
                         with art.shard.lock:
@@ -3402,7 +3435,7 @@ class Node:
                         held[CPU] = 0.0
                         w.block_depth = 0
                     _release(held, pool)
-                    ns.gpu_free.extend(art.gpu_ids)
+                    _give_gpus(ns, art.gpu_ids, art.held.get(GPU, 0))
                     art.held = {}
                     art.gpu_ids = []
                 if info.state == "DEAD":
@@ -3517,7 +3550,7 @@ class Node:
                         ns.ready_queue.remove(entry)
                         pool = bundle.available if bundle is not None else ns.available
                         _release(spec.get("resources", {}), pool)
-                        ns.gpu_free.extend(gpu_ids)
+                        _give_gpus(ns, gpu_ids, spec.get("resources", {}).get(GPU, 0))
                         return ("dequeued", spec, None)
         # 3. actor method queues (shard-guarded: submits append to these
         # queues under the shard lock only, so the scan must hold it too)
@@ -3603,7 +3636,7 @@ class Node:
                             else ns.available
                         )
                         _release(art.held, pool)
-                        ns.gpu_free.extend(art.gpu_ids)
+                        _give_gpus(ns, art.gpu_ids, art.held.get(GPU, 0))
                         art.held = {}
                         art.gpu_ids = []
                     self._wake_scheduler()
@@ -3805,6 +3838,22 @@ class Node:
     # ------------------------------------------------------------------
     # resource accounting over time (metrics TSDB + top/memory surfaces)
     # ------------------------------------------------------------------
+    def _actor_states(self, actor_ids_hex: List[str]) -> List[dict]:
+        """State rows of the named actors (a compiled graph's liveness
+        check); an unknown id has no row."""
+        rows = []
+        with self.lock:
+            for h in actor_ids_hex:
+                art = self.actors.get(bytes.fromhex(h))
+                if art is None:
+                    continue
+                info = art.info
+                rows.append({"actor_id": h, "class_name": info.class_name,
+                             "state": info.state,
+                             "num_restarts": info.num_restarts,
+                             "death_cause": info.death_cause})
+        return rows
+
     def _state_snapshot(self) -> dict:
         snap = self.gcs.snapshot()
         snap["object_store"] = self.registry.stats()

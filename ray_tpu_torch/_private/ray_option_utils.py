@@ -106,9 +106,11 @@ def resources_from_options(opts: Dict[str, Any], default_num_cpus: float) -> Dic
     res["CPU"] = float(default_num_cpus if num_cpus is None else num_cpus)
     num_gpus = opts.get("num_gpus")
     if num_gpus:
-        if num_gpus != int(num_gpus):
+        # a share of one card (0 < num_gpus < 1) or whole cards, as the
+        # reference Ray grants them
+        if num_gpus > 1 and num_gpus != int(num_gpus):
             raise ValueError(
-                f"num_gpus must be a whole number of cards, got {num_gpus!r}")
+                f"num_gpus above 1 must be a whole number of cards, got {num_gpus!r}")
         res["GPU"] = float(num_gpus)
     if opts.get("memory"):
         res["memory"] = float(opts["memory"])

@@ -152,6 +152,11 @@ class ActorClass:
     def remote(self, *args, **kwargs) -> ActorHandle:
         return self._remote(args, kwargs, self._default_options)
 
+    def bind(self, *args, **kwargs):
+        """Build a lazy actor DAG node (``ray.dag`` ClassNode)."""
+        from ray_tpu_torch.dag import ClassNode
+
+        return ClassNode(self, args, kwargs)
 
     def _remote(self, args, kwargs, options: Dict[str, Any]) -> ActorHandle:
         from ray_tpu_torch.remote_function import _strategy_to_dict
@@ -222,6 +227,10 @@ class _ActorClassWrapper:
     def remote(self, *args, **kwargs) -> ActorHandle:
         return self._ac._remote(args, kwargs, self._options)
 
+    def bind(self, *args, **kwargs):
+        from ray_tpu_torch.dag import ClassNode
+
+        return ClassNode(self._ac, args, kwargs, self._options)
 
 
 def get_actor(name: str, namespace: Optional[str] = None) -> ActorHandle:

@@ -37,13 +37,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel name -> launches since the last reset_launches()
 launches: Dict[str, int] = {}
+# wrappers launch from several threads at once (a Serve replica's
+# concurrent batches): a count is a read and a write
+_count_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
 def count_launch(name: str) -> None:
-    launches[name] = launches.get(name, 0) + 1
+    with _count_lock:
+        launches[name] = launches.get(name, 0) + 1
 
 
 def reset_launches() -> None:

@@ -39,6 +39,11 @@ class RemoteFunction:
     def remote(self, *args, **kwargs):
         return self._remote(args, kwargs, self._default_options)
 
+    def bind(self, *args, **kwargs):
+        """Build a lazy DAG node instead of submitting (``ray.dag``)."""
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def _remote(self, args, kwargs, options: Dict[str, Any]):
         w = global_worker
@@ -95,6 +100,10 @@ class _RemoteFunctionWrapper:
     def remote(self, *args, **kwargs):
         return self._rf._remote(args, kwargs, self._options)
 
+    def bind(self, *args, **kwargs):
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self._rf, args, kwargs, self._options)
 
 
 def _strategy_to_dict(strategy) -> Optional[dict]:

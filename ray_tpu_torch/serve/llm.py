@@ -1,5 +1,5 @@
 """LLM serving: iteration-level continuous batching over the KV-cache
-decode functions.
+decode functions, behind a Serve deployment.
 
 Counterpart of ``GenerationEngine`` in ``ray_tpu/serve/llm.py``, with the
 same design:
@@ -19,26 +19,82 @@ same design:
   a recorded CUDA event, and the drain waits on that event, so the host
   bookkeeping of N-1 overlaps the device work of N.
 
-The JAX engine's exports to the runtime's metrics, events and tracing are
-not carried over: the engine keeps its own counters (``stats()``,
-``perf_stats()``: TTFT and inter-token latency reservoirs and the
-prefill-interference tick meter).  The Serve deployment and the
-disaggregated prefill/decode graph need the runtime and are not ported.
+The engine keeps its own counters (``stats()``, ``perf_stats()``: TTFT and
+inter-token latency reservoirs and the prefill-interference tick meter)
+and, while the events plane is on, exports them as the JAX engine does:
+the ``ray_tpu_llm_*`` metrics in the process registry
+(``util/metrics.py``), ``serve_llm`` events for admissions, interleaves
+and completions (a completion joins the submitter's trace), and a
+``perf`` event every 32 interleaved ticks.
+
+:func:`llm_deployment` wraps the engine in a Serve deployment whose
+replica holds a card (``num_gpus=1`` by default); :func:`prefill_decode_graph`
+splits prefill and decode into two actors joined by a compiled graph
+(``dag/compiled.py``), both on one card by default.
 """
 
 from __future__ import annotations
 
+import itertools
+import os
 import threading
 import time
+import warnings
 from collections import deque
 from concurrent.futures import Future
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch._private import events as _events
 from ray_tpu_torch.models import generate as gen
+
+_LLM_METRICS = None
+# per-process engine sequence: tick-meter entity ids stay unique when one
+# replica process hosts several engines
+_ENGINE_SEQ = itertools.count()
+
+
+def _llm_metrics():
+    global _LLM_METRICS
+    if _LLM_METRICS is None:
+        from ray_tpu_torch.util.metrics import Counter, Histogram
+
+        _LLM_METRICS = {
+            "admission": Histogram(
+                "ray_tpu_llm_slot_admission_latency_s",
+                "request submit -> decode-slot admission latency (s)",
+                boundaries=[0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 30]),
+            "tokens": Counter(
+                "ray_tpu_llm_generated_tokens_total",
+                "tokens generated by the continuous-batching engine"),
+            "requests": Counter(
+                "ray_tpu_llm_requests_total",
+                "requests completed by the continuous-batching engine"),
+            "ttft": Histogram(
+                "ray_tpu_llm_ttft_s",
+                "request submit -> first generated token (s)",
+                boundaries=[0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1, 5, 30]),
+            "itl": Histogram(
+                "ray_tpu_llm_itl_s",
+                "inter-token latency (per-drain mean per request, s)",
+                boundaries=[0.0005, 0.001, 0.005, 0.01, 0.025, 0.05,
+                            0.1, 0.5, 1]),
+            "tick": Histogram(
+                "ray_tpu_llm_decode_tick_s",
+                "engine iteration wall by mode (decode_only / "
+                "interleaved / prefill_only)",
+                boundaries=[0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5],
+                tag_keys=("mode",)),
+            "interference": Counter(
+                "ray_tpu_llm_prefill_interference_s_total",
+                "decode-tick seconds billed to co-scheduled prefill "
+                "chunks (admission dispatch + tick excess over the "
+                "decode-only baseline)"),
+        }
+    return _LLM_METRICS
 
 
 class _TickMeter:
@@ -50,8 +106,11 @@ class _TickMeter:
     to prefill interference.  Owned by the engine thread."""
 
     EMA_ALPHA = 0.1
+    EMIT_EVERY = 32  # interleaved ticks per ``perf`` event
 
-    def __init__(self):
+    def __init__(self, entity_id: str):
+        self.entity_id = entity_id
+        self._since_emit = 0
         self.ticks = {"decode_only": 0, "interleaved": 0, "prefill_only": 0}
         self.tick_s = {"decode_only": 0.0, "interleaved": 0.0, "prefill_only": 0.0}
         self.ema_decode_s: Optional[float] = None
@@ -69,6 +128,14 @@ class _TickMeter:
             mode = "decode_only"
         self.ticks[mode] += 1
         self.tick_s[mode] += wall
+        if _events.ENABLED:
+            _llm_metrics()["tick"].observe(wall, tags={"mode": mode})
+            if sum(self.ticks.values()) % 256 == 1:
+                # the serving process's device-memory watermark, every
+                # ~256 ticks (the decode cache is its steady floor)
+                from ray_tpu_torch.util import perf as _perf
+
+                _perf.publish_device_memory()
         if mode == "decode_only":
             if self.ema_decode_s is None:
                 self.ema_decode_s = wall
@@ -84,6 +151,11 @@ class _TickMeter:
                 interference += max(0.0, wall - admit_s - self.ema_decode_s)
                 self.excess_s += max(0.0, wall - self.ema_decode_s)
             self.interference_s += interference
+            if _events.ENABLED:
+                _llm_metrics()["interference"].inc(interference)
+                self._since_emit += 1
+                if self._since_emit >= self.EMIT_EVERY:
+                    self.emit_event()
 
     def snapshot(self) -> Dict[str, Any]:
         decode_wall = self.tick_s["decode_only"] + self.tick_s["interleaved"]
@@ -102,10 +174,26 @@ class _TickMeter:
                 if self.excess_s > 0 and self.ema_decode_s is not None else None,
         }
 
+    def emit_event(self) -> None:
+        self._since_emit = 0
+        if not _events.ENABLED or self.ticks["interleaved"] == 0:
+            return
+        snap = self.snapshot()
+        _events.emit(
+            "perf", "prefill interference", severity="DEBUG",
+            entity_id=self.entity_id,
+            interference_s=snap["interference_s"],
+            interference_frac=snap["interference_frac"],
+            excess_billed_to_prefill=snap["excess_billed_to_prefill"],
+            interleaved_ticks=self.ticks["interleaved"],
+            decode_only_ticks=self.ticks["decode_only"],
+            baseline_s=snap["decode_tick_baseline_s"])
+
 
 class _Request:
     __slots__ = ("tokens", "max_new", "future", "emitted", "scheduled",
-                 "decode_steps", "submitted_at", "first_token_t", "last_emit_t")
+                 "decode_steps", "submitted_at", "first_token_t", "last_emit_t",
+                 "trace_ctx")
 
     def __init__(self, tokens: List[int], max_new: int):
         self.tokens = list(tokens)
@@ -122,6 +210,13 @@ class _Request:
         self.submitted_at = time.perf_counter()
         self.first_token_t: Optional[float] = None
         self.last_emit_t: Optional[float] = None
+        # the submitter's trace context, captured here because the engine
+        # loop runs on its own thread; the completion span joins it
+        self.trace_ctx = None
+        if _events.ENABLED:
+            from ray_tpu_torch.util import tracing
+
+            self.trace_ctx = tracing.child_context("llm.generate")
 
 
 class _HostCopy:
@@ -224,9 +319,12 @@ class GenerationEngine:
         self.total_generated = 0
         self.total_requests = 0
         self.prefills = 0  # admission calls (each one prefill of width n_slots)
-        self._ticks = _TickMeter()
+        # pid + per-process seq: the event's origin tells processes apart,
+        # the seq two engines inside one replica process
+        self._ticks = _TickMeter(f"engine-{os.getpid()}-{next(_ENGINE_SEQ)}")
         self._ttft_samples: "deque[float]" = deque(maxlen=4096)
-        self._itl_samples: "deque[float]" = deque(maxlen=4096)
+        # (per-token gap, tokens) of each drain that landed tokens
+        self._itl_samples: "deque[Tuple[float, int]]" = deque(maxlen=4096)
 
     # -- public API ----------------------------------------------------
     def _submit_req(self, tokens: List[int], max_new: Optional[int]) -> _Request:
@@ -321,12 +419,28 @@ class GenerationEngine:
 
     def perf_stats(self) -> Dict[str, Any]:
         """TTFT and inter-token-latency percentiles over the recent sample
-        reservoirs, plus the prefill-interference meter."""
+        reservoirs, plus the prefill-interference meter.
+
+        An ITL sample is one drain's gap since the request's last drain
+        over the tokens it landed, so tokens arrive in bursts of up to a
+        chunk: ``tokens_per_sample`` is the mean burst.  A chunk drains
+        after the next one is dispatched, so a chunk with none behind it
+        drains right behind the one before: ``back_to_back`` counts the
+        samples whose gap was under a tenth of a decode-only tick, too
+        short to have produced a chunk (None before a baseline exists).
+        Where no chunk follows a request's last one, its sample pulls the
+        percentiles toward 0."""
         with self._lock:
             ttft = list(self._ttft_samples)
             itl = list(self._itl_samples)
-        return {"ttft": self._pctiles(ttft), "itl": self._pctiles(itl),
-                **self._ticks.snapshot()}
+        ticks = self._ticks.snapshot()
+        base = ticks["decode_tick_baseline_s"]
+        itl_stats = self._pctiles([s for s, _ in itl])
+        itl_stats["tokens_per_sample"] = (
+            sum(k for _, k in itl) / len(itl) if itl else None)
+        itl_stats["back_to_back"] = (
+            None if base is None else sum(s * k < 0.1 * base for s, k in itl))
+        return {"ttft": self._pctiles(ttft), "itl": itl_stats, **ticks}
 
     # -- engine loop ---------------------------------------------------
     def _loop(self) -> None:
@@ -404,6 +518,21 @@ class GenerationEngine:
         self._last_tok[slots_dev] = firsts
         for _, req in batch:
             req.scheduled = 1  # the prefill's sampled first token
+        if _events.ENABLED:
+            now = time.perf_counter()
+            hist = _llm_metrics()["admission"]
+            worst = 0.0
+            for _, req in batch:
+                waited = now - req.submitted_at
+                hist.observe(waited)
+                worst = max(worst, waited)
+            with self._lock:
+                queued_left = len(self._queue)
+            # slot-admission span: submit -> prefill dispatch
+            _events.emit(
+                "serve_llm", f"admitted {take} prompt(s)", severity="DEBUG",
+                span_dur=worst, slots=[s for s, _ in batch],
+                bucket=b, queued_left=queued_left)
         admissions = [(j, slot, req) for j, (slot, req) in enumerate(batch)]
         return admissions, _HostCopy(firsts)
 
@@ -431,6 +560,13 @@ class GenerationEngine:
         admit_s = time.perf_counter() - t_tick0
         with self._lock:
             rows = [(i, s) for i, s in enumerate(self._slots) if s is not None]
+        if _events.ENABLED and admissions and len(rows) > len(admissions):
+            # new prefills joined mid-stream: the interleave the continuous
+            # batcher exists for
+            _events.emit(
+                "serve_llm", "prefill/decode interleave", severity="DEBUG",
+                admitted=len(admissions),
+                decoding=len(rows) - len(admissions))
         dispatched = None
         if rows:
             self._check_cache_bound(rows)
@@ -476,6 +612,8 @@ class GenerationEngine:
                 req.first_token_t = req.last_emit_t = drain_t
                 with self._lock:
                     self._ttft_samples.append(drain_t - req.submitted_at)
+                if _events.ENABLED:
+                    _llm_metrics()["ttft"].observe(drain_t - req.submitted_at)
         for i, req in pending.rows:
             if req.future.done():
                 continue
@@ -489,8 +627,11 @@ class GenerationEngine:
             k = len(req.emitted) - n_before
             if k > 0 and req.last_emit_t is not None and req.last_emit_t != drain_t:
                 # per-drain mean gap: chunked decode lands tokens in bursts
+                itl = (drain_t - req.last_emit_t) / k
                 with self._lock:
-                    self._itl_samples.append((drain_t - req.last_emit_t) / k)
+                    self._itl_samples.append((itl, k))
+                if _events.ENABLED:
+                    _llm_metrics()["itl"].observe(itl)
             if k > 0:
                 req.last_emit_t = drain_t
             if self._finished(req):
@@ -498,7 +639,27 @@ class GenerationEngine:
                     if self._slots[i] is req:  # EOS: not freed by cap prediction
                         self._slots[i] = None
                     self.total_generated += len(req.emitted)
+                if _events.ENABLED:
+                    self._export_completion(i, req)
                 req.future.set_result(req.emitted)
+
+    @staticmethod
+    def _export_completion(slot: int, req: _Request) -> None:
+        m = _llm_metrics()
+        m["tokens"].inc(len(req.emitted))
+        m["requests"].inc()
+        tf = {}
+        if req.trace_ctx is not None:
+            # the whole submit -> completion window as a span of the
+            # submitter's trace
+            tf = {"trace_id": req.trace_ctx["trace_id"],
+                  "span_id": req.trace_ctx["span_id"],
+                  "parent_span_id": req.trace_ctx["parent_span_id"],
+                  "phase": "llm_generate"}
+        _events.emit(
+            "serve_llm", "request complete", severity="DEBUG",
+            entity_id=str(slot), tokens=len(req.emitted),
+            span_dur=time.perf_counter() - req.submitted_at, **tf)
 
 
 def _cast_params(tree, dtype: torch.dtype, device: torch.device):
@@ -526,3 +687,208 @@ def make_config(family: str = "gpt2", size: str = "tiny", **kw):
 
         return C.llama_125m(**kw) if size in ("small", "125m") else C.tiny(**kw)
     raise ValueError(f"unknown model family {family!r}")
+
+
+# dtypes of the cache shipped between the graph's stages, by the integer
+# view that carries their bits (numpy has no bfloat16: ``Tensor.numpy()``
+# refuses one, and a numpy array rides the channel out of band)
+_BITS_VIEW = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+              torch.float32: torch.int32}
+
+
+def _cache_to_host(cache: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The cache as host numpy arrays: k and v as their bits (an integer
+    view of the same width), pos as int64."""
+    return {k: (v.view(_BITS_VIEW[v.dtype]) if v.is_floating_point() else v).cpu().numpy()
+            for k, v in cache.items()}
+
+
+def _cache_from_host(arrays: Dict[str, np.ndarray], dtype: torch.dtype,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    """Undo :func:`_cache_to_host` on ``device``, into fresh tensors (a
+    received array may lie in a read-only buffer, and decode writes the
+    cache in place)."""
+    out = {}
+    with warnings.catch_warnings():
+        # from_numpy warns on a read-only array; the copy below never
+        # writes to it
+        warnings.simplefilter("ignore", UserWarning)
+        for k, a in arrays.items():
+            t = torch.from_numpy(a).to(device, copy=True)
+            out[k] = t if k == "pos" else t.view(dtype)
+    return out
+
+
+def prefill_decode_graph(
+    family: str = "gpt2",
+    size: str = "tiny",
+    *,
+    max_new_tokens: int = 8,
+    prefill_bucket: int = 64,
+    num_gpus: float = 0.5,
+    device: DeviceLike = None,
+    seed: int = 0,
+    config_kwargs: Optional[Dict[str, Any]] = None,
+    **compile_kwargs,
+):
+    """Disaggregated prefill→decode serving as a 2-stage compiled graph.
+
+    A prefill actor runs the prompt and ships the KV cache (``k``, ``v``,
+    ``pos``) and the first greedy token to the host, over a pre-allocated
+    channel (``dag/compiled.py``), to a decode actor that runs
+    ``decode_chunk`` greedily — so the per-request hop between the stages
+    is a channel write, not a scheduler round trip.
+
+    Each stage holds ``num_gpus`` of a card (0.5 by default: both share
+    one) and runs on ``device`` (the card when None; ``num_gpus=0`` with
+    ``device="cpu"`` runs both on the CPU).  Both stages draw their weights
+    from ``seed`` (a deployment would load one checkpoint into both).
+
+    Returns a :class:`~ray_tpu_torch.dag.compiled.CompiledDAG`:
+    ``graph.execute([tok, ...])`` (or ``{"tokens": [...],
+    "max_new_tokens": n}``) → ref whose ``get()`` yields the generated
+    token ids.  Call ``graph.teardown()`` when done.
+    """
+    import ray_tpu_torch
+
+    ckw = dict(config_kwargs or {})
+    actor_opts: Dict[str, Any] = {}
+    if num_gpus:
+        actor_opts["num_gpus"] = num_gpus
+
+    @ray_tpu_torch.remote(**actor_opts)
+    class PrefillStage:
+        def __init__(self):
+            # the grant is this process's CUDA_VISIBLE_DEVICES by now
+            self.device = resolve_device(device)
+            self.cfg = make_config(family, size, **ckw)
+            self.params = _cast_params(_default_init(self.cfg, seed, self.device),
+                                       self.cfg.dtype, self.device)
+            self.max_len = prefill_bucket + max_new_tokens + 1
+
+        def prefill(self, request):
+            if not isinstance(request, dict):
+                request = {"tokens": list(request)}
+            toks = list(request["tokens"])
+            if not toks:
+                raise ValueError("empty prompt")
+            if len(toks) > prefill_bucket:
+                raise ValueError(
+                    f"prompt length {len(toks)} exceeds the prefill "
+                    f"bucket {prefill_bucket}")
+            # fixed prompt width: one prefill shape serves every request
+            arr = np.zeros((1, prefill_bucket), np.int64)
+            arr[0, :len(toks)] = toks
+            with torch.inference_mode():
+                cache = gen.init_cache(self.cfg, 1, self.max_len, self.device)
+                last, cache = gen.prefill(
+                    self.params, self.cfg, torch.from_numpy(arr).to(self.device),
+                    torch.tensor([len(toks)], device=self.device), cache, 0)
+                first = int(torch.argmax(last[0]))  # greedy
+                host_cache = _cache_to_host(cache)
+            return {"cache": host_cache, "first": first,
+                    "max_new": int(request.get("max_new_tokens") or max_new_tokens)}
+
+    @ray_tpu_torch.remote(**actor_opts)
+    class DecodeStage:
+        def __init__(self):
+            self.device = resolve_device(device)
+            self.cfg = make_config(family, size, **ckw)
+            self.params = _cast_params(_default_init(self.cfg, seed, self.device),
+                                       self.cfg.dtype, self.device)
+
+        def decode(self, state):
+            m = state["max_new"]
+            if m > max_new_tokens:
+                # the cache is sized for the graph's budget: reject, as the
+                # prompt-length check does, rather than truncate
+                raise ValueError(
+                    f"max_new_tokens {m} exceeds the graph's budget "
+                    f"{max_new_tokens}")
+            out = [state["first"]]
+            if m > 1:
+                with torch.inference_mode():
+                    cache = _cache_from_host(state["cache"], self.cfg.dtype, self.device)
+                    emitted, _, _ = gen.decode_chunk(
+                        self.params, self.cfg, cache,
+                        torch.tensor([state["first"]], device=self.device),
+                        torch.ones(1, dtype=torch.bool, device=self.device),
+                        None, steps=m - 1, temperature=0.0)
+                    out += emitted[0].tolist()
+            return out[:m]
+
+    from ray_tpu_torch.dag import InputNode
+
+    with InputNode() as inp:
+        dag = DecodeStage.bind().decode.bind(PrefillStage.bind().prefill.bind(inp))
+    compile_kwargs.setdefault("max_inflight", 4)
+    return dag.experimental_compile(**compile_kwargs)
+
+
+def llm_deployment(
+    family: str = "gpt2",
+    size: str = "tiny",
+    *,
+    name: str = "llm",
+    num_replicas: int = 1,
+    num_gpus: float = 1,
+    engine_kwargs: Optional[Dict[str, Any]] = None,
+    config_kwargs: Optional[Dict[str, Any]] = None,
+    max_concurrent_queries: int = 64,
+):
+    """Build a Serve deployment serving token generation with continuous
+    batching: each replica holds ``num_gpus`` of a card (one by default)
+    and runs a :class:`GenerationEngine` built in its ``__init__``, after
+    the grant is its ``CUDA_VISIBLE_DEVICES``.  ``engine_kwargs`` reach
+    the engine (``params``, ``device``, ``n_slots``, ...); with
+    ``num_gpus=0`` the engine needs ``device="cpu"`` there, or it raises
+    as every entry point does without a card."""
+    from ray_tpu_torch import serve
+
+    ekw = dict(engine_kwargs or {})
+    ckw = dict(config_kwargs or {})
+    actor_opts: Dict[str, Any] = {"max_concurrency": max_concurrent_queries}
+    if num_gpus:
+        actor_opts["num_gpus"] = num_gpus
+
+    @serve.deployment(
+        name=name,
+        num_replicas=num_replicas,
+        max_concurrent_queries=max_concurrent_queries,
+        ray_actor_options=actor_opts,
+    )
+    class LLMServer:
+        def __init__(self):
+            cfg = make_config(family, size, **ckw)
+            self.engine = GenerationEngine(cfg, **ekw).start()
+
+        def __call__(self, request):
+            """request: {"tokens": [int, ...], "max_new_tokens": int,
+            "stream": bool} -> {"tokens": generated ids}, or a token-per-
+            line StreamingResponse when ``stream`` is set.  Blocks this
+            replica thread; the engine interleaves all in-flight requests
+            between chunks."""
+            from ray_tpu_torch.serve._private.http_util import Request as _HttpReq
+
+            if isinstance(request, _HttpReq):
+                request = request.json()
+            if isinstance(request, (list, tuple)):
+                request = {"tokens": list(request)}
+            if request.get("stream"):
+                from ray_tpu_torch import serve as _serve
+
+                tokens = self.engine.stream(
+                    request["tokens"], request.get("max_new_tokens"))
+                return _serve.StreamingResponse(
+                    (f"{t}\n" for t in tokens), content_type="text/plain")
+            toks = self.engine.generate(
+                request["tokens"], request.get("max_new_tokens"))
+            return {"tokens": toks}
+
+        def stats(self):
+            return self.engine.stats()
+
+        def perf_stats(self):
+            return self.engine.perf_stats()
+
+    return LLMServer

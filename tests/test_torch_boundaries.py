@@ -276,3 +276,21 @@ def test_runtime_core_loads_neither_jax_nor_ray_tpu_and_starts_nothing():
         "assert not bad, bad\n"
         "assert threading.active_count() == 1, threading.enumerate()\n" % (FORBIDDEN,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_serve_and_dag_load_neither_jax_nor_ray_tpu_and_start_nothing():
+    """Serve (the controller, router, replica, proxy, batching, the LLM
+    deployment) and the compiled graph import no JAX and nothing of
+    ``ray_tpu``; importing them starts no thread and makes no CUDA
+    context."""
+    code = (
+        "import sys, threading, torch\n"
+        "import ray_tpu_torch.serve, ray_tpu_torch.serve.llm, ray_tpu_torch.serve.schema\n"
+        "import ray_tpu_torch.serve._private.controller, ray_tpu_torch.serve._private.router\n"
+        "import ray_tpu_torch.serve._private.replica, ray_tpu_torch.serve._private.http_proxy\n"
+        "import ray_tpu_torch.dag, ray_tpu_torch.dag.compiled, ray_tpu_torch.dag.channel\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not torch.cuda.is_initialized()\n" % (FORBIDDEN,))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

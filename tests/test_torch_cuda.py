@@ -519,3 +519,55 @@ def test_gpu_actor_and_trainer_on_the_card(cuda):
         assert m["group"] == ("torch", "nccl")
     finally:
         ray_tpu_torch.shutdown()
+
+
+def test_serve_replicas_on_the_card(cuda):
+    """Serve on the card: a ``num_gpus=1`` replica holding tiny BERT in
+    f32 answers one ``@serve.batch`` batch with the labels of the same
+    weights applied in this process; then ``llm_deployment``'s replica
+    (a card by default) answers one request with the greedy stream of an
+    in-process engine of the same settings and seed."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import bert
+    from ray_tpu_torch.serve.llm import GenerationEngine, llm_deployment, make_config
+
+    cfg = bert.BertConfig.tiny(dtype=torch.float32)
+    params = bert.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = np.random.default_rng(0).integers(1, cfg.vocab_size, (4, 32))
+    with torch.inference_mode():
+        want = bert.apply({k: (v.cuda() if torch.is_tensor(v) else
+                               {n: t.cuda() for n, t in v.items()}) for k, v in params.items()},
+                          torch.from_numpy(toks).cuda(), cfg).argmax(-1).tolist()
+
+    @serve.deployment(ray_actor_options={"num_gpus": 1}, max_concurrent_queries=8)
+    class Bert:
+        def __init__(self, params):
+            self.params = {k: (v.cuda() if torch.is_tensor(v) else
+                               {n: t.cuda() for n, t in v.items()}) for k, v in params.items()}
+
+        @serve.batch(max_batch_size=4, batch_wait_timeout_s=0.5)
+        def __call__(self, requests):
+            with torch.inference_mode():
+                logits = bert.apply(self.params, torch.tensor(requests, device="cuda"), cfg)
+            return logits.argmax(-1).tolist()
+
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        serve.start(serve.HTTPOptions(host="127.0.0.1", port=0))
+        handle = serve.run(Bert.bind(params), port=0, timeout_s=300)
+        got = ray_tpu_torch.get([handle.remote(t.tolist()) for t in toks], timeout=300)
+        assert got == want
+        serve.delete("Bert")
+        engine = dict(n_slots=2, max_new_tokens=8, decode_chunk_steps=4, prefill_buckets=(16,))
+        handle = serve.run(llm_deployment("gpt2", "tiny", engine_kwargs=engine).bind(),
+                           port=0, timeout_s=300)
+        out = ray_tpu_torch.get(handle.remote({"tokens": [5, 3, 9]}), timeout=300)["tokens"]
+        ref = GenerationEngine(make_config("gpt2", "tiny"), **engine).start()
+        try:
+            assert out == ref.generate([5, 3, 9], timeout=300)
+        finally:
+            ref.stop()
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()

@@ -48,6 +48,10 @@ def test_engine_matches_one_shot_under_continuous_batching():
     assert stats["total_requests"] == 5 and stats["total_generated_tokens"] == 40
     perf = eng.perf_stats()
     assert perf["ttft"]["count"] == 5 and perf["itl"]["count"] > 0
+    assert 1 <= perf["itl"]["tokens_per_sample"] <= 8
+    b2b = perf["itl"]["back_to_back"]
+    assert (b2b is None) == (perf["decode_tick_baseline_s"] is None)
+    assert b2b is None or 0 <= b2b <= perf["itl"]["count"]
 
 
 def test_engine_eos_and_max_new():

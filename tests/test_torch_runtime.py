@@ -106,7 +106,55 @@ def test_tasks_get_per_task_grants(runtime):
     assert ray_tpu_torch.get(off_card.remote(), timeout=T) == ("", [])
     assert ray_tpu_torch.get_runtime_context().get_gpu_ids() == []  # the driver holds none
     with pytest.raises(ValueError, match="whole number"):
-        on_card.options(num_gpus=0.5).remote()
+        on_card.options(num_gpus=1.5).remote()
+
+
+def test_two_half_card_actors_share_card_zero(runtime):
+    a, b = (_GpuActor.options(num_gpus=0.5).remote() for _ in range(2))
+    try:
+        grants = ray_tpu_torch.get([a.grant.remote(), b.grant.remote()], timeout=T)
+        assert grants == [("0", [0]), ("0", [0])]
+    finally:
+        for h in (a, b):
+            ray_tpu_torch.kill(h)
+
+
+def test_a_full_card_waits_for_shares_and_a_whole_actor_takes_the_other(runtime):
+    a, b = (_GpuActor.options(num_gpus=0.5).remote() for _ in range(2))
+    whole = _GpuActor.remote()
+    third = _GpuActor.options(num_gpus=0.5).remote()
+    try:
+        assert ray_tpu_torch.get([a.grant.remote(), b.grant.remote()], timeout=T) == [
+            ("0", [0]), ("0", [0])]
+        assert ray_tpu_torch.get(whole.grant.remote(), timeout=T) == ("1", [1])
+        pending = third.grant.remote()
+        ready, _ = ray_tpu_torch.wait([pending], timeout=3)
+        assert not ready  # card 0 is shared out in full and card 1 is held whole
+        ray_tpu_torch.kill(a)
+        assert ray_tpu_torch.get(pending, timeout=T) == ("0", [0])
+    finally:
+        for h in (a, b, whole, third):
+            ray_tpu_torch.kill(h)
+
+
+def test_fractional_tasks_get_a_card_id_and_non_whole_counts_above_one_raise(runtime):
+    @ray_tpu_torch.remote(num_gpus=0.25)
+    def share():
+        from ray_tpu_torch import get_runtime_context
+
+        return os.environ["CUDA_VISIBLE_DEVICES"], get_runtime_context().get_gpu_ids()
+
+    results = ray_tpu_torch.get([share.remote() for _ in range(4)], timeout=T)
+    for vis, ids in results:
+        assert len(ids) == 1 and ids[0] in (0, 1) and vis == str(ids[0])
+    for bad in (1.5, 2.25):
+        with pytest.raises(ValueError, match="whole number"):
+            _GpuActor.options(num_gpus=bad).remote()
+    both = _GpuActor.options(num_gpus=2).remote()
+    try:
+        assert ray_tpu_torch.get(both.grant.remote(), timeout=T) == ("0,1", [0, 1])
+    finally:
+        ray_tpu_torch.kill(both)
 
 
 def test_placement_group_bundles_hold_gpus(runtime):
