@@ -119,7 +119,35 @@ the backward kernels):
     in-process update's norm (the first update runs at lr 0 and the
     losses barely move, so the update is what sees the step).  The
     worker's counts stand for this path in ``launches_by_path``.
-22. ``serve_bert_http`` (BASELINE config 5, ``bench.py``'s serve row):
+22. ``data_ingest`` (``bench.py``'s ``streaming_ingest`` row): Ray Data on
+    the port, ``from_numpy`` of 512 MiB of f64 (``default_rng(3)``) in 16
+    blocks, ``.map_batches(x * 2.0)``, fed by ``datasets={"train": ds}``
+    to a ``TorchTrainer`` worker holding the card, which iterates
+    ``iter_batches(batch_size=2**14, prefetch_blocks=4)`` and copies each
+    batch to its card: GiB/s, batch p50/p99, the worker's streaming stall,
+    starved and ingest-wait counters, and the ``/dev/shm`` mount under the
+    object store.  Gate: the bytes seen are 512 MiB and the card-side sum
+    is ``2 * arr.sum()`` within 1e-9 relative.
+23. ``train_gpt2_dataset``: ``train_gpt2_trainer`` with its batches from a
+    Dataset: ``from_numpy`` of 42 x 1025 int32 ids (``default_rng(0)``),
+    each step reading ``TRAIN_BATCH`` rows from
+    ``session.get_dataset_shard("train")`` (inputs ``[:, :-1]``, targets
+    ``[:, 1:]``); the same checks against the in-process step over the
+    same rows, the worker's wait for each batch, tokens/s beside
+    ``train_gpt2_trainer``'s.
+24. ``batch_predict_bert``: BERT-base bf16 from ``serve_bert``'s directory
+    checkpoint, ``BatchPredictor.predict(batch_size=16)`` over a Dataset of
+    16 copies of ``serve_bert``'s 768 x 128 ids (12,288 sequences) in
+    blocks of 16, by a pool of 1 actor at ``num_gpus_per_worker=1`` and
+    then 2 actors at 0.5 sharing card 0: the wall to the first batch
+    (actor start included), sequences/s over the whole run and over the
+    window after the first batch, beside ``serve_bert``'s.  Gate: the
+    labels equal ``serve_bert``'s row for row, in every copy; the actors'
+    ``flash_fwd`` launches, read through a
+    ``TorchPredictor`` subclass that adds each batch's counter delta as a
+    column, are 12 a batch, all on the tensor cores; each pool's card is
+    free again after its last block.
+25. ``serve_bert_http`` (BASELINE config 5, ``bench.py``'s serve row):
     Serve on the same runtime (controller, asyncio proxy), BERT-base bf16
     from ``serve_bert``'s checkpoint in one ``num_gpus=1`` replica with
     ``@serve.batch(max_batch_size=16, batch_wait_timeout_s=0.005,
@@ -129,7 +157,7 @@ the backward kernels):
     mode, one batch's device work in the replica (profiler).  Gate: 16
     fixed sequences sent at once get the labels of an in-process
     ``TorchPredictor`` from the same checkpoint.
-23. ``serve_llm_deployment``: GPT-2 125M through ``llm_deployment`` (a
+26. ``serve_llm_deployment``: GPT-2 125M through ``llm_deployment`` (a
     ``num_gpus=1`` replica, the ``SERVE`` settings, seed 0).  Gate in f32
     first: GPT-2's width with two layers, 8 of ``serve_gpt2``'s prompts,
     greedy streams through the replica equal to an in-process engine's.
@@ -137,14 +165,14 @@ the backward kernels):
     them again as HTTP token streams; tokens/s beside ``serve_gpt2``'s,
     request p50/p99, the replica's TTFT and ITL, and the share of streams
     equal to ``serve_gpt2``'s (recorded, no gate).
-24. ``prefill_decode_graph``: GPT-2 125M bf16, prompt bucket 128, 32 new
+27. ``prefill_decode_graph``: GPT-2 125M bf16, prompt bucket 128, 32 new
     tokens, the two stages at ``num_gpus=0.5`` on card 0; 16 prompts one
     at a time, each request's wall split into prefill, channel hop and
     decode from the stages' ``compiled_dag`` spans, with the cache's
     bytes and whether the channel spilled it (its in-process cost beside
     it), then the 16 pipelined.  Gate: every stream equals the in-process
     ``prefill`` + greedy ``decode_chunk`` on the same weights.
-    In 22-24 each replica's or stage's own launch counts (read in its
+    In 25-27 each replica's or stage's own launch counts (read in its
     process through the compiled-graph control lane) are set to 0 just
     before the traffic and read just after.
 
@@ -152,7 +180,7 @@ Every bf16 launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 on the serving and training paths has to run the tensor-core design
 (their ``_tc`` launch counts equal their totals; the profiled steps find
 only the ``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
-summed over the serving, training, RL, Serve and graph runs, and per run), the card's name
+summed over the serving, training, RL, Data, Serve and graph runs, and per run), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": {...}}``.  Exits non-zero,
 printing no result, when there is no CUDA device or any phase fails.
@@ -1092,7 +1120,7 @@ def phase_bert_parity():
     emit("bert_parity", models=rows)
 
 
-def serve_bert():
+def serve_bert(root: str):
     """BASELINE config 5's replica body (``bench.py`` ``run_serve_bench``'s
     ``Bert``) without the Serve runtime: BERT-base at full width in bf16,
     random weights from seed 0, loaded as a user would,
@@ -1110,9 +1138,11 @@ def serve_bert():
     the median batch's host wall), and batch 0's logits against the same
     weights in f32 on the card (CUDA-core attention), within 5e-2 (bf16
     through 12 blocks), with equal labels wherever the f32 logits' margin
-    exceeds twice that."""
+    exceeds twice that.  The checkpoint is written under ``root``, which
+    the caller removes after ``batch_predict_bert`` has read it.  Returns
+    the launches, and the checkpoint's directory, the labels and
+    sequences/s."""
     import dataclasses
-    import tempfile
 
     from ray_tpu_torch.air import Checkpoint
     from ray_tpu_torch.models import bert
@@ -1122,12 +1152,12 @@ def serve_bert():
     t0 = time.perf_counter()
     params = bert.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     served = dict(params, blocks={k: v.to(cfg.dtype) for k, v in params["blocks"].items()})
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Checkpoint.from_dict({"params": served}).to_directory(os.path.join(tmp, "bert"))
-        ckpt_bytes = sum(e.stat().st_size for e in os.scandir(path))
-        pred = TorchPredictor.from_checkpoint(Checkpoint.from_directory(path),
-                                              lambda p, toks: bert.apply(p, toks, cfg),
-                                              device="cuda")
+    path = Checkpoint.from_dict({"params": served}).to_directory(
+        os.path.join(root, "bert"))
+    ckpt_bytes = sum(e.stat().st_size for e in os.scandir(path))
+    pred = TorchPredictor.from_checkpoint(Checkpoint.from_directory(path),
+                                          lambda p, toks: bert.apply(p, toks, cfg),
+                                          device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
 
@@ -1202,7 +1232,8 @@ def serve_bert():
          batch0_logits_max_abs_err_vs_f32=err, tolerance_vs_f32=tol,
          batch0_labels_checked=int(sure.sum()),
          top_kernels=[{"name": n[:100], "count": c, "ms": us / 1e3} for n, (c, us) in top])
-    return launches
+    return launches, {"checkpoint": path, "labels": np.concatenate(labels),
+                      "sequences_per_s": BERT_REQUESTS / wall}
 
 
 def moe_layer_ms(cfg, b: int, t: int) -> dict:
@@ -1877,7 +1908,12 @@ def _gpt2_train_loop(config):
     gang's ``torch`` group (NCCL), AdamW; every step reports its loss, its
     StepProfiler phases, the live MFU and the flash launches it made.  The
     last report holds the update of all its steps against the in-process
-    one saved at ``config["reference_update"]``."""
+    one saved at ``config["reference_update"]``.  With ``config["dataset"]``
+    each step's batch is the next ``[B, T + 1]`` id rows of the worker's
+    shard (``session.get_dataset_shard("train")``), inputs and targets the
+    rows less their last and first id, billed to the ``ingest`` (the wait
+    for the rows) and ``h2d`` (the copy to the card) phases; each report
+    then holds the step's wait for its rows."""
     from ray_tpu_torch.air import session
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.models.transformer import named_leaves
@@ -1896,10 +1932,13 @@ def _gpt2_train_loop(config):
     opt = gpt2.make_optimizer(lr=3e-4)
     state = gpt2.init_state(cfg, torch.Generator().manual_seed(0), opt, device=dev)
     init = {k: p.detach().clone() for k, p in named_leaves(state["params"])}
-    rng = np.random.default_rng(0)
     b, t = config["batch"], cfg.max_seq_len
-    batch = {"inputs": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t), np.int32)).long().to(dev),
-             "targets": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t), np.int32)).long().to(dev)}
+    if config.get("dataset"):
+        rows_iter = iter(session.get_dataset_shard("train").iter_batches(batch_size=b))
+    else:
+        rng = np.random.default_rng(0)
+        batch = {"inputs": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t), np.int32)).long().to(dev),
+                 "targets": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t), np.int32)).long().to(dev)}
     n_params = gpt2.num_params(state["params"])
     prof = torch_utils.step_profiler(cfg=cfg, n_params=n_params, tokens_per_step=b * t,
                                      device=dev)
@@ -1910,6 +1949,15 @@ def _gpt2_train_loop(config):
         return loss.detach()
 
     step_fn = prof.wrap_jit(forward_backward, name="gpt2_forward_backward")
+
+    def next_batch():
+        with prof.phase("ingest"):
+            t0 = time.perf_counter()
+            rows = next(rows_iter)
+            wait = time.perf_counter() - t0
+        with prof.phase("h2d"):
+            rows = torch.from_numpy(rows).to(dev).long()
+        return {"inputs": rows[:, :-1].contiguous(), "targets": rows[:, 1:].contiguous()}, wait
 
     def train_step(fwd_bwd):
         gpt2.AdamW.zero_grad(state["opt_state"])
@@ -1925,7 +1973,10 @@ def _gpt2_train_loop(config):
     history = []
     for i in range(config["warmup"] + config["steps"]):
         _build.reset_launches()
+        wait = None
         with prof.step():
+            if config.get("dataset"):
+                batch, wait = next_batch()
             loss = train_step(step_fn)
         launches = {k: _build.launches.get(k, 0) for k in (
             attn_mod.KERNEL, attn_mod.DQ_KERNEL, attn_mod.DKV_KERNEL,
@@ -1934,7 +1985,7 @@ def _gpt2_train_loop(config):
         history.append({"step": i, "loss": loss.item(), "wall_s": s["wall_s"],
                         "phases": s["phases"], "mfu": s["mfu"], "launches": launches,
                         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-                        "device": str(dev)})
+                        "device": str(dev), "batch_wait_s": wait})
         session.report(history[-1])
     update = _update_error(state["params"], init, config["reference_update"])
     del init
@@ -1989,10 +2040,12 @@ def _step_device_work(step, reps=3):
             "nccl_ms": sum(e.time_range.elapsed_us() for e in nccl) / 1e3}
 
 
-def _gpt2_reference(n, update_path):
+def _gpt2_reference(n, update_path, rows=None):
     """``n`` steps of the in-process step (make_train_step) from the same
-    seed and batch: their losses; each leaf's update over them (the params
-    less their init) is saved to ``update_path`` on the host."""
+    seed and batch (or, given ``rows``, over its ``[B, T + 1]`` id rows in
+    turn, as ``_gpt2_train_loop`` reads a dataset): their losses; each
+    leaf's update over them (the params less their init) is saved to
+    ``update_path`` on the host."""
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.models.transformer import named_leaves
 
@@ -2003,7 +2056,10 @@ def _gpt2_reference(n, update_path):
     step = gpt2.make_train_step(cfg, opt)
     batch = _train_batch(cfg.vocab_size, TRAIN_BATCH, cfg.max_seq_len)
     losses = []
-    for _ in range(n):
+    for i in range(n):
+        if rows is not None:
+            r = torch.from_numpy(rows[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]).cuda().long()
+            batch = {"inputs": r[:, :-1].contiguous(), "targets": r[:, 1:].contiguous()}
         state, m = step(state, batch)
         losses.append(m["loss"].item())
     torch.save({k: (p.detach() - init[k]).cpu() for k, p in named_leaves(state["params"])},
@@ -2014,11 +2070,16 @@ def _gpt2_reference(n, update_path):
     return losses
 
 
-def phase_train_gpt2_trainer(rt, in_process_row):
-    """BASELINE config 3's model on one card (see the module doc);
-    returns the flash launches the Train worker made over all its steps."""
+def phase_train_gpt2_trainer(rt, in_process_row, phase="train_gpt2_trainer", rows=None,
+                             trainer_row=None):
+    """BASELINE config 3's model on one card (see the module doc); with
+    ``rows`` (``train_gpt2_dataset``) the worker reads each step's batch
+    from ``datasets={"train": from_numpy(rows)}`` and the in-process
+    reference steps over the same rows.  Returns the flash launches the
+    Train worker made over all its steps, and its row."""
     import tempfile
 
+    from ray_tpu_torch import data as rd
     from ray_tpu_torch.air import RunConfig, ScalingConfig
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.train import TorchConfig, TorchTrainer
@@ -2026,39 +2087,41 @@ def phase_train_gpt2_trainer(rt, in_process_row):
     n_steps = TRAINER_WARMUP + TRAINER_STEPS
     with tempfile.TemporaryDirectory() as storage:
         update_path = os.path.join(storage, "reference_update.pt")
-        want_losses = _gpt2_reference(n_steps, update_path)
+        want_losses = _gpt2_reference(n_steps, update_path, rows)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         result = TorchTrainer(
             _gpt2_train_loop,
             train_loop_config={"batch": TRAIN_BATCH, "warmup": TRAINER_WARMUP,
-                               "steps": TRAINER_STEPS, "reference_update": update_path},
+                               "steps": TRAINER_STEPS, "reference_update": update_path,
+                               "dataset": rows is not None},
             torch_config=TorchConfig(use_torch_distributed=True),
             scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            datasets=None if rows is None else {"train": rd.from_numpy(rows)},
             run_config=RunConfig(name="gpt2", storage_path=storage)).fit()
         fit_s = time.perf_counter() - t0
-    check(result.error is None, f"train_gpt2_trainer: {result.error}")
+    check(result.error is None, f"{phase}: {result.error}")
     final = result.metrics
-    check(bool(final.get("final")), f"train_gpt2_trainer: last report {final}")
+    check(bool(final.get("final")), f"{phase}: last report {final}")
     steps = final["history"]
-    check(len(steps) == n_steps, f"train_gpt2_trainer: {len(steps)} steps")
+    check(len(steps) == n_steps, f"{phase}: {len(steps)} steps")
     losses = [r["loss"] for r in steps]
-    check(all(np.isfinite(losses)), f"train_gpt2_trainer: non-finite loss {losses}")
+    check(all(np.isfinite(losses)), f"{phase}: non-finite loss {losses}")
     diff = max(abs(a - b) for a, b in zip(losses, want_losses))
-    check(diff <= TRAINER_LOSS_TOL, f"train_gpt2_trainer: losses {losses} against the "
+    check(diff <= TRAINER_LOSS_TOL, f"{phase}: losses {losses} against the "
           f"in-process {want_losses}")
     update = final["update"]
     check(update["max_rel_err"] <= TRAINER_UPDATE_TOL,
-          f"train_gpt2_trainer: the update of leaf {update['worst_leaf']} differs from the "
+          f"{phase}: the update of leaf {update['worst_leaf']} differs from the "
           f"in-process one by {update['max_rel_err']} of its norm ({update})")
     n_layers = gpt2.GPT2Config.gpt2_small().n_layers
     want = {attn.KERNEL: 2 * n_layers, attn.DQ_KERNEL: n_layers, attn.DKV_KERNEL: n_layers}
     for r in steps:
         got = {k: r["launches"][k] for k in want}
-        check(got == want, f"train_gpt2_trainer: step {r['step']} launched {got}, want {want}")
+        check(got == want, f"{phase}: step {r['step']} launched {got}, want {want}")
         check(all(r["launches"][c] == r["launches"][k]
                   for k, c in attn.TENSOR_CORE_COUNTER.items()),
-              f"train_gpt2_trainer: not every flash launch ran on the tensor cores: {r['launches']}")
+              f"{phase}: not every flash launch ran on the tensor cores: {r['launches']}")
     timed = steps[TRAINER_WARMUP:]
     tokens = TRAIN_BATCH * gpt2.GPT2Config.gpt2_small().max_seq_len
     tok_s = sorted(tokens / r["wall_s"] for r in timed)
@@ -2066,24 +2129,218 @@ def phase_train_gpt2_trainer(rt, in_process_row):
     for r in steps:
         for k, n in r["launches"].items():
             launches[k] = launches.get(k, 0) + n
-    emit("train_gpt2_trainer", model="gpt2 125M bf16 (f32 master weights), remat dots, "
-         f"B {TRAIN_BATCH} x T 1024, TorchTrainer 1 worker, TorchConfig(use_torch_distributed=True)",
-         worker_device=steps[0]["device"], fit_s=fit_s, losses=losses,
-         in_process_losses=want_losses, max_loss_diff=diff,
-         loss_tolerance=TRAINER_LOSS_TOL, update_vs_in_process=update,
-         update_tolerance=TRAINER_UPDATE_TOL,
-         phases_by_step=[{"step": r["step"], "wall_ms": r["wall_s"] * 1e3,
-                          "phases_ms": {k: v * 1e3 for k, v in r["phases"].items()},
-                          "mfu": r["mfu"]} for r in steps],
-         tokens_per_s_median=tok_s[len(tok_s) // 2], tokens_per_s_best=tok_s[-1],
-         in_process_train_gpt2_tokens_per_s_median=in_process_row["tokens_per_s_median"],
-         mfu_live_timed_median=sorted(r["mfu"] for r in timed)[len(timed) // 2],
-         mfu_live_mean_all_steps=final["summary"]["mfu"]["mean"],
-         profiler_summary=final["summary"], worker_step_device_work=final["device_work"],
-         flash_launches_per_step={k: v / len(steps) for k, v in launches.items()},
-         worker_peak_mem_bytes=steps[-1]["peak_mem_bytes"],
-         driver_peak_mem_bytes=torch.cuda.max_memory_allocated())
-    return launches
+    extra = {}
+    if rows is not None:
+        waits = [r["batch_wait_s"] for r in steps]
+        extra = {"dataset": f"from_numpy of {rows.shape[0]} x {rows.shape[1]} int32 id rows "
+                            "(default_rng(0)), iter_batches(batch_size="
+                            f"{TRAIN_BATCH}); inputs rows[:, :-1], targets rows[:, 1:]",
+                 "batch_wait_ms_by_step": [w * 1e3 for w in waits],
+                 "batch_wait_ms_timed_median": sorted(waits[TRAINER_WARMUP:])[
+                     len(timed) // 2] * 1e3,
+                 "trainer_fixed_batch_tokens_per_s_median": trainer_row["tokens_per_s_median"]}
+    row = dict(model="gpt2 125M bf16 (f32 master weights), remat dots, "
+               f"B {TRAIN_BATCH} x T 1024, TorchTrainer 1 worker, "
+               "TorchConfig(use_torch_distributed=True)",
+               worker_device=steps[0]["device"], fit_s=fit_s, losses=losses,
+               in_process_losses=want_losses, max_loss_diff=diff,
+               loss_tolerance=TRAINER_LOSS_TOL, update_vs_in_process=update,
+               update_tolerance=TRAINER_UPDATE_TOL, **extra,
+               phases_by_step=[{"step": r["step"], "wall_ms": r["wall_s"] * 1e3,
+                                "phases_ms": {k: v * 1e3 for k, v in r["phases"].items()},
+                                "mfu": r["mfu"]} for r in steps],
+               tokens_per_s_median=tok_s[len(tok_s) // 2], tokens_per_s_best=tok_s[-1],
+               in_process_train_gpt2_tokens_per_s_median=in_process_row["tokens_per_s_median"],
+               mfu_live_timed_median=sorted(r["mfu"] for r in timed)[len(timed) // 2],
+               mfu_live_mean_all_steps=final["summary"]["mfu"]["mean"],
+               profiler_summary=final["summary"], worker_step_device_work=final["device_work"],
+               flash_launches_per_step={k: v / len(steps) for k, v in launches.items()},
+               worker_peak_mem_bytes=steps[-1]["peak_mem_bytes"],
+               driver_peak_mem_bytes=torch.cuda.max_memory_allocated())
+    emit(phase, **row)
+    return launches, row
+
+
+def phase_train_gpt2_dataset(rt, in_process_row, trainer_row):
+    """``train_gpt2_trainer`` with its batches from a Dataset: ``TRAIN_BATCH``
+    rows of ``T + 1`` ids a step, ``default_rng(0)``; see the module doc."""
+    from ray_tpu_torch.models import gpt2
+
+    cfg = gpt2.GPT2Config.gpt2_small()
+    n_rows = TRAIN_BATCH * (TRAINER_WARMUP + TRAINER_STEPS)
+    rows = np.random.default_rng(0).integers(0, cfg.vocab_size, (n_rows, cfg.max_seq_len + 1),
+                                             np.int32)
+    return phase_train_gpt2_trainer(rt, in_process_row, "train_gpt2_dataset", rows,
+                                    trainer_row)[0]
+
+
+# data_ingest (bench.py's streaming_ingest row): 512 MiB of f64 from
+# default_rng(3) in 16 blocks, map_batches(x * 2.0), batches of 2^14 rows
+# with 4 blocks prefetched
+INGEST_MB, INGEST_BLOCKS, INGEST_BATCH, INGEST_PREFETCH = 512, 16, 1 << 14, 4
+# batch_predict_bert: the pools scored in turn, (actors, share of a card each),
+# and the copies of serve_bert's requests each pool scores, so that the
+# window after the first batch lasts seconds
+PREDICT_POOLS = ((1, 1), (2, 0.5))
+PREDICT_REPEAT = 16
+
+
+def _ingest_loop(config=None):
+    """The Train worker's side of ``data_ingest`` (``bench.py``
+    ``_ingest_loop``): iterate the shard, copy each batch to the card and
+    sum it there; report GiB/s, each batch's wait, the bytes seen, the
+    card-side sum and this process's streaming counters."""
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.train import torch_utils
+    from ray_tpu_torch.util import metrics
+
+    dev = torch_utils.get_device()
+    total = torch.zeros((), dtype=torch.float64, device=dev)
+    lats, seen = [], 0
+    t0 = tb = time.perf_counter()
+    for batch in session.get_dataset_shard("train").iter_batches(
+            batch_size=INGEST_BATCH, prefetch_blocks=INGEST_PREFETCH):
+        lats.append(time.perf_counter() - tb)
+        seen += batch.nbytes
+        total += torch.from_numpy(batch).to(dev).sum()
+        tb = time.perf_counter()
+    total = total.item()  # waits for the last copy and sum
+    dt = time.perf_counter() - t0
+    counters = {name: sum(m["values"].values())
+                for name, m in metrics.registry().snapshot().items()
+                if name.startswith(("ray_tpu_torch_streaming_", "ray_tpu_torch_data_"))}
+    session.report({"gib_per_s": seen / (1 << 30) / dt, "bytes": seen, "wall_s": dt,
+                    "batches": len(lats), "card_sum": total, "device": str(dev),
+                    "batch_p50_ms": pct(lats, 0.5) * 1e3, "batch_p99_ms": pct(lats, 0.99) * 1e3,
+                    "batch_max_ms": max(lats) * 1e3, "counters": counters})
+
+
+def phase_data_ingest(rt):
+    """``bench.py``'s ``streaming_ingest`` row on the port: a ``TorchTrainer``
+    worker holding the card iterates its Dataset shard while the streaming
+    executor produces it (see the module doc).  Checks the bytes seen and
+    the card-side sum against ``2 * arr.sum()``; reports the ``/dev/shm``
+    mount the object store lives on."""
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch._private.config import resolve_object_store_memory
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.train import TorchTrainer
+
+    shm = os.statvfs("/dev/shm")
+    arr = np.random.default_rng(3).standard_normal((INGEST_MB << 20) // 8)
+    want = 2.0 * arr.sum()
+    t0 = time.perf_counter()
+    ds = rd.from_numpy(arr, parallelism=INGEST_BLOCKS).map_batches(lambda b: b * 2.0)
+    put_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result = TorchTrainer(_ingest_loop, scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                          datasets={"train": ds}).fit()
+    fit_s = time.perf_counter() - t0
+    check(result.error is None, f"data_ingest: {result.error}")
+    m = result.metrics
+    check(m["bytes"] == arr.nbytes == INGEST_MB << 20,
+          f"data_ingest: the worker saw {m['bytes']} bytes, want {INGEST_MB << 20}")
+    rel = abs(m["card_sum"] - want) / abs(want)
+    check(rel <= 1e-9, f"data_ingest: card-side sum {m['card_sum']}, want {want} ({rel})")
+    emit("data_ingest", dataset=f"from_numpy({INGEST_MB} MiB f64, parallelism={INGEST_BLOCKS})"
+         ".map_batches(x * 2.0)", batch_rows=INGEST_BATCH, prefetch_blocks=INGEST_PREFETCH,
+         worker_device=m["device"], put_s=put_s, fit_s=fit_s, gib_per_s=m["gib_per_s"],
+         ingest_wall_s=m["wall_s"], batches=m["batches"], batch_p50_ms=m["batch_p50_ms"],
+         batch_p99_ms=m["batch_p99_ms"], batch_max_ms=m["batch_max_ms"], bytes=m["bytes"],
+         card_sum=m["card_sum"], want_sum=want, sum_rel_err=rel, sum_tolerance=1e-9,
+         worker_counters=m["counters"], dev_shm_bytes=shm.f_frsize * shm.f_blocks,
+         dev_shm_free_bytes=shm.f_frsize * shm.f_bavail,
+         object_store_bytes=resolve_object_store_memory())
+
+
+def phase_batch_predict_bert(rt, served):
+    """BERT-base bf16 from ``serve_bert``'s directory checkpoint, scored over
+    a Dataset of ``PREDICT_REPEAT`` copies of its ``BERT_REQUESTS`` x 128
+    ids (blocks of ``BERT_BATCH`` rows) by
+    ``BatchPredictor.predict(batch_size=BERT_BATCH)``, once per
+    pool of ``PREDICT_POOLS``; see the module doc.  Returns the flash
+    launches the actors made, summed over both pools."""
+    import functools
+
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.air import Checkpoint
+    from ray_tpu_torch.models import bert
+    from ray_tpu_torch.train import BatchPredictor, TorchPredictor
+
+    class LaunchCountingPredictor(TorchPredictor):
+        """TorchPredictor whose batch also carries, as columns, the flash
+        launches this actor made for it (all and tensor-core, on its first
+        row), the actor's grant and its pid."""
+
+        def predict(self, batch, **kwargs):
+            from ray_tpu_torch.ops import _build
+            from ray_tpu_torch.ops import attention as attn_mod
+
+            bert.check_tokens(batch, bert.BertConfig.base())
+            before = [_build.launches.get(k, 0) for k in (attn_mod.KERNEL, attn_mod.FWD_TC)]
+            out = {"predictions": super().predict(batch)}
+            n = len(batch)
+            for col, k, b in zip(("flash", "flash_tc"), (attn_mod.KERNEL, attn_mod.FWD_TC), before):
+                out[col] = np.zeros(n, np.int64)
+                out[col][0] = _build.launches.get(k, 0) - b
+            out["grant"] = np.asarray([os.environ.get("CUDA_VISIBLE_DEVICES")] * n)
+            out["pid"] = np.full(n, os.getpid())
+            return out
+
+    cfg = bert.BertConfig.base()
+    requests = np.tile(
+        np.random.default_rng(0).integers(1, BERT_ID_HIGH, (BERT_REQUESTS, BERT_SEQ)),
+        (PREDICT_REPEAT, 1))
+    want_labels = np.tile(served["labels"], PREDICT_REPEAT)
+    n_rows = len(requests)
+    n_batches = n_rows // BERT_BATCH
+    want = cfg.n_layers * n_batches
+    pools, launches = [], {}
+    for workers, share in PREDICT_POOLS:
+        ds = rd.from_numpy(requests, parallelism=n_batches)
+        t0 = time.perf_counter()
+        out = BatchPredictor.from_checkpoint(
+            Checkpoint.from_directory(served["checkpoint"]), LaunchCountingPredictor,
+            apply_fn=functools.partial(bert.apply, cfg=cfg),
+        ).predict(ds, batch_size=BERT_BATCH, min_scoring_workers=workers,
+                  max_scoring_workers=workers, num_gpus_per_worker=share)
+        batches, first_s = [], None
+        for b in out.iter_batches(batch_size=BERT_BATCH):
+            first_s = first_s or time.perf_counter() - t0
+            batches.append(b)
+        wall = time.perf_counter() - t0
+        cols = {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+        phase = f"batch_predict_bert ({workers} x {share} card)"
+        labels = cols["predictions"].argmax(-1)
+        check(labels.shape == want_labels.shape and bool((labels == want_labels).all()),
+              f"{phase}: {int((labels != want_labels).sum())} labels differ from serve_bert's")
+        got = {"all": int(cols["flash"].sum()), "tensor_core": int(cols["flash_tc"].sum())}
+        check(got == {"all": want, "tensor_core": want},
+              f"{phase}: flash_fwd launches in the actors {got}, want {want} each")
+        check(set(cols["grant"].tolist()) == {"0"} and len(set(cols["pid"].tolist())) == workers,
+              f"{phase}: grants {set(cols['grant'].tolist())}, pids {set(cols['pid'].tolist())}")
+        deadline = time.time() + 60  # the pool is killed once its last block is sealed
+        while rt.available_resources().get("GPU") != rt.cluster_resources().get("GPU") \
+                and time.time() < deadline:
+            time.sleep(0.1)
+        check(rt.available_resources().get("GPU") == rt.cluster_resources().get("GPU"),
+              f"{phase}: the pool kept its card: {rt.available_resources()}")
+        for k, n in (("flash_fwd", got["all"]), ("flash_fwd_tc", got["tensor_core"])):
+            launches[k] = launches.get(k, 0) + n
+        pools.append({"actors": workers, "num_gpus_per_worker": share, "wall_s": wall,
+                      "first_batch_s": first_s, "sequences_per_s": n_rows / wall,
+                      "window_after_first_batch_s": wall - first_s,
+                      "sequences_per_s_after_first_batch":
+                          (n_rows - BERT_BATCH) / (wall - first_s),
+                      "flash_launches": got, "flash_launches_per_batch": got["all"] / n_batches,
+                      "labels_equal_serve_bert": True})
+    emit("batch_predict_bert", model="bert-base bf16 (blocks bf16; embeddings, pooler, "
+         "classifier f32), serve_bert's directory checkpoint",
+         dataset=f"from_numpy({PREDICT_REPEAT} copies of {BERT_REQUESTS} x {BERT_SEQ} ids, "
+                 f"parallelism={n_batches})",
+         batch_size=BERT_BATCH, pools=pools,
+         serve_bert_in_process_sequences_per_s=served["sequences_per_s"])
+    return {attn.KERNEL: launches["flash_fwd"], attn.FWD_TC: launches["flash_fwd_tc"]}
 
 
 # BASELINE config 5 behind HTTP (bench.py run_serve_bench): the replica's
@@ -2610,70 +2867,79 @@ def main() -> int:
     phase_decode_profile(params, cfg, n_slots, max_len)
     del params
     serve_llama = serve("llama")[0]
-    bert_launches = serve_bert()
-    torch.cuda.empty_cache()
+    import tempfile
 
-    from ray_tpu_torch.models import gpt2, llama
-    state, step, batch, train_launches, gpt2_row = train(
-        "gpt2", gpt2.GPT2Config.gpt2_small(), TRAIN_BATCH, TRAIN_WARMUP, TRAIN_WINDOWS)
-    phase_train_profile(state, step, batch, sorted(gpt2_row["ms_per_step_by_window"])[1])
-    del state, step, batch
-    torch.cuda.empty_cache()
-    _, _, _, llama_launches, _ = train("llama", llama.LlamaConfig.llama_125m(), LLAMA_BATCH,
-                                       LLAMA_WARMUP, LLAMA_WINDOWS)
-    torch.cuda.empty_cache()
-    moe_cfg = gpt2.GPT2Config.gpt2_small(n_experts=MOE_EXPERTS)
-    state, step, batch, moe_launches, row = train(
-        "gpt2", moe_cfg, TRAIN_BATCH, MOE_WARMUP, MOE_WINDOWS, phase="train_gpt2_moe")
-    busy_ms = phase_train_profile(state, step, batch, row["ms_per_step_by_window"][0],
-                                  phase="train_gpt2_moe_profile",
-                                  model=f"{row['model']}, B {TRAIN_BATCH} x T {moe_cfg.max_seq_len}")
-    del state, step, batch
-    torch.cuda.empty_cache()
-    layer = moe_layer_ms(moe_cfg, TRAIN_BATCH, moe_cfg.max_seq_len)
-    # under remat "dots" each layer's MoE FFN runs forward, then forward
-    # again and backward (its bmm outputs are not saved); the dense FFN's
-    # mm outputs are saved, so the same sum is an upper bound for it
-    per_step = {k: moe_cfg.n_layers * (layer[f"{k}_fwd_bwd_ms"] + layer[f"{k}_fwd_ms"])
-                for k in ("moe", "dense")}
-    emit("train_gpt2_moe_layer", shape=f"B {TRAIN_BATCH} x T {moe_cfg.max_seq_len} x D "
-         f"{moe_cfg.d_model}, {moe_cfg.n_experts} experts of d_ff {moe_cfg.d_ff}", **layer,
-         moe_ms_per_step=per_step["moe"], dense_ffn_ms_per_step=per_step["dense"],
-         moe_share_of_step_device_work=per_step["moe"] / busy_ms,
-         step_device_work_ms=busy_ms)
-    torch.cuda.empty_cache()
-    sharded_launches, mesh = phase_train_gpt2_sharded()
-    torch.cuda.empty_cache()
-    phase_ring_attention_card(mesh, fwd)
-    del mesh
-    gc.collect()
-    torch.cuda.empty_cache()
+    # serve_bert's checkpoint is read again by batch_predict_bert; it goes
+    # with this block, whichever phase in it fails
+    with tempfile.TemporaryDirectory(prefix="serve_bert_") as bert_root:
+        bert_launches, served_bert = serve_bert(bert_root)
+        torch.cuda.empty_cache()
 
-    import ray_tpu_torch as rt
+        from ray_tpu_torch.models import gpt2, llama
+        state, step, batch, train_launches, gpt2_row = train(
+            "gpt2", gpt2.GPT2Config.gpt2_small(), TRAIN_BATCH, TRAIN_WARMUP, TRAIN_WINDOWS)
+        phase_train_profile(state, step, batch, sorted(gpt2_row["ms_per_step_by_window"])[1])
+        del state, step, batch
+        torch.cuda.empty_cache()
+        _, _, _, llama_launches, _ = train("llama", llama.LlamaConfig.llama_125m(), LLAMA_BATCH,
+                                           LLAMA_WARMUP, LLAMA_WINDOWS)
+        torch.cuda.empty_cache()
+        moe_cfg = gpt2.GPT2Config.gpt2_small(n_experts=MOE_EXPERTS)
+        state, step, batch, moe_launches, row = train(
+            "gpt2", moe_cfg, TRAIN_BATCH, MOE_WARMUP, MOE_WINDOWS, phase="train_gpt2_moe")
+        busy_ms = phase_train_profile(state, step, batch, row["ms_per_step_by_window"][0],
+                                      phase="train_gpt2_moe_profile",
+                                      model=f"{row['model']}, B {TRAIN_BATCH} x T {moe_cfg.max_seq_len}")
+        del state, step, batch
+        torch.cuda.empty_cache()
+        layer = moe_layer_ms(moe_cfg, TRAIN_BATCH, moe_cfg.max_seq_len)
+        # under remat "dots" each layer's MoE FFN runs forward, then forward
+        # again and backward (its bmm outputs are not saved); the dense FFN's
+        # mm outputs are saved, so the same sum is an upper bound for it
+        per_step = {k: moe_cfg.n_layers * (layer[f"{k}_fwd_bwd_ms"] + layer[f"{k}_fwd_ms"])
+                    for k in ("moe", "dense")}
+        emit("train_gpt2_moe_layer", shape=f"B {TRAIN_BATCH} x T {moe_cfg.max_seq_len} x D "
+             f"{moe_cfg.d_model}, {moe_cfg.n_experts} experts of d_ff {moe_cfg.d_ff}", **layer,
+             moe_ms_per_step=per_step["moe"], dense_ffn_ms_per_step=per_step["dense"],
+             moe_share_of_step_device_work=per_step["moe"] / busy_ms,
+             step_device_work_ms=busy_ms)
+        torch.cuda.empty_cache()
+        sharded_launches, mesh = phase_train_gpt2_sharded()
+        torch.cuda.empty_cache()
+        phase_ring_attention_card(mesh, fwd)
+        del mesh
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    # the compiled graph's spans reach the head's table within a flush
-    os.environ.setdefault("RAY_TPU_TORCH_EVENTS_FLUSH_S", "0.5")
-    try:
-        phase_core_gpu_actor(rt)
-        phase_train_mlp_trainer(rt)
-        trainer_launches = phase_train_gpt2_trainer(rt, gpt2_row)
-        from ray_tpu_torch import serve as rt_serve
+        import ray_tpu_torch as rt
 
+        # the compiled graph's spans reach the head's table within a flush
+        os.environ.setdefault("RAY_TPU_TORCH_EVENTS_FLUSH_S", "0.5")
         try:
-            rt_serve.start(rt_serve.HTTPOptions(host="127.0.0.1", port=0))
-            bert_http_launches = phase_serve_bert_http(rt, rt_serve)
-            llm_launches = phase_serve_llm_deployment(rt, rt_serve, serve_gpt2_row,
-                                                      serve_gpt2_outs)
+            phase_core_gpu_actor(rt)
+            phase_train_mlp_trainer(rt)
+            trainer_launches, trainer_row = phase_train_gpt2_trainer(rt, gpt2_row)
+            phase_data_ingest(rt)
+            dataset_launches = phase_train_gpt2_dataset(rt, gpt2_row, trainer_row)
+            predict_launches = phase_batch_predict_bert(rt, served_bert)
+            from ray_tpu_torch import serve as rt_serve
+
+            try:
+                rt_serve.start(rt_serve.HTTPOptions(host="127.0.0.1", port=0))
+                bert_http_launches = phase_serve_bert_http(rt, rt_serve)
+                llm_launches = phase_serve_llm_deployment(rt, rt_serve, serve_gpt2_row,
+                                                          serve_gpt2_outs)
+            finally:
+                rt_serve.shutdown()
+            graph_launches = phase_prefill_decode_graph(rt)
         finally:
-            rt_serve.shutdown()
-        graph_launches = phase_prefill_decode_graph(rt)
-    finally:
-        rt.shutdown()
+            rt.shutdown()
 
     runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama, "serve_bert": bert_launches,
             "train_gpt2": train_launches, "train_llama": llama_launches,
             "train_gpt2_moe": moe_launches, "train_gpt2_sharded": sharded_launches,
             "train_gpt2_trainer": trainer_launches,
+            "train_gpt2_dataset": dataset_launches, "batch_predict_bert": predict_launches,
             "serve_bert_http": bert_http_launches, "serve_llm_deployment": llm_launches,
             "prefill_decode_graph": graph_launches,
             "rl_parity": rl_parity_launches,

@@ -20,8 +20,11 @@ GPU as a first-class resource: ``init(num_gpus=...)``,
 (``train.TorchTrainer``, ``TorchConfig``, ``train.torch_utils``,
 ``util.perf.StepProfiler``, ``util.collective``), Ray Serve's
 (``serve``: deployments whose replicas hold a card or a share of one,
-the HTTP proxy, ``serve.llm.llm_deployment``) and compiled actor graphs
-(``dag``, ``serve.llm.prefill_decode_graph``).  Those names load on
+the HTTP proxy, ``serve.llm.llm_deployment``), compiled actor graphs
+(``dag``, ``serve.llm.prefill_decode_graph``) and Ray Data's (``data``:
+Datasets over object-store blocks, the streaming executor, actor pools on
+cards, which feed ``TorchTrainer(datasets=...)`` and
+``train.BatchPredictor``).  Those names load on
 first use, so importing the package starts no thread or process.
 
 Entry points (``models.*.init`` and ``init_state``,

@@ -3305,14 +3305,23 @@ class Node:
         art.queue.extend(kept)
 
     def _on_actor_started(self, spec: dict, w: WorkerHandle, failed: bool, error: Optional[str]) -> None:
+        from ray_tpu_torch.exceptions import RayActorError
+
+        failed_specs = []
         with self.lock:
             art = self.actors.get(spec["actor_id"])
             if art is None:
                 return
             with art.shard.lock:  # head lock -> shard lock (fixed order)
                 if failed:
+                    # the constructor raised: the actor is dead for good, so
+                    # the methods queued behind its creation fail now (not
+                    # hang), and its worker ends below, giving back its grant
                     art.info.state = "DEAD"
                     art.info.death_cause = f"creation failed: {error}"
+                    art.info.max_restarts = art.info.num_restarts
+                    failed_specs = list(art.queue)
+                    art.queue.clear()
                 else:
                     art.info.state = "ALIVE"
                     # A defaulted num_cpus=1 was placement-only: reference actors
@@ -3340,6 +3349,10 @@ class Node:
         if failed:
             self._release_spec_pins(art.info.creation_spec)
             self._unregister_named_actor(art.info)
+            err = RayActorError(f"Actor {art.info.class_name} died: {art.info.death_cause}")
+            for queued in failed_specs:
+                self._seal_error_returns(queued, err)
+            self._kill_worker(w, reason=f"actor {art.info.class_name} creation failed")
 
     def submit_actor_task(self, spec: dict) -> None:
         from ray_tpu_torch.exceptions import RayActorError

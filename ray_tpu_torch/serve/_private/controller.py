@@ -675,9 +675,11 @@ class ServeController:
                     except Exception:
                         alive = False
                     if not alive:
-                        # a replica whose constructor raised stays an
-                        # actor that holds its grant (a card, a share of
-                        # one): end it, or its replacement waits forever
+                        # a replica that is alive but fails its health
+                        # check still holds its grant (a card, a share
+                        # of one): end it, or its replacement waits
+                        # forever.  One whose constructor raised is
+                        # already ended by the head, its grant returned.
                         try:
                             ray_tpu_torch.kill(r.handle)
                         except Exception:

@@ -54,6 +54,20 @@ class BackendExecutor:
             severity="WARNING" if self._gang_starts > 1 else "INFO",
             world_size=sc.num_workers, start_no=self._gang_starts)
 
+    def worker_node_ids(self) -> List[str]:
+        """Which node each rank's actor landed on (the locality input to
+        DataConfig: rank i's streaming shard materializes its blocks on
+        node ``worker_node_ids()[i]``)."""
+        if self.worker_group is None:
+            return []
+
+        def node_of_self():
+            import ray_tpu_torch as _rt
+
+            return _rt.get_runtime_context().node_id
+
+        return self.worker_group.execute(node_of_self)
+
     def perf_summaries(self) -> List[Optional[dict]]:
         """Per-rank step-profiler summaries (None for ranks whose train
         fn never installed one): phase totals, live MFU, compile table,
@@ -88,8 +102,21 @@ class BackendExecutor:
         train_fn: Callable,
         config: Optional[Dict] = None,
         checkpoint: Optional[Checkpoint] = None,
+        datasets: Optional[Dict[str, Any]] = None,
+        data_config=None,
         trial_info: Optional[Dict[str, str]] = None,
     ) -> None:
+        dataset_shards = None
+        if datasets:
+            # shard wiring happens HERE, not in the trainer: only the
+            # executor knows which node each rank landed on, and the
+            # streaming split needs those node ids as locality hints
+            from ray_tpu_torch.train.data_config import DataConfig
+
+            data_config = data_config or DataConfig()
+            dataset_shards = data_config.configure(
+                datasets, self.worker_group.num_workers,
+                self.worker_node_ids())
         self.backend.on_training_start(self.worker_group, self.backend_config)
         blob = cloudpickle.dumps(train_fn)
         futures = []
@@ -99,6 +126,8 @@ class BackendExecutor:
                 "trial_name": (trial_info or {}).get("name", ""),
                 "trial_id": (trial_info or {}).get("id", ""),
             }
+            if dataset_shards is not None:
+                session_kwargs["dataset_shards"] = dataset_shards[i]
             futures.append(w.run_train_fn.remote(blob, config, session_kwargs))
         ray_tpu_torch.get(futures, timeout=300)
         self._finished = [False] * self.worker_group.num_workers

@@ -1,13 +1,16 @@
-"""Predictors: a checkpoint turned into inference on the card.
+"""Predictors: a checkpoint turned into inference on the card, one batch
+at a time or over a Dataset.
 
-Counterpart of ``ray_tpu/train/predictor.py``'s ``Predictor`` and
-``JaxPredictor``.  ``BatchPredictor``, which scores a Dataset over an actor
-pool, needs the Data runtime and is not ported.
+Counterpart of ``ray_tpu/train/predictor.py``: ``Predictor``,
+``TorchPredictor`` in the place of ``JaxPredictor``, and
+``BatchPredictor``, which scores a :class:`~ray_tpu_torch.data.Dataset`
+over a pool of actors, each holding the model on the card (or the share of
+card 0) it was granted.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -77,3 +80,102 @@ class TorchPredictor(Predictor):
         with torch.inference_mode():
             out = self._apply(self._params, batch)
         return tree_map(lambda t: _to_numpy(t) if isinstance(t, torch.Tensor) else t, out)
+
+
+class _ScoringWrapper:
+    """The callable class that ``map_batches`` runs on each pool actor:
+    it builds the predictor once, in the actor, on the card the actor was
+    granted (the actor's ``CUDA_VISIBLE_DEVICES``; the forked worker has
+    made no CUDA context before this), then scores batches
+    (``batch_predictor.py`` ScoringWrapper analog)."""
+
+    def __init__(
+        self,
+        checkpoint_blob: bytes,
+        predictor_cls: type,
+        predictor_kwargs: dict,
+        feature_columns,
+        keep_columns,
+    ):
+        import cloudpickle
+
+        checkpoint = cloudpickle.loads(checkpoint_blob)
+        self._predictor = predictor_cls.from_checkpoint(checkpoint, **predictor_kwargs)
+        self._feature_columns = feature_columns
+        self._keep_columns = keep_columns
+
+    def __call__(self, batch):
+        feats = batch
+        if self._feature_columns is not None and isinstance(batch, dict):
+            if len(self._feature_columns) == 1:
+                feats = batch[self._feature_columns[0]]
+            else:
+                feats = {c: batch[c] for c in self._feature_columns}
+        preds = self._predictor.predict(feats)
+        if not isinstance(preds, dict):
+            preds = {"predictions": np.asarray(preds)}
+        if self._keep_columns and isinstance(batch, dict):
+            for c in self._keep_columns:
+                preds[c] = batch[c]
+        return preds
+
+
+class BatchPredictor:
+    """Score a Dataset with an actor pool of predictors
+    (``train/batch_predictor.py`` analog).  ``predictor_kwargs`` go to
+    ``predictor_cls.from_checkpoint`` in each actor: for ``TorchPredictor``
+    its ``apply_fn`` and, for a pool without cards, ``device="cpu"``."""
+
+    def __init__(self, checkpoint: Checkpoint, predictor_cls: type, **predictor_kwargs):
+        if not (isinstance(predictor_cls, type) and issubclass(predictor_cls, Predictor)):
+            raise TypeError(f"predictor_cls must be a Predictor subclass, got {predictor_cls!r}")
+        self._checkpoint = checkpoint
+        self._predictor_cls = predictor_cls
+        self._predictor_kwargs = predictor_kwargs
+
+    @classmethod
+    def from_checkpoint(
+        cls, checkpoint: Checkpoint, predictor_cls: type, **predictor_kwargs
+    ) -> "BatchPredictor":
+        return cls(checkpoint, predictor_cls, **predictor_kwargs)
+
+    def predict(
+        self,
+        data,
+        *,
+        batch_size: Optional[int] = None,
+        min_scoring_workers: int = 1,
+        max_scoring_workers: int = 2,
+        num_gpus_per_worker: float = 0,
+        num_cpus_per_worker: float = 1,
+        feature_columns=None,
+        keep_columns=None,
+    ):
+        """Returns a Dataset of predictions (lazy, like the input).  Each of
+        the ``max_scoring_workers`` actors holds ``num_gpus_per_worker``
+        of a card: 1 for a card of its own, 0.5 for two actors on card 0.
+        The checkpoint crosses to the actors by cloudpickle: a directory
+        checkpoint as its path, a dict checkpoint as its data."""
+        import cloudpickle
+
+        from ray_tpu_torch.data.dataset import ActorPoolStrategy
+
+        if min_scoring_workers > max_scoring_workers:
+            raise ValueError(
+                f"min_scoring_workers={min_scoring_workers} exceeds "
+                f"max_scoring_workers={max_scoring_workers}"
+            )
+        ckpt_blob = cloudpickle.dumps(self._checkpoint)
+        return data.map_batches(
+            _ScoringWrapper,
+            batch_size=batch_size,
+            compute=ActorPoolStrategy(size=max_scoring_workers),
+            fn_constructor_args=(
+                ckpt_blob,
+                self._predictor_cls,
+                self._predictor_kwargs,
+                feature_columns,
+                keep_columns,
+            ),
+            num_gpus=num_gpus_per_worker,
+        )

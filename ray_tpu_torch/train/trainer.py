@@ -7,7 +7,9 @@ drives a BackendExecutor gang through ``train_loop_per_worker``, collecting
 tolerance: on worker failure the whole gang restarts from the latest
 checkpoint up to ``FailureConfig.max_failures`` times (the gang is one
 failure domain).  ``TorchTrainer`` stands where the JAX package has
-``JaxTrainer``.  Datasets wait for the port of Data: ``datasets=`` raises.
+``JaxTrainer``.  ``datasets=`` are wired to the workers by the
+BackendExecutor through ``dataset_config`` (``DataConfig``): each worker
+reads its shard with ``session.get_dataset_shard(name)``.
 """
 
 from __future__ import annotations
@@ -40,14 +42,15 @@ class BaseTrainer:
         run_config: Optional[RunConfig] = None,
         resume_from_checkpoint: Optional[Checkpoint] = None,
         datasets: Optional[Dict[str, Any]] = None,
+        dataset_config: Optional["DataConfig"] = None,
     ):
-        if datasets:
-            raise NotImplementedError(
-                "datasets= needs the port of Data, which is not there yet "
-                "(ROADMAP A); feed batches from the train loop")
+        from ray_tpu_torch.train.data_config import DataConfig
+
         self.scaling_config = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
         self.resume_from_checkpoint = resume_from_checkpoint
+        self.datasets = datasets or {}
+        self.dataset_config = dataset_config or DataConfig()
 
     def fit(self) -> Result:
         raise NotImplementedError
@@ -69,10 +72,12 @@ class DataParallelTrainer(BaseTrainer):
         run_config: Optional[RunConfig] = None,
         resume_from_checkpoint: Optional[Checkpoint] = None,
         datasets: Optional[Dict[str, Any]] = None,
+        dataset_config=None,
     ):
         super().__init__(
             scaling_config=scaling_config, run_config=run_config,
             resume_from_checkpoint=resume_from_checkpoint, datasets=datasets,
+            dataset_config=dataset_config,
         )
         self.train_loop_per_worker = train_loop_per_worker
         self.train_loop_config = train_loop_config
@@ -103,6 +108,8 @@ class DataParallelTrainer(BaseTrainer):
                     self.train_loop_per_worker,
                     config=self.train_loop_config,
                     checkpoint=latest_ckpt,
+                    datasets=self.datasets or None,
+                    data_config=self.dataset_config,
                     trial_info={"name": self.run_config.name or "train", "id": "0"},
                 )
                 manager = _CheckpointBook(storage, ckpt_cfg)

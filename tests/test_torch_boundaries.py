@@ -46,6 +46,7 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.models.generate, ray_tpu_torch.ops.attention\n"
         "import ray_tpu_torch.models.bert, ray_tpu_torch.models.mlp, ray_tpu_torch.ops.moe\n"
         "import ray_tpu_torch.air, ray_tpu_torch.train\n"
+        "import ray_tpu_torch.data, ray_tpu_torch.train.data_config\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (FORBIDDEN,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -290,6 +291,26 @@ def test_serve_and_dag_load_neither_jax_nor_ray_tpu_and_start_nothing():
         "import ray_tpu_torch.serve._private.replica, ray_tpu_torch.serve._private.http_proxy\n"
         "import ray_tpu_torch.dag, ray_tpu_torch.dag.compiled, ray_tpu_torch.dag.channel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not torch.cuda.is_initialized()\n" % (FORBIDDEN,))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_data_loads_neither_jax_nor_arrow_and_starts_nothing():
+    """Data (blocks, the plan, the readers, the shuffles, the streaming
+    executor, ``DataConfig``, ``BatchPredictor``) imports no JAX and
+    nothing of ``ray_tpu``, loads neither pyarrow nor pandas (the card's
+    machine has neither), and importing it starts no thread and makes no
+    CUDA context."""
+    code = (
+        "import sys, threading, torch\n"
+        "import ray_tpu_torch.data, ray_tpu_torch.data.shuffle, ray_tpu_torch.data.datasource\n"
+        "import ray_tpu_torch.data._streaming, ray_tpu_torch.data.dataset_pipeline\n"
+        "import ray_tpu_torch.train.data_config, ray_tpu_torch.train.predictor\n"
+        "from ray_tpu_torch.data import BlockAccessor\n"
+        "BlockAccessor({'value': [1, 2]}).to_rows(); BlockAccessor.concat([[1], [2]])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r + ('pyarrow', 'pandas')]\n"
         "assert not bad, bad\n"
         "assert threading.active_count() == 1, threading.enumerate()\n"
         "assert not torch.cuda.is_initialized()\n" % (FORBIDDEN,))

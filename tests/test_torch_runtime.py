@@ -6,6 +6,7 @@ One runtime serves the module (``init(num_cpus=4, num_gpus=2)``); every
 wait has a timeout."""
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -155,6 +156,32 @@ def test_fractional_tasks_get_a_card_id_and_non_whole_counts_above_one_raise(run
         assert ray_tpu_torch.get(both.grant.remote(), timeout=T) == ("0,1", [0, 1])
     finally:
         ray_tpu_torch.kill(both)
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+class _FailingGpuActor:
+    def __init__(self):
+        raise ValueError("no model here")
+
+    def ping(self):
+        return "pong"
+
+
+def test_an_actor_whose_constructor_raises_fails_its_calls_and_frees_its_card(runtime):
+    """Calls queued behind a failed constructor raise (a Data pool whose
+    predictor cannot load fails its stream instead of hanging), later calls
+    raise, and the worker ends, so its card returns to the head."""
+    from ray_tpu_torch.exceptions import RayActorError
+
+    a = _FailingGpuActor.remote()
+    with pytest.raises(RayActorError, match="creation failed: ValueError: no model here"):
+        ray_tpu_torch.get(a.ping.remote(), timeout=T)
+    with pytest.raises(RayActorError):
+        ray_tpu_torch.get(a.ping.remote(), timeout=T)
+    deadline = time.time() + T
+    while ray_tpu_torch.available_resources().get("GPU") != 2.0 and time.time() < deadline:
+        time.sleep(0.05)
+    assert ray_tpu_torch.available_resources().get("GPU") == 2.0
 
 
 def test_placement_group_bundles_hold_gpus(runtime):

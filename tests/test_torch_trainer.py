@@ -201,8 +201,10 @@ def test_use_gpu_on_a_cluster_without_gpus_raises_at_once(runtime):
     with pytest.raises(RuntimeError, match="0 GPU"):
         TorchTrainer(lambda: None, scaling_config=ScalingConfig(num_workers=1)).fit()
     assert time.monotonic() - t0 < 10
-    with pytest.raises(NotImplementedError, match="Data"):
-        TorchTrainer(lambda: None, datasets={"train": [1, 2]})
+    # datasets= is taken now (Data is ported); the gang still fails at once
+    with pytest.raises(RuntimeError, match="0 GPU"):
+        TorchTrainer(lambda: None, datasets={"train": [1, 2]},
+                     scaling_config=ScalingConfig(num_workers=1)).fit()
 
 
 def test_worker_without_a_grant_refuses_the_card(runtime):
