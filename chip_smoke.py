@@ -1321,8 +1321,9 @@ def phase_mlp():
 # SyntheticAtariEnv(episode_len=400), 64 envs a worker, fragments of 16,
 # a train batch of 4 workers' fragments (4,096 env steps), minibatches of
 # 256, 4 SGD epochs, fcnet_hiddens (256,), entropy 0.01, seed 0; 1 warm-up
-# iteration, then 3 timed.  The port has no runtime: one local worker
-# samples the 4 fragments in turn.
+# iteration, then 3 timed.  rl_ppo_atari samples the 4 fragments in turn
+# on one local worker; rl_ppo_atari_runtime runs bench.py's 4 remote
+# workers with the PolicyServer on a card.
 RL_OBS, RL_ACTIONS, RL_HIDDENS = (84, 84, 4), 6, (256,)
 RL_ENVS, RL_FRAGMENT, RL_FRAGMENTS = 64, 16, 4
 RL_MINIBATCH, RL_SGD_ITERS, RL_WARMUP, RL_ITERS = 256, 4, 1, 3
@@ -1561,7 +1562,7 @@ def phase_rl_ppo_atari():
          model=f"PPO, nature-cnn actor-critic {RL_OBS} uint8, hiddens {RL_HIDDENS}, "
                f"{RL_ACTIONS} actions, f32",
          cut=f"bench.py's {RL_FRAGMENTS} remote rollout workers are one local RolloutWorker "
-             f"sampling {RL_FRAGMENTS} fragments in turn: the runtime is not ported",
+             f"sampling {RL_FRAGMENTS} fragments in turn (rl_ppo_atari_runtime runs them)",
          tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
                "cudnn": torch.backends.cudnn.allow_tf32},
          params=sum(t.numel() for t in tree_leaves(policy.params)),
@@ -1577,6 +1578,194 @@ def phase_rl_ppo_atari():
          sgd_minibatch=sgd, compute_actions=act, peak_mem_bytes=peak,
          mean_loss_terms=terms, loss_terms_finite=True, policy_tensors_on="cuda",
          episodes_total=worker.get_metrics()["episodes_total"], launches=launches)
+    return launches, steps / wall
+
+
+def _rllib_spans(instance, t0, t1):
+    """Run in an actor's process: its ``rllib`` spans that ended in
+    ``[t0, t1]`` (wall-clock seconds), each span's data among its keys."""
+    from ray_tpu_torch._private import events
+
+    return [{**e.get("data", {}), **{k: v for k, v in e.items() if k != "data"}}
+            for e in events.local_events() if e["source"] == "rllib" and t0 <= e["ts"] <= t1]
+
+
+def _policy_on_card(instance):
+    """Run in the PolicyServer's process: whether its policy's params and
+    Adam state all lie on the card, and how many Adam states it has."""
+    from ray_tpu_torch.util.tree import tree_leaves
+
+    pol = instance.policy
+    tensors = tree_leaves(pol.params) + [v for st in pol.optimizer.state.values()
+                                         for k, v in st.items() if k != "step"]
+    return all(t.is_cuda for t in tensors), len(pol.optimizer.state)
+
+
+def _tf32_off(instance):
+    """Run in an actor's process: TF32 off for matmul and cuDNN (imported
+    here: a function pickled by value cannot carry ``torch.backends``'
+    module objects)."""
+    import torch.backends.cuda as cuda_backend
+    import torch.backends.cudnn as cudnn_backend
+
+    cuda_backend.matmul.allow_tf32 = False
+    cudnn_backend.allow_tf32 = False
+    return True
+
+
+def phase_rl_ppo_atari_runtime(rt, local_steps_per_s):
+    """``bench.py``'s RL row (``run_rl_bench``) on the port's runtime:
+    ``PPOConfig`` -> ``PPO`` with 4 remote rollout workers of 64
+    ``SyntheticAtariEnv``s x fragments of 16 (a train batch of 4,096),
+    minibatches of 256 x 4 epochs, ``serve_policy(num_gpus=1,
+    max_concurrency=16, frame_stack_transport=True)`` holding the policy
+    and Adam on the card; 1 warm-up ``algo.step()``, then 3 timed.
+    env-steps/s is ``bench.py``'s (``_timesteps_total`` delta / wall),
+    printed beside ``rl_ppo_atari``'s local worker from this call.  Checks
+    4,096 env steps an iteration, finite loss terms, the server's policy
+    and Adam state on the card with none of the policy's tensors in the
+    driver, and no flash launch in any process of the path (counts zeroed
+    just before the first step and read just after the last).  Prints the
+    bytes shipped to the server an iteration by call, and its seconds in
+    inference and in ``train_on_batch`` from its events spans.  Then holds
+    the server's ``train_on_batch`` (one 256-row update, seed 0) to the
+    same call on a CPU ``PolicyServer`` from the same state, f32 with TF32
+    off, at ``RL_TOL``."""
+    from ray_tpu_torch.rllib import (PolicyServer, PPOConfig, RemotePolicy, serve_policy,
+                                     synthetic_atari_creator)
+
+    workers = RL_FRAGMENTS
+    batch_size = workers * RL_ENVS * RL_FRAGMENT
+    base = (PPOConfig()
+            .environment(env_creator=synthetic_atari_creator, env_config={"episode_len": 400})
+            .rollouts(num_rollout_workers=workers, num_envs_per_worker=RL_ENVS,
+                      rollout_fragment_length=RL_FRAGMENT)
+            .training(train_batch_size=batch_size, sgd_minibatch_size=RL_MINIBATCH,
+                      num_sgd_iter=RL_SGD_ITERS, fcnet_hiddens=RL_HIDDENS, entropy_coeff=0.01)
+            # the runtime has 4 CPUs (core_gpu_actor): the server's 1 and the
+            # workers' 0.75 each fit it
+            .resources(num_cpus_per_worker=0.75)
+            .debugging(seed=0)).to_dict()
+    gc.collect()
+    torch.cuda.empty_cache()
+    driver_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    server, overrides = serve_policy(base, obs_dim=int(np.prod(RL_OBS)), num_actions=RL_ACTIONS,
+                                     obs_shape=RL_OBS, max_concurrency=16,
+                                     frame_stack_transport=True)
+    cfg = dict(base, **overrides)
+    algo = cfg.pop("_algo_class")(config=cfg)
+    try:
+        procs = [server, *algo.workers.remote_workers]
+        rt.get(server._submit_compiled_task(_tf32_off, (), name="tf32"), timeout=60)
+        setup_s = time.perf_counter() - t0
+        warm = algo.step()
+        actor_launches(rt, procs, reset=True)
+        build.reset_launches()
+        w0, steps0 = time.time(), algo._timesteps_total
+        t_start = time.perf_counter()
+        iters = []
+        for _ in range(RL_ITERS):
+            t1 = time.perf_counter()
+            r = algo.step()
+            iters.append({"wall_s": time.perf_counter() - t1,
+                          "env_steps": r["timesteps_total"] - (iters[-1]["total"] if iters
+                                                               else steps0),
+                          "total": r["timesteps_total"], "loss_terms": r["info"]["learner"]})
+        wall = time.perf_counter() - t_start
+        w1 = time.time()
+        launches = dict(build.launches)
+        for k, n in actor_launches(rt, procs).items():
+            launches[k] = launches.get(k, 0) + n
+        steps = algo._timesteps_total - steps0
+        check(warm["timesteps_total"] == batch_size
+              and all(r["env_steps"] == batch_size for r in iters),
+              f"rl_ppo_atari_runtime: env steps {warm['timesteps_total']}, {iters}")
+        terms = {k: float(np.mean([r["loss_terms"][k] for r in iters]))
+                 for k in iters[0]["loss_terms"]}
+        check(set(terms) == {"total_loss", "policy_loss", "vf_loss", "entropy", "kl"}
+              and all(np.isfinite(v) for r in iters for v in r["loss_terms"].values())
+              and all(np.isfinite(v) for v in warm["info"]["learner"].values()),
+              f"rl_ppo_atari_runtime: loss terms {[r['loss_terms'] for r in iters]}")
+        on_card, n_adam = rt.get(server._submit_compiled_task(_policy_on_card, (), name="card"),
+                                 timeout=60)
+        check(on_card and n_adam == 14,
+              f"rl_ppo_atari_runtime: server policy on the card {on_card}, {n_adam} Adam states")
+        check(isinstance(algo.get_policy(), RemotePolicy)
+              and torch.cuda.memory_allocated() == driver_bytes,
+              "rl_ppo_atari_runtime: the driver holds CUDA tensors of the policy")
+        check(not any(launches.values()), f"rl_ppo_atari_runtime: kernel launches {launches}")
+        spans = {"server": rt.get(server._submit_compiled_task(_rllib_spans, (w0, w1),
+                                                               name="spans"), timeout=60),
+                 "workers": [e for part in rt.get(
+                     [w._submit_compiled_task(_rllib_spans, (w0, w1), name="spans")
+                      for w in algo.workers.remote_workers], timeout=60) for e in part],
+                 "driver": _rllib_spans(None, w0, w1)}
+        by = lambda rows, msg, **kw: [e for e in rows if e["message"] == msg and all(
+            e.get(k) == v for k, v in kw.items())]
+        infer = by(spans["server"], "policy inference")
+        stacked = by(spans["server"], "policy inference", stacked=True)
+        boot = [e for e in infer if not e.get("stacked")]
+        train_spans = by(spans["server"], "policy train")
+        samples = by(spans["workers"], "rollout sample")
+        learner = by(spans["driver"], "learner train")
+        check(len(stacked) == RL_ITERS * workers * RL_FRAGMENT and len(train_spans) == RL_ITERS
+              and len(samples) == RL_ITERS * workers and len(learner) == RL_ITERS
+              and all(e["cached"] for e in train_spans),
+              f"rl_ppo_atari_runtime: spans {len(stacked)} stacked, {len(train_spans)} train, "
+              f"{len(samples)} samples, {len(learner)} learner")
+        per_iter = lambda rows, key="span_dur": sum(e[key] for e in rows) / RL_ITERS
+        frames_b = per_iter(stacked, "bytes_in")
+        # parity: the card server's train_on_batch against a CPU server's
+        # from the same state, on one 256-row batch
+        cpu_server = PolicyServer(int(np.prod(RL_OBS)), RL_ACTIONS, {"obs_shape": RL_OBS},
+                                  base, device="cpu")
+        cpu_server.set_state(rt.get(server.get_state.remote(), timeout=120))
+        cols = _ppo_columns(np.random.default_rng(7), RL_MINIBATCH)
+        kw = dict(num_sgd_iter=1, sgd_minibatch_size=RL_MINIBATCH, seed=0)
+        got = rt.get(server.train_on_batch.remote(cols, **kw), timeout=120)
+        want = cpu_server.train_on_batch(cols, **kw)
+        loss_err = max(abs(got[k] - want[k]) for k in want)
+        weights_err = _tree_err(rt.get(server.get_weights.remote(), timeout=120),
+                                cpu_server.get_weights())
+        check(set(got) == set(want) and loss_err <= RL_TOL["loss"]
+              and weights_err <= RL_TOL["weights"],
+              f"rl_ppo_atari_runtime: train_on_batch card vs CPU: loss {loss_err}, "
+              f"weights {weights_err}")
+        emit("rl_ppo_atari_runtime",
+             model=f"PPO, nature-cnn actor-critic {RL_OBS} uint8, hiddens {RL_HIDDENS}, "
+                   f"{RL_ACTIONS} actions, f32, TF32 off",
+             path=f"PPOConfig -> PPO, {workers} remote RolloutWorkers x {RL_ENVS} envs x "
+                  f"{RL_FRAGMENT}, serve_policy(num_gpus=1, max_concurrency=16, "
+                  "frame_stack_transport=True)",
+             cut="the workers ask for 0.75 CPU each (bench.py's runtime has 12 CPUs, "
+                 "core_gpu_actor's 4)",
+             train_batch=batch_size, minibatch=RL_MINIBATCH, sgd_iters=RL_SGD_ITERS,
+             warmup_iters=RL_WARMUP, timed_iters=RL_ITERS, setup_s=setup_s,
+             env_steps_per_s=steps / wall, local_worker_env_steps_per_s=local_steps_per_s,
+             ratio_to_local_worker=steps / wall / local_steps_per_s, wall_s=wall,
+             iters=[{k: v for k, v in r.items() if k != "loss_terms"} for r in iters],
+             mean_loss_terms=terms, loss_terms_finite=True,
+             bytes_to_server_per_iter={
+                 "frames": frames_b, "bootstrap_stacks": per_iter(boot, "bytes_in"),
+                 "train_batch": per_iter(train_spans, "bytes_in"),
+                 "frames_per_env_step": frames_b / batch_size,
+                 "stacks_without_transport": batch_size * int(np.prod(RL_OBS)),
+                 "train_pixels_without_transport": batch_size * int(np.prod(RL_OBS))},
+             server_s_per_iter={"inference": per_iter(infer), "train_on_batch":
+                                per_iter(train_spans), "inference_calls": len(infer) / RL_ITERS},
+             worker_s_per_iter={k: sum(e[k] for e in samples) / (RL_ITERS * workers)
+                                for k in ("span_dur", "env_s", "infer_s", "connector_s",
+                                          "postprocess_s")},
+             learner_round_trip_s_per_iter=per_iter(learner),
+             server_policy_on="cuda", server_adam_states=n_adam, driver_policy="RemotePolicy",
+             train_on_batch_vs_cpu={"loss_max_abs_err": loss_err,
+                                    "weights_max_abs_err": weights_err, "tol": RL_TOL,
+                                    "card": got, "cpu": want},
+             launches=launches)
+    finally:
+        algo.cleanup()
+        rt.kill(server)
     return launches
 
 
@@ -2859,7 +3048,7 @@ def main() -> int:
     build.reset_launches()
     phase_rl_parity()
     rl_parity_launches = dict(build.launches)
-    rl_launches = phase_rl_ppo_atari()
+    rl_launches, rl_local_steps_per_s = phase_rl_ppo_atari()
     torch.cuda.empty_cache()
     serve_gpt2, params, cfg, serve_gpt2_row, serve_gpt2_outs = serve("gpt2")
     n_slots = SERVE["n_slots"] + 1
@@ -2922,6 +3111,7 @@ def main() -> int:
             phase_data_ingest(rt)
             dataset_launches = phase_train_gpt2_dataset(rt, gpt2_row, trainer_row)
             predict_launches = phase_batch_predict_bert(rt, served_bert)
+            rl_runtime_launches = phase_rl_ppo_atari_runtime(rt, rl_local_steps_per_s)
             from ray_tpu_torch import serve as rt_serve
 
             try:
@@ -2943,7 +3133,7 @@ def main() -> int:
             "serve_bert_http": bert_http_launches, "serve_llm_deployment": llm_launches,
             "prefill_decode_graph": graph_launches,
             "rl_parity": rl_parity_launches,
-            "rl_ppo_atari": rl_launches}
+            "rl_ppo_atari": rl_launches, "rl_ppo_atari_runtime": rl_runtime_launches}
     for r in (fwd, *bwd.values()):
         kern = r["name"]
         r["launches_by_path"] = {path: n.get(kern, 0) for path, n in runs.items()

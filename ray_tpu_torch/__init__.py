@@ -9,8 +9,8 @@ find.  It imports torch and numpy only: nothing of JAX and nothing of
 ``ray_tpu``.  It serves (``serve.llm.GenerationEngine``), trains
 (``models.*.init_state``, ``make_optimizer``, ``make_train_step``; GPT-2
 dense or with Switch experts), predicts from a checkpoint
-(``train.TorchPredictor``) and learns RL policies without the runtime
-(``rllib.RolloutWorker``, ``TorchPolicy``, ``train_one_step``).
+(``train.TorchPredictor``) and learns RL policies (``rllib.RolloutWorker``,
+``TorchPolicy``, ``train_one_step``).
 
 It also carries its own copy of the runtime core (``_private/``,
 ``actor.py``, ``remote_function.py``, ``runtime_context.py``), with the
@@ -24,7 +24,9 @@ the HTTP proxy, ``serve.llm.llm_deployment``), compiled actor graphs
 (``dag``, ``serve.llm.prefill_decode_graph``) and Ray Data's (``data``:
 Datasets over object-store blocks, the streaming executor, actor pools on
 cards, which feed ``TorchTrainer(datasets=...)`` and
-``train.BatchPredictor``).  Those names load on
+``train.BatchPredictor``) and RLlib's (``rllib``: ``PPO``, ``A2C``,
+``Impala``, ``DQN``, ``SAC`` as ``tune.Trainable``s over remote rollout
+workers, ``rllib.serve_policy``'s PolicyServer on a card).  Those names load on
 first use, so importing the package starts no thread or process.
 
 Entry points (``models.*.init`` and ``init_state``,
@@ -34,7 +36,8 @@ Entry points (``models.*.init`` and ``init_state``,
 ``serve.llm.GenerationEngine``, ``train.TorchPredictor``, the RL
 policies, ``rllib.RolloutWorker`` and the RL models' ``init_*``) take a
 ``device`` argument that defaults to the CUDA card and raise when no card
-is present; pass ``device="cpu"`` to run on the CPU.  Kernels written by
+is present; pass ``device="cpu"`` to run on the CPU (an RL algorithm's
+learner: ``resources(device="cpu")``; ``serve_policy``: ``num_gpus=0``).  Kernels written by
 hand for Hopper live under ``ops/csrc`` and are built with ``nvcc`` at
 first use (``ops/_build.py``).
 """

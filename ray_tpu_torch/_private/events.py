@@ -37,7 +37,7 @@ SEVERITIES = ("DEBUG", "INFO", "WARNING", "ERROR")
 KNOWN_SOURCES = (
     "scheduler", "node", "actor", "worker_pool", "object_store",
     "streaming", "serve", "serve_llm", "train", "collective",
-    "compiled_dag", "trace",
+    "compiled_dag", "trace", "rllib",
     # "serve" carries the ingress fault-tolerance signal set doctor's
     # ingress_shedding / drain_stuck rules read: `ingress shedding
     # started`/`stopped` (router watermark + proxy in-flight cap, with

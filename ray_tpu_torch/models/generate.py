@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.gpt2 import GPT2Config
 from ray_tpu_torch.models.llama import LlamaConfig
-from ray_tpu_torch.models.transformer import layer
+from ray_tpu_torch.models.transformer import layers
 from ray_tpu_torch.ops.attention import NEG_INF, attention
 from ray_tpu_torch.ops.layers import layernorm, rmsnorm, rope
 
@@ -191,8 +191,8 @@ def prefill_at(params, cfg, tokens: torch.Tensor, lengths: torch.Tensor,
                          f"{cache['k'].shape[3]}")
     positions = torch.arange(Tp, device=tokens.device)
     x = _embed(params, tokens, cfg, positions)
-    for l in range(cfg.n_layers):
-        x, (k, v) = _block(x, layer(params["blocks"], l), cfg, positions)
+    for l, p in enumerate(layers(params["blocks"])):
+        x, (k, v) = _block(x, p, cfg, positions)
         cache["k"][l, slots, :, :Tp] = k.to(cache["k"].dtype)
         cache["v"][l, slots, :, :Tp] = v.to(cache["v"].dtype)
     cache["pos"][slots] = lengths.to(torch.long)
@@ -225,8 +225,7 @@ def decode_step(params, cfg, cache: Cache, tokens: torch.Tensor,
     iota_b = torch.arange(B, device=tokens.device)[:, None]
     iota_kv = torch.arange(KV, device=tokens.device)[None, :]
     k_all, v_all = cache["k"], cache["v"]
-    for l in range(cfg.n_layers):
-        p = layer(params["blocks"], l)
+    for l, p in enumerate(layers(params["blocks"])):
         if fam == "gpt2":
             q, k, v = _gpt2_qkv(x, p, cfg)  # [B, heads, 1, dh]
         else:

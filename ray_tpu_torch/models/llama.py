@@ -23,7 +23,7 @@ from ray_tpu_torch.models.gpt2 import make_optimizer, num_params  # same recipe
 from ray_tpu_torch.models.transformer import (
     _attend,
     constrain_activations,
-    layer,
+    layers,
     make_train_step_from_loss,
     remat,
     split_batch,
@@ -160,8 +160,8 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig
     x = params["tok_emb"][tokens].to(cfg.dtype)
     positions = torch.arange(T, device=tokens.device)
     body = remat(lambda h, p: _block(h, p, cfg, positions), cfg)
-    for l in range(cfg.n_layers):
-        x = body(x, layer(params["blocks"], l))
+    for p in layers(params["blocks"]):
+        x = body(x, p)
     x = rmsnorm(x, params["final_norm"].to(cfg.dtype), eps=cfg.rms_eps)
     return (x @ params["tok_emb"].T.to(cfg.dtype)).float()
 

@@ -24,12 +24,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
@@ -149,9 +149,34 @@ def named_leaves(tree: Dict[str, Any], prefix: str = ""):
             yield f"{prefix}{name}", v
 
 
-def layer(blocks: Dict[str, torch.Tensor], l: int) -> Dict[str, torch.Tensor]:
-    """Layer ``l``'s params: views into the stacked leaves."""
-    return {k: v[l] for k, v in blocks.items()}
+def layers(blocks: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+    """Every layer's params, from one ``unbind`` of each stacked leaf.
+
+    The backward of an ``unbind`` is one ``stack``, which writes each
+    layer's gradient into its own slice once, as the JAX package's
+    ``lax.scan`` does; indexing ``v[l]`` per layer would zero-fill a
+    whole ``[L, ...]`` gradient for each layer and add the L of them."""
+    cols = {k: _unbind_layers(v) for k, v in blocks.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[l] for k, c in cols.items()} for l in range(n)]
+
+
+def _unbind_layers(v: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``v``'s layers.  A DTensor is unbound on its local tensor, and each
+    layer wrapped back on the leaf's placements, one dim lower: DTensor
+    has no rule to unbind the dim a placement shards, and the layer axis
+    lies ``Shard(0)`` over ``pp`` (of size 1 here: a longer ``pp`` runs
+    the stack through ``gpipe``, which hands its stages local blocks)."""
+    if not isinstance(v, DTensor):
+        return torch.unbind(v, 0)
+    mesh = v.device_mesh
+    pl = []
+    for i, p in enumerate(v.placements):
+        if p.is_shard(0) and mesh.size(i) > 1:
+            raise ValueError(f"the layer axis of {tuple(v.shape)} is split over mesh dim {i}: "
+                             "pipeline the stack (gpipe)")
+        pl.append(Replicate() if p.is_shard(0) else Shard(p.dim - 1) if p.is_shard() else p)
+    return tuple(from_local(t, mesh, pl) for t in torch.unbind(v.to_local(), 0))
 
 
 def _batch_axes(names) -> Optional[Tuple[str, ...]]:
@@ -281,8 +306,8 @@ def apply_stack(x: torch.Tensor, blocks: Dict[str, torch.Tensor],
 
     def stage(local_blocks, h):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for l in range(next(iter(local_blocks.values())).shape[0]):
-            h, a = body(h, layer(local_blocks, l))
+        for p in layers(local_blocks):
+            h, a = body(h, p)
             aux = aux + a
         return h, aux
 

@@ -18,11 +18,11 @@ most one token, so each einsum term that is not zero is the only one in
 its sum, and the gather gives the einsums' values bit for bit, without
 their ``S * E * C`` tensors.  Nothing here reads a value back to the host.
 
-On DTensors (the sharded train step) the routing stays global, as it is
-under GSPMD: capacity and arrival order count all ``S`` tokens of the
-batch, so every rank routes the whole batch, and each rank of the ``ep``
-axis runs only its own ``E / ep`` experts on its slice of the buffers.  A per-rank dispatch over local tokens would drop
-other tokens.
+On DTensors (the sharded train step) each rank routes only the tokens it
+holds, as GSPMD keeps the routing batch-sharded; capacity and arrival
+order still count all ``S`` tokens of the batch, from per-expert counts
+gathered over the token axes, and each rank of the ``ep`` axis runs only
+its own ``E / ep`` experts.
 """
 
 from __future__ import annotations
@@ -31,18 +31,26 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.parallel.sharding import from_local, local_tensor
+from ray_tpu_torch.parallel.collective import allreduce, axis_index, pvary
+from ray_tpu_torch.parallel.sharding import PartitionSpec as P
+from ray_tpu_torch.parallel.sharding import from_local, local_tensor, spec_to_placements
+
+
+def _router(xf: torch.Tensor, router_w: torch.Tensor):
+    """(probs [S, E], expert, gate) of top-1 routing over the tokens of xf."""
+    probs = torch.softmax(xf.float() @ router_w.float(), dim=-1)  # [S, E]
+    expert = probs.argmax(dim=-1)                                 # first index on ties
+    return probs, expert, probs.gather(1, expert[:, None])[:, 0]
 
 
 def _route(xf: torch.Tensor, router_w: torch.Tensor, E: int, C: int):
     """(gate, keep, slot, aux) of top-1 routing over the tokens of xf."""
-    probs = torch.softmax(xf.float() @ router_w.float(), dim=-1)  # [S, E]
-    expert = probs.argmax(dim=-1)                                 # first index on ties
-    gate = probs.gather(1, expert[:, None])[:, 0]                 # [S]
+    probs, expert, gate = _router(xf, router_w)
     # each expert's queue as a contiguous row of its tokens, [E, S]: the
     # running count is a scan along the rows (along a [S, E] tensor's
     # first dim it runs one thread per expert down 6,144 tokens, about a
@@ -108,34 +116,92 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor, b1: torch
     return y.reshape(B, T, D).to(x.dtype), aux
 
 
-def _moe_ffn_sharded(x: DTensor, router_w, w1, b1, w2, b2, capacity_factor: float):
-    """The MoE on DTensors: every rank routes all tokens (their values are
-    the same on every rank), and each rank of ``ep`` runs its own experts.
-    The router, the ``[E, S]`` arrival-order cumsum, the dispatch and the
-    combine are thus replicated over the data axes (dp, fsdp, sp): their
-    memory and time on each rank grow with the global batch ``S = B * T``,
-    where the JAX package's GSPMD keeps them batch-sharded.  Only the
-    experts' FFN is split, over ``ep``.
-    The buffers cross from the replicated routing to the expert shards and
-    back by ``redistribute``, whose gradient is the matching gather or
-    slice, so each local value keeps the meaning its placement gives it."""
-    mesh = x.device_mesh
-    rep = [Replicate()] * mesh.ndim
-    ep = [Shard(0) if a == "ep" else Replicate() for a in mesh.mesh_dim_names]
-    local = local_tensor
+def _gather(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t`` of every rank over ``axes``, stacked in the order of the
+    ranks' blocks (the first axis outermost): ``[n, *t.shape]``.  It
+    carries counts, so it has no gradient."""
+    out = t.detach()[None]
+    for a in reversed(axes):
+        parts = [torch.empty_like(out) for _ in range(mesh.size(mesh.mesh_dim_names.index(a)))]
+        dist.all_gather(parts, out.contiguous(), group=mesh.get_group(a))
+        out = torch.cat(parts)
+    return out
 
-    def wrap(t, pl):
-        return from_local(t, mesh, pl)
+
+def _block_index(mesh, axes) -> int:
+    """This rank's block over ``axes`` taken together, the first outermost."""
+    c = 0
+    for a in axes:
+        c = c * mesh.size(mesh.mesh_dim_names.index(a)) + axis_index(mesh, a)
+    return c
+
+
+def _moe_ffn_sharded(x: DTensor, router_w, w1, b1, w2, b2, capacity_factor: float):
+    """The MoE on DTensors, its routing batch-sharded as under the JAX
+    package's GSPMD.  Each rank routes only the tokens it holds: a block
+    of rows over the batch axes (dp, fsdp) and of positions over ``sp``,
+    ``S / (dp * fsdp * sp)`` of them.  Only these become global:
+
+    - the per-expert counts, which give each token its arrival slot in the
+      reference's row-major ``[B * T]`` order, and so the drops at
+      capacity ``C = ceil(cf * S / E)``.  A token's slot counts its expert
+      in every earlier row (those of earlier batch blocks, then this
+      block's earlier rows, over all of ``sp``), in its own row on the
+      ``sp`` ranks before this one, then in this rank's part of its row;
+    - the load-balance loss's means over the ``S`` tokens.
+
+    Each rank of ``ep`` copies its tokens bound for its own ``E / ep``
+    experts into their buffers; a sum over the token axes fills in the
+    other ranks' tokens.  Each rank then combines only its own tokens
+    from its own experts, and the output is summed over ``ep``.
+
+    The gradients keep the meaning each placement gives them.  The
+    buffers, the router and the expert weights are replicated over the
+    token axes, and each rank uses them for its own tokens: ``pvary``
+    sums their gradients there.  The tokens and their gates reach the
+    experts of one ``ep`` rank each, so their gradients through the
+    buffers are summed over ``ep`` the same way.  The output and the
+    loss's means are sums that every rank then uses alike: their
+    gradients arrive whole (``allreduce``)."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    bax = tuple(a for a in ("dp", "fsdp") if a in names)
+    sp = ("sp",) if "sp" in names else ()
+    rows = bax + sp                           # the axes that split the tokens
+    ep = ("ep",) if "ep" in names else ()
+    xpl = spec_to_placements(P(bax or None, sp[0] if sp else None, None), mesh)
+    rep = [Replicate()] * mesh.ndim
+    on_ep = [Shard(0) if a == "ep" else Replicate() for a in names]
 
     B, T, D = x.shape
     E = w1.shape[0]
-    C = max(1, math.ceil(capacity_factor * B * T / E))
-    xf = local(x, rep).reshape(B * T, D)
-    gate, keep, slot, aux = _route(xf, local(router_w, rep), E, C)
-    expert_in = local(wrap(_dispatch(xf, keep, slot, E, C), rep), ep)
-    out = _experts(expert_in, *(local(w, ep) for w in (w1, b1, w2, b2)))
-    y = _combine(local(wrap(out, ep), rep), gate, keep, slot)
-    return wrap(y.reshape(B, T, D).to(x.dtype), rep), wrap(aux, rep)
+    S = B * T
+    C = max(1, math.ceil(capacity_factor * S / E))
+    xl = local_tensor(x, xpl)
+    Bl, Tl, _ = xl.shape
+    xf = xl.reshape(Bl * Tl, D)
+    probs, expert, gate = _router(xf, pvary(local_tensor(router_w, rep), mesh, rows))
+    queue = (expert[None, :] == torch.arange(E, device=xf.device)[:, None]).view(E, Bl, Tl)
+    on_sp = _gather(queue.sum(-1).T, mesh, sp)          # [sp, Bl, E] counts a row part
+    row_tot = on_sp.sum(0)                              # [Bl, E]
+    blocks = _gather(row_tot.sum(0), mesh, bax)         # [blocks, E]
+    before = (blocks[:_block_index(mesh, bax)].sum(0) + row_tot.cumsum(0) - row_tot
+              + on_sp[:_block_index(mesh, sp)].sum(0))  # [Bl, E] before this part of each row
+    pos = (queue.cumsum(-1) - 1 + before.T[:, :, None]).reshape(E, Bl * Tl)
+    pos = pos.gather(0, expert[None, :])[0]
+    frac = blocks.sum(0).float() / S
+    aux = E * torch.sum(frac * allreduce(probs.sum(0), mesh, rows) / S)
+
+    w = [pvary(local_tensor(t, on_ep), mesh, rows) for t in (w1, b1, w2, b2)]
+    E_me = w[0].shape[0]
+    first = axis_index(mesh, "ep") * E_me if ep else 0
+    ours = (pos < C) & (expert >= first) & (expert < first + E_me)
+    slot = (expert - first) * C + pos
+    expert_in = _dispatch(pvary(xf, mesh, ep), ours, slot, E_me, C)
+    expert_in = pvary(allreduce(expert_in, mesh, rows), mesh, rows)
+    y = _combine(_experts(expert_in, *w), pvary(gate, mesh, ep), ours, slot)
+    y = allreduce(y, mesh, ep).reshape(Bl, Tl, D).to(x.dtype)
+    return from_local(y, mesh, xpl), from_local(aux, mesh, rep)
 
 
 def init_moe_params(generator: torch.Generator, n_layers: int, d_model: int, d_ff: int,

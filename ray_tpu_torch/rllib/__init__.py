@@ -1,53 +1,75 @@
-"""ray_tpu_torch.rllib: the RLlib learner stack on PyTorch, without the
+"""ray_tpu_torch.rllib: reinforcement learning on PyTorch and the port's
 runtime.
 
-Counterpart of ``ray_tpu/rllib/``'s modules that need no runtime: the
-model catalog (``models``), ``RLModule``, ``TorchPolicy`` (``policy``),
-the PPO, A2C, IMPALA and DQN losses, the DQN and SAC policies,
-``train_one_step`` (``algorithm``), the local ``RolloutWorker`` with its
-connector pipelines, and the port's own copies of the numpy modules
-(``SampleBatch``, ``compute_gae``, ``ReplayBuffer``,
-``SyntheticAtariEnv``).  A local learner is a ``RolloutWorker`` whose
-policy carries a loss, sampled and then trained with ``train_one_step``.
-``Algorithm`` with its configs, the ``WorkerSet``, APPO, the
-PolicyServer, multi-agent and offline IO need the runtime and are not
-ported yet.
+Counterpart of ``ray_tpu/rllib/``: ``Algorithm``/``AlgorithmConfig`` as
+Trainables, remote ``RolloutWorker`` actors gathered in a ``WorkerSet``,
+``SampleBatch`` columns, GAE postprocessing, and the algorithm families
+PPO, A2C, IMPALA (V-trace), DQN (replay and a target net) and SAC
+(continuous control), with vectorized envs and greedy evaluation.  The
+``PolicyServer`` holds a policy on a card for every rollout worker, with
+the frame-stack transport.  Env<->policy preprocessing is composable
+``connectors`` pipelines, and models plug in through ``RLModule``.
+APPO, multi-agent and offline IO are not ported yet.
 """
 
 from ray_tpu_torch.rllib import connectors
-from ray_tpu_torch.rllib.a2c import make_a2c_loss
-from ray_tpu_torch.rllib.algorithm import train_one_step
-from ray_tpu_torch.rllib.dqn import DQNPolicy, make_dqn_loss
+from ray_tpu_torch.rllib.a2c import A2C, A2CConfig, make_a2c_loss
+from ray_tpu_torch.rllib.algorithm import (
+    Algorithm,
+    AlgorithmConfig,
+    synchronous_parallel_sample,
+    train_one_step,
+)
+from ray_tpu_torch.rllib.dqn import DQN, DQNConfig, DQNPolicy, make_dqn_loss
 from ray_tpu_torch.rllib.envs import SyntheticAtariEnv, synthetic_atari_creator
-from ray_tpu_torch.rllib.impala import compute_vtrace, make_impala_loss
+from ray_tpu_torch.rllib.impala import Impala, ImpalaConfig, compute_vtrace, make_impala_loss
 from ray_tpu_torch.rllib.policy import TorchPolicy, bind_loss
+from ray_tpu_torch.rllib.policy_server import PolicyServer, RemotePolicy, serve_policy
 from ray_tpu_torch.rllib.postprocessing import compute_gae
-from ray_tpu_torch.rllib.ppo import make_ppo_loss
+from ray_tpu_torch.rllib.ppo import PPO, PPOConfig, make_ppo_loss
 from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
 from ray_tpu_torch.rllib.rl_module import Columns, DefaultActorCriticModule, RLModule
 from ray_tpu_torch.rllib.rollout_worker import RolloutWorker
-from ray_tpu_torch.rllib.sac import SACPolicy
+from ray_tpu_torch.rllib.sac import SAC, SACConfig, SACPolicy
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
+from ray_tpu_torch.rllib.worker_set import WorkerSet
 
 __all__ = [
+    "Algorithm",
+    "AlgorithmConfig",
     "connectors",
-    "Columns",
     "RLModule",
     "DefaultActorCriticModule",
+    "Columns",
+    "PPO",
+    "PPOConfig",
+    "A2C",
+    "A2CConfig",
+    "Impala",
+    "ImpalaConfig",
+    "compute_vtrace",
+    "DQN",
+    "DQNConfig",
+    "DQNPolicy",
+    "SAC",
+    "SACConfig",
+    "SACPolicy",
+    "ReplayBuffer",
     "TorchPolicy",
     "bind_loss",
-    "DQNPolicy",
-    "SACPolicy",
     "make_ppo_loss",
     "make_a2c_loss",
     "make_impala_loss",
     "make_dqn_loss",
-    "compute_vtrace",
-    "compute_gae",
-    "train_one_step",
     "RolloutWorker",
-    "ReplayBuffer",
+    "WorkerSet",
     "SampleBatch",
+    "compute_gae",
+    "synchronous_parallel_sample",
+    "train_one_step",
     "SyntheticAtariEnv",
     "synthetic_atari_creator",
+    "PolicyServer",
+    "RemotePolicy",
+    "serve_policy",
 ]

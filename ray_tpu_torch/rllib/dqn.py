@@ -5,8 +5,9 @@ Counterpart of ``ray_tpu/rllib/dqn.py``'s ``make_dqn_loss`` and
 ``DQNPolicy``.  The Q-network is the actor-critic's logits head.  The
 exploration draws come from a numpy ``default_rng(seed)`` in the JAX
 package's order, so for the same Q-values and seed both policies act
-alike.  ``DQNConfig`` and ``DQN`` need ``Algorithm`` and are not ported
-yet.
+alike.  ``DQNConfig`` and ``DQN`` (the reference's ``dqn.py``
+training step: sample, store to replay, TD updates from replay, a
+periodic target sync) drive it; offline input waits for ``offline.py``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig, synchronous_parallel_sample
 from ray_tpu_torch.rllib.policy import TorchPolicy
+from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
 from ray_tpu_torch.rllib.rl_module import Columns
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
 from ray_tpu_torch.util.tree import tree_map
@@ -99,3 +102,66 @@ class DQNPolicy(TorchPolicy):
     def update_target(self) -> None:
         with torch.no_grad():
             tree_map(lambda t, s: t.copy_(s), self.target_params, self.params)
+
+
+class DQNConfig(AlgorithmConfig):
+    def __init__(self):
+        super().__init__(algo_class=DQN)
+        self._config.update(
+            _loss_factory=_dqn_loss_factory,
+            _policy_class=DQNPolicy,
+            _policy_kwargs_factory=_dqn_policy_kwargs,
+            _store_next_obs=True,
+            lr=5e-4,
+            gamma=0.99,
+            train_batch_size=32,
+            replay_buffer_capacity=50_000,
+            learning_starts=1000,
+            target_network_update_freq=500,
+            epsilon_timesteps=10_000,
+            final_epsilon=0.02,
+            timesteps_per_iteration=1000,
+            updates_per_iteration=250,
+            grad_clip=10.0,
+        )
+
+
+class DQN(Algorithm):
+    def setup(self, config: Dict[str, Any]) -> None:
+        super().setup(config)
+        self.replay = ReplayBuffer(self.config["replay_buffer_capacity"],
+                                   seed=self.config.get("seed") or 0)
+        self._since_target_sync = 0
+
+    def training_step(self) -> Dict[str, Any]:
+        cfg = self.config
+        self.workers.sync_weights()
+        self.workers.sync_global_vars(self._timesteps_total)
+        batch = synchronous_parallel_sample(self.workers,
+                                            max_env_steps=cfg["timesteps_per_iteration"])
+        self._timesteps_total += batch.count
+        self.replay.add_batch(batch)
+
+        policy: DQNPolicy = self.workers.local_worker.policy
+        learner_metrics: Dict[str, Any] = {}
+        if len(self.replay) >= cfg["learning_starts"]:
+            for _ in range(cfg["updates_per_iteration"]):
+                mb = self.replay.sample(cfg["train_batch_size"])
+                mb[SampleBatch.VALUE_TARGETS] = policy.compute_td_targets(mb, cfg["gamma"])
+                learner_metrics = policy.learn_on_minibatch({
+                    SampleBatch.OBS: mb[SampleBatch.OBS],
+                    SampleBatch.ACTIONS: mb[SampleBatch.ACTIONS],
+                    SampleBatch.VALUE_TARGETS: mb[SampleBatch.VALUE_TARGETS],
+                })
+                self._since_target_sync += 1
+                if self._since_target_sync >= cfg["target_network_update_freq"]:
+                    policy.update_target()
+                    self._since_target_sync = 0
+        # sync_global_vars pins every acting policy to this same schedule
+        frac = min(1.0, self._timesteps_total / max(1, cfg["epsilon_timesteps"]))
+        learner_metrics["epsilon"] = 1.0 + frac * (cfg["final_epsilon"] - 1.0)
+        learner_metrics["replay_size"] = len(self.replay)
+        return {"info": {"learner": learner_metrics}}
+
+
+DQN._default_config = DQNConfig().to_dict()

@@ -1,17 +1,24 @@
-"""PPO's clipped-surrogate loss.
+"""PPO: clipped-surrogate policy optimization.
 
-Counterpart of ``ray_tpu/rllib/ppo.py``'s ``make_ppo_loss`` and
-``_ppo_loss_factory``.  ``PPOConfig`` and ``PPO`` need ``Algorithm`` and
-the runtime's worker set, which the port does not have yet; a local
-learner is ``RolloutWorker`` + ``algorithm.train_one_step``.
+Counterpart of ``ray_tpu/rllib/ppo.py`` (the reference's ``ppo.py:311``
+``PPO.training_step``: synchronous sampling, then minibatch SGD on the
+clipped objective, then the weight broadcast): ``make_ppo_loss``,
+``PPOConfig`` and ``PPO``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
+from ray_tpu_torch.rllib.algorithm import (
+    Algorithm,
+    AlgorithmConfig,
+    synchronous_parallel_sample,
+    train_one_step,
+)
 from ray_tpu_torch.rllib.policy import gather_logp
 from ray_tpu_torch.rllib.rl_module import Columns
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
@@ -69,3 +76,33 @@ def _ppo_loss_factory(config: Dict[str, Any]):
     the loss at policy construction)."""
     return make_ppo_loss(config["clip_param"], config["vf_clip_param"],
                          config["vf_loss_coeff"], config["entropy_coeff"])
+
+
+class PPOConfig(AlgorithmConfig):
+    def __init__(self):
+        super().__init__(algo_class=PPO)
+        self._config.update(_loss_factory=_ppo_loss_factory, **PPO_DEFAULTS)
+
+
+class PPO(Algorithm):
+    def setup(self, config: Dict[str, Any]) -> None:
+        super().setup(config)
+        # the local worker's policy was built with the loss: it is the learner
+        self._sgd_rng = np.random.default_rng(self.config.get("seed", 0))
+
+    def training_step(self) -> Dict[str, Any]:
+        """Synchronous parallel sampling to ``train_batch_size``, then the
+        clipped objective's minibatch SGD, then the weight broadcast."""
+        cfg = self.config
+        self.workers.sync_weights()
+        batch = synchronous_parallel_sample(self.workers, max_env_steps=cfg["train_batch_size"])
+        self._timesteps_total += batch.count
+        learner_metrics = train_one_step(
+            self.workers.local_worker.policy, batch, num_sgd_iter=cfg["num_sgd_iter"],
+            sgd_minibatch_size=cfg["sgd_minibatch_size"], rng=self._sgd_rng,
+            required_keys=PPO_KEYS)
+        return {"info": {"learner": learner_metrics}}
+
+
+# set after the class exists (PPOConfig's __init__ names PPO)
+PPO._default_config = PPOConfig().to_dict()

@@ -1,23 +1,26 @@
-"""RolloutWorker: env stepping + trajectory postprocessing, on one host.
+"""RolloutWorker: env stepping + trajectory postprocessing.
 
-Counterpart of ``ray_tpu/rllib/rollout_worker.py``'s local worker: it owns
+Counterpart of ``ray_tpu/rllib/rollout_worker.py``: it owns
 ``num_envs`` env instances stepped in lockstep (one batched
 ``compute_actions`` per tick), collects fixed-size sample fragments,
 postprocesses each episode segment at its boundary (GAE for on-policy
 learners; raw transitions for replay-based ones) with the bootstrap
 values of a fragment in one batched ``value`` call, and exposes
-get/set_weights.  The observation path is an
+get/set_weights.  It runs inline (the local worker) or as an actor of the
+port's runtime (``num_rollout_workers > 0``).  The observation path is an
 :class:`AgentConnectorPipeline` and the action path an
 :class:`ActionConnectorPipeline` (``rllib/connectors/``); each raw
 observation is transformed exactly once (cached per env as ``prepped``),
 so stateful connectors see the true episode stream.
 
-Left out, each raising where a config asks for it: frame-stack transport
-(``_frame_stack_transport``, which needs the PolicyServer), offline
-``output`` (``offline.py``) and ``apply`` (a remote worker's hook).  The
-rollout ``events`` span waits for the port's copy of the events plane;
-the times it would carry (env, inference, connector and postprocess
-seconds of the last fragment) are kept in ``last_sample_phases``.
+With a ``PolicyServer`` (``policy_server.py``) and
+``_frame_stack_transport`` the worker ships only each env's newest frame
+a tick, and the sample batch carries ``(worker, tick, env)`` references
+to the server's stacks in place of pixels.  Each fragment emits a
+``rollout sample`` span (env, inference, connector and postprocess
+seconds) on the port's events plane, and keeps the same times in
+``last_sample_phases``.  Offline ``output`` (``offline.py``) is left out
+and raises where a config asks for it.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from ray_tpu_torch._device import DeviceLike
+from ray_tpu_torch._private import events
 from ray_tpu_torch.rllib.connectors import (
     ActionConnectorPipeline,
     AgentConnectorPipeline,
@@ -46,11 +50,6 @@ from ray_tpu_torch.rllib.sample_batch import SampleBatch
 # stateful connectors never mix it with training envs (0..num_envs-1)
 EVAL_ENV_ID = -1
 
-_NOT_PORTED = {
-    "_frame_stack_transport": "frame-stack transport needs the PolicyServer",
-    "output": "offline output needs rllib/offline.py",
-}
-
 
 def _default_env_creator(env_name: str):
     import gymnasium as gym
@@ -66,7 +65,7 @@ class _EnvState:
 
     def __init__(self, env, obs, keys, eps_id):
         self.env = env
-        self.obs = obs
+        self.obs = obs  # raw (the frame-stack transport reads raw frames)
         self.prepped = None  # connector-transformed, one transform per obs
         self.cols: Dict[str, List] = {k: [] for k in keys}
         self.episode_reward = 0.0
@@ -80,15 +79,15 @@ class RolloutWorker:
     ``rollout_fragment_length``, ``seed``, ``lr``, ``fcnet_hiddens``,
     ``grad_clip``, ``gamma``, ``lambda_``, ``_loss_factory``,
     ``_policy_class``, ``_policy_kwargs[_factory]``, ``_rl_module_factory``,
-    connector specs) with the port's factories and classes in it.  The
-    policy lives on ``device`` (the card when None; raises when there is
-    none)."""
+    ``_frame_stack_transport``, connector specs) with the port's factories
+    and classes in it.  The policy lives on ``device`` (the card when
+    None; raises when there is none); a ``RemotePolicy`` ignores it."""
 
     def __init__(self, config: Dict[str, Any], worker_index: int = 0, *,
                  device: DeviceLike = None):
-        for key, why in _NOT_PORTED.items():
-            if config.get(key):
-                raise NotImplementedError(f"RolloutWorker: {key!r} is not ported ({why})")
+        if config.get("output"):
+            raise NotImplementedError("RolloutWorker: 'output' is not ported "
+                                      "(offline output needs rllib/offline.py)")
         self.config = config
         self.worker_index = worker_index
         env_creator: Optional[Callable] = config.get("env_creator")
@@ -167,6 +166,22 @@ class RolloutWorker:
             config.get("_postprocess_gae", not self._store_next_obs))
         self._keep_behavior_logp = self._postprocess_gae or bool(
             config.get("_keep_behavior_logp"))
+        # frame-stack transport: ship each env's newest frame instead of the
+        # full stack; the pixels for training stay on the server's device.
+        # It needs a remote policy with the stacked tick and channel-stacked
+        # uint8 observations
+        self._fst = bool(config.get("_frame_stack_transport")) and hasattr(
+            self.policy, "compute_actions_stacked")
+        if self._fst:
+            # reference rows replace pixels in the obs column, so every
+            # reader of obs as pixels is excluded: replay learners
+            # (next_obs) and V-trace's logp recompute
+            if self._store_next_obs or not self._postprocess_gae:
+                raise ValueError(
+                    "frame_stack_transport supports on-policy GAE learners (PPO/A2C): "
+                    "the obs column holds device-snapshot references, not pixels")
+            self.policy.start_rollout(worker_index, self.num_envs)
+            self._reset_mask = np.ones((self.num_envs,), bool)
         self.gamma = config.get("gamma", 0.99)
         self.lambda_ = config.get("lambda_", 0.95)
         self.fragment_length = config.get("rollout_fragment_length", 200)
@@ -220,7 +235,23 @@ class RolloutWorker:
         # each env's current obs on fresh episode state
         for i, es in enumerate(self._envs):
             self.agent_connectors.reset(i)
-            es.prepped = self.agent_connectors(es.obs, env_id=i, training=False)
+            es.prepped = (None if self._fst
+                          else self.agent_connectors(es.obs, env_id=i, training=False))
+        return True
+
+    # -- distributed filter sync (statistics only; episode state untouched)
+    def pop_connector_stat_deltas(self):
+        return self.agent_connectors.pop_stat_deltas()
+
+    def apply_connector_stat_deltas(self, deltas) -> bool:
+        self.agent_connectors.apply_stat_deltas(deltas)
+        return True
+
+    def get_connector_stat_states(self):
+        return self.agent_connectors.get_stat_states()
+
+    def set_connector_stat_states(self, states) -> bool:
+        self.agent_connectors.set_stat_states(states)
         return True
 
     # ------------------------------------------------------------------
@@ -264,8 +295,19 @@ class RolloutWorker:
 
         for _ in range(self.fragment_length):
             t0 = time.perf_counter()
-            obs_batch = np.stack([es.prepped for es in self._envs])
-            actions, logps, vfs = self.policy.compute_actions(obs_batch)
+            if self._fst:
+                # the newest channel only (uint8 [n, H, W]); the server holds
+                # and advances the whole stacks on its device
+                new_frames = np.stack([np.asarray(es.obs)[..., -1] for es in self._envs])
+                actions, logps, vfs, tick = self.policy.compute_actions_stacked(
+                    self.worker_index, new_frames, self._reset_mask)
+                self._reset_mask[:] = False
+                # [N, 3] (worker, tick, env) references stand in for pixels
+                obs_batch = np.stack([np.array([self.worker_index, tick, i], np.int32)
+                                      for i in range(self.num_envs)])
+            else:
+                obs_batch = np.stack([es.prepped for es in self._envs])
+                actions, logps, vfs = self.policy.compute_actions(obs_batch)
             phase["infer_s"] += time.perf_counter() - t0
             for i, es in enumerate(self._envs):
                 a = actions[i]
@@ -283,7 +325,7 @@ class RolloutWorker:
                 # step's obs is discarded by the reset, so it is not
                 # transformed unless the learner reads NEXT_OBS
                 next_prepped = None
-                if not terminated or self._store_next_obs:
+                if not self._fst and (not terminated or self._store_next_obs):
                     next_prepped = transform(next_obs, i)
                 if self._store_next_obs:
                     es.cols[SampleBatch.NEXT_OBS].append(next_prepped)
@@ -300,7 +342,8 @@ class RolloutWorker:
                     if terminated:
                         close_terminal(es)
                     else:
-                        defer_bootstrap(es, next_prepped)
+                        defer_bootstrap(es, next_prepped if next_prepped is not None
+                                        else transform(next_obs, i))
                     self._episode_rewards.append(es.episode_reward)
                     self._episode_lengths.append(es.episode_len)
                     self._episodes_total += 1
@@ -310,10 +353,13 @@ class RolloutWorker:
                     es.obs, _ = es.env.reset()
                     # episode boundary: frame stacks et al. start fresh
                     self.agent_connectors.reset(i)
-                    es.prepped = transform(es.obs, i)
-        # fragment ended mid-episode: bootstrap with v(current obs)
-        for es in self._envs:
-            defer_bootstrap(es, es.prepped)
+                    es.prepped = None if self._fst else transform(es.obs, i)
+                    if self._fst:
+                        self._reset_mask[i] = True
+        # fragment ended mid-episode: bootstrap with v(current obs), already
+        # transformed except on the frame-stack transport, where obs stay raw
+        for i, es in enumerate(self._envs):
+            defer_bootstrap(es, es.prepped if es.prepped is not None else transform(es.obs, i))
         if deferred:
             if self._postprocess_gae:
                 t0 = time.perf_counter()
@@ -327,7 +373,11 @@ class RolloutWorker:
             else:
                 segments.extend(SampleBatch(c) for c, _ in deferred)
         batch = SampleBatch.concat_samples(segments)
-        self.last_sample_phases = {**phase, "wall_s": time.perf_counter() - t_wall}
+        wall = time.perf_counter() - t_wall
+        self.last_sample_phases = {**phase, "wall_s": wall}
+        events.emit("rllib", "rollout sample", entity_id=f"rollout-{self.worker_index}",
+                    span_dur=wall, env_steps=batch.count,
+                    **{k: round(v, 6) for k, v in phase.items()})
         return batch
 
     # ------------------------------------------------------------------
@@ -386,5 +436,7 @@ class RolloutWorker:
         return True
 
     def apply(self, fn_blob: bytes):
-        raise NotImplementedError("RolloutWorker.apply runs a function on a remote worker; "
-                                  "the port has no runtime yet")
+        """Run a pickled ``fn(worker)`` (the reference's foreach_worker hook)."""
+        import cloudpickle
+
+        return cloudpickle.loads(fn_blob)(self)

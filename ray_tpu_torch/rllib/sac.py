@@ -9,8 +9,8 @@ and one Adam step over all params (optax's single chain), then the Polyak
 update from the updated critics.  The gradient stops where the JAX
 package's ``stop_gradient`` stands: the TD target, the critics inside the
 actor's loss, the temperature inside the actor's loss and the entropy
-inside the temperature's.  ``SACConfig`` and ``SAC`` need ``Algorithm``
-and are not ported yet.
+inside the temperature's.  ``SACConfig`` and ``SAC`` (the reference's
+``sac.py``: sample, store to replay, updates from replay) drive it.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig, synchronous_parallel_sample
 from ray_tpu_torch.rllib.models import (
     apply_gaussian_actor,
     apply_q_network,
@@ -38,6 +39,7 @@ from ray_tpu_torch.rllib.policy import (
     to_device,
     to_numpy,
 )
+from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
 from ray_tpu_torch.util.tree import tree_map
 
@@ -173,3 +175,57 @@ class SACPolicy:
             copy_into(self.target_q, state["target_q"])
         if state.get("opt_state") is not None:
             load_adam_state(self.optimizer, self.params, state["opt_state"])
+
+
+def _sac_policy_kwargs(config: Dict[str, Any]) -> Dict[str, Any]:
+    return {"gamma": config["gamma"], "tau": config["tau"]}
+
+
+class SACConfig(AlgorithmConfig):
+    def __init__(self):
+        super().__init__(algo_class=SAC)
+        self._config.update(
+            _policy_class=SACPolicy,
+            _policy_kwargs_factory=_sac_policy_kwargs,
+            _store_next_obs=True,
+            lr=3e-4,
+            gamma=0.99,
+            tau=0.005,
+            train_batch_size=256,
+            replay_buffer_capacity=100_000,
+            learning_starts=500,
+            timesteps_per_iteration=500,
+            updates_per_iteration=250,
+            grad_clip=None,
+            rollout_fragment_length=100,
+        )
+
+
+class SAC(Algorithm):
+    def setup(self, config: Dict[str, Any]) -> None:
+        super().setup(config)
+        self.replay = ReplayBuffer(self.config["replay_buffer_capacity"],
+                                   seed=self.config.get("seed") or 0)
+
+    def training_step(self) -> Dict[str, Any]:
+        cfg = self.config
+        self.workers.sync_weights()
+        batch = synchronous_parallel_sample(self.workers,
+                                            max_env_steps=cfg["timesteps_per_iteration"])
+        self._timesteps_total += batch.count
+        self.replay.add_batch(batch)
+
+        policy: SACPolicy = self.workers.local_worker.policy
+        learner_metrics: Dict[str, Any] = {}
+        if len(self.replay) >= cfg["learning_starts"]:
+            for _ in range(cfg["updates_per_iteration"]):
+                mb = self.replay.sample(cfg["train_batch_size"])
+                learner_metrics = policy.learn_on_minibatch({
+                    k: mb[k] for k in (SampleBatch.OBS, SampleBatch.ACTIONS,
+                                       SampleBatch.REWARDS, SampleBatch.TERMINATEDS,
+                                       SampleBatch.NEXT_OBS)})
+        learner_metrics["replay_size"] = len(self.replay)
+        return {"info": {"learner": learner_metrics}}
+
+
+SAC._default_config = SACConfig().to_dict()

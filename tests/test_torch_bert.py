@@ -21,7 +21,7 @@ from ray_tpu.models import transformer as jtransformer
 from ray_tpu_torch.convert import from_jax_params
 from ray_tpu_torch.models import bert as tbert
 from ray_tpu_torch.models import transformer as ttransformer
-from ray_tpu_torch.models.transformer import layer, named_leaves
+from ray_tpu_torch.models.transformer import layers, named_leaves
 
 TOL = 1e-5
 
@@ -67,7 +67,7 @@ def test_post_ln_block_matches_jax():
     x = np.random.default_rng(1).standard_normal((2, 9, tcfg.d_model)).astype(np.float32)
     jblock = jax.tree.map(lambda a: a[1], jp["blocks"])
     want, jaux = jtransformer.apply_block(jnp.asarray(x), jblock, jcfg)
-    got, aux = ttransformer.apply_block(torch.from_numpy(x), layer(tp["blocks"], 1), tcfg)
+    got, aux = ttransformer.apply_block(torch.from_numpy(x), layers(tp["blocks"])[1], tcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
     assert aux.item() == float(jaux) == 0.0
 

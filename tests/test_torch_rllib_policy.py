@@ -279,10 +279,18 @@ def test_rollout_worker_fragment_shape(env):
 
 
 def test_rollout_worker_raises_on_what_is_not_ported():
+    """Offline output is not ported and raises.  The frame-stack
+    transport and ``apply`` are: the transport needs a policy with the
+    stacked tick (a ``RemotePolicy``), so a local policy samples as
+    usual, as in the JAX package; ``apply`` runs a pickled function on
+    the worker."""
+    import cloudpickle
+
     base = {"env_creator": synthetic_atari_creator, "env_config": {"episode_len": 4},
             "fcnet_hiddens": (8,)}
-    for key in ("_frame_stack_transport", "output"):
-        with pytest.raises(NotImplementedError, match=key):
-            RolloutWorker(dict(base, **{key: True}), device="cpu")
-    with pytest.raises(NotImplementedError, match="remote"):
-        RolloutWorker(base, device="cpu").apply(b"")
+    with pytest.raises(NotImplementedError, match="output"):
+        RolloutWorker(dict(base, output=True), device="cpu")
+    w = RolloutWorker(dict(base, _frame_stack_transport=True, rollout_fragment_length=2),
+                      device="cpu")
+    assert w.sample()[SampleBatch.OBS].dtype == np.uint8
+    assert w.apply(cloudpickle.dumps(lambda worker: worker.worker_index + 7)) == 7

@@ -8,7 +8,8 @@ JAX sharded losses are computed here, on the same mesh shapes over 4 of
 conftest's 8 virtual devices, while the world runs.  The cases: GPT-2
 tiny over tp2 x sp2 and fsdp2 x dp2, the Switch-MoE GPT-2 over pp2 x ep2
 with capacity factor 1.0 (and a router skewed by its init, so tokens are
-dropped) and 2 microbatches, and Llama tiny with GQA over tp2 x sp2.  The
+dropped) and 2 microbatches, and over dp2 x ep2 and sp2 x ep2, where each
+rank routes only its own tokens, and Llama tiny with GQA over tp2 x sp2.  The
 token embedding's init is scaled up so that the gradient norm exceeds the
 clip's 1.0, and the clip's global norm is put to the test.
 
@@ -22,6 +23,7 @@ turns the reduction-order noise between two correct steps into updates
 up to the learning rate apart.
 """
 
+import math
 import threading
 
 import jax
@@ -162,3 +164,34 @@ def test_each_ep_rank_runs_its_own_experts(runs):
         assert len(seen) == 3
     for case in ("gpt2_tp2_sp2", "gpt2_fsdp2_dp2", "llama_tp2_sp2"):
         assert runs[0][0][case]["experts"] == []
+
+
+MOE_CASES = sorted(c for c in CASES if "_moe_" in c)
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_each_rank_routes_only_its_own_tokens(runs, case):
+    """Every router call on every rank saw only the rank's own tokens: the
+    microbatch's ``B * T`` over the axes that split the tokens (dp, fsdp,
+    sp); the ep ranks hold the same tokens and each ran its 2 experts."""
+    _, kw, sizes = cases.TRAIN_CASES[case]
+    _, cfg = _jax_config(case)
+    split = math.prod(sizes.get(a, 1) for a in ("dp", "fsdp", "sp"))
+    want = cases.TRAIN_B // (kw.get("pp_microbatches") or 1) * cfg.max_seq_len // split
+    for r in range(W):
+        res = runs[0][r][case]
+        assert res["routed"] and all(n == want for n in res["routed"]), (want, res["routed"])
+        assert all(s == (2, 2, 2) for s in res["experts"]), res["experts"]
+
+
+def test_world_of_one_matches_the_unsharded_step():
+    """On a world of one every axis is a unit axis: the DTensors live on a
+    mesh of ``pp`` alone, with the stacked leaves' layer axis ``Shard(0)``
+    over it, which the stack unbinds per layer on the local tensor (the
+    card's ``train_gpt2_sharded``).  The loss and gradients equal the
+    unsharded step's."""
+    res = run_world(cases.one_rank_train, 1, (_jax_params("gpt2_tp2_sp2"),), device="cpu",
+                    deadline=120)[0]
+    assert res["layer_placements"] == ["S(0)"]
+    assert res["sharded"]["loss"] == res["unsharded"]["loss"]
+    _close_to_largest(res["sharded"]["grads"], res["unsharded"]["grads"], "grad")

@@ -242,3 +242,66 @@ def test_flops_match_jax_and_peak_is_the_cards():
     for kind in ("TPU v5 lite", "cpu", ""):
         with pytest.raises(KeyError):
             tflops.peak_flops(kind)
+
+
+class _CountFullLayerOps(TorchDispatchMode):
+    """Counts, by op name, the ops whose output is a whole stacked
+    ``[L, ...]`` f32 tensor (one of ``shapes``)."""
+
+    def __init__(self, shapes):
+        super().__init__()
+        self.shapes = shapes
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if (isinstance(t, torch.Tensor) and t.dtype == torch.float32
+                    and tuple(t.shape) in self.shapes):
+                name = func.overloadpacket.__name__
+                self.counts[name] = self.counts.get(name, 0) + 1
+        return out
+
+
+def _select_per_layer(blocks):
+    """The stack's former way to each layer's params: ``v[l]`` per layer."""
+    n = next(iter(blocks.values())).shape[0]
+    return [{k: v[l] for k, v in blocks.items()} for l in range(n)]
+
+
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+@pytest.mark.parametrize("remat", ["off", "dots", "full"])
+def test_stacked_leaves_get_their_gradients_without_full_size_adds(family, remat, monkeypatch):
+    """One train step over 4 layers: with one unbind per stacked leaf no op
+    writes a whole ``[L, ...]`` gradient per layer (no ``select_backward``)
+    and none adds such gradients up (no ``add``); indexing each layer, as
+    the step did before, does both.  The loss, every gradient and every
+    updated param are bit-equal either way."""
+    from ray_tpu_torch.models import transformer
+
+    kw = dict(n_layers=4, remat=remat != "off")
+    if remat != "off":
+        kw["remat_policy"] = remat
+    _, _, tmod, tcfg = _configs(family, **kw)
+    toks = torch.from_numpy(_tokens(tcfg.vocab_size, seed=5)).long()
+    runs = {}
+    for way in ("unbind", "select"):
+        if way == "select":
+            monkeypatch.setattr(transformer, "layers", _select_per_layer)
+            monkeypatch.setattr(tllama, "layers", _select_per_layer)
+        opt = tgpt2.make_optimizer(**OPT)
+        state = tmod.init_state(tcfg, torch.Generator().manual_seed(0), opt, device="cpu")
+        shapes = {tuple(t.shape) for n, t in named_leaves(state["params"])
+                  if n.startswith("blocks/")}
+        with _CountFullLayerOps(shapes) as counter:
+            state, metrics = tmod.make_train_step(tcfg, opt)(state, {"tokens": toks})
+        runs[way] = (counter.counts, metrics["loss"],
+                     {n: (t.grad, t.detach()) for n, t in named_leaves(state["params"])})
+    counts = runs["unbind"][0]
+    assert counts.get("select_backward", 0) == 0 and counts.get("add", 0) == 0, counts
+    old = runs["select"][0]
+    assert old["select_backward"] > 0 and old["add"] > 0, old
+    assert torch.equal(runs["unbind"][1], runs["select"][1])
+    for name, (grad, param) in runs["unbind"][2].items():
+        assert torch.equal(grad, runs["select"][2][name][0]), name
+        assert torch.equal(param, runs["select"][2][name][1]), name

@@ -234,6 +234,8 @@ TRAIN_CASES = {
     "gpt2_fsdp2_dp2": ("gpt2", {}, dict(dp=2, fsdp=2)),
     "gpt2_moe_pp2_ep2": ("gpt2", dict(n_experts=4, capacity_factor=1.0, pp_microbatches=2),
                          dict(pp=2, ep=2)),
+    "gpt2_moe_dp2_ep2": ("gpt2", dict(n_experts=4, capacity_factor=1.0), dict(dp=2, ep=2)),
+    "gpt2_moe_sp2_ep2": ("gpt2", dict(n_experts=4, capacity_factor=1.0), dict(sp=2, ep=2)),
     "llama_tp2_sp2": ("llama", {}, dict(tp=2, sp=2)),
 }
 TRAIN_B = 8
@@ -271,7 +273,8 @@ def sharded_train(np_params):
     microbatches, which is the pipeline's math), and the unsharded
     optimizer applied to the sharded step's gradients.  Rank 0 returns
     losses, clipped gradients and updated params; every rank returns the
-    expert counts its MoE layers ran."""
+    expert counts its MoE layers ran and the tokens each of its routers
+    saw."""
     import torch
     import torch.distributed as dist
 
@@ -282,14 +285,18 @@ def sharded_train(np_params):
     from ray_tpu_torch.parallel import MeshSpec, create_mesh, shard_params
     from ray_tpu_torch.parallel.sharding import rules_for_mesh
 
-    seen = []
-    experts = moe._experts
+    seen, routed = [], []
+    experts, router = moe._experts, moe._router
 
     def spy(expert_in, w1, b1, w2, b2):
         seen.append((expert_in.shape[0], w1.shape[0], w2.shape[0]))
         return experts(expert_in, w1, b1, w2, b2)
 
-    moe._experts = spy
+    def spy_router(xf, router_w):
+        routed.append(xf.shape[0])
+        return router(xf, router_w)
+
+    moe._experts, moe._router = spy, spy_router
     out = {}
     for case, (_, _, sizes) in TRAIN_CASES.items():
         model, cfg = port_config(case)
@@ -301,8 +308,9 @@ def sharded_train(np_params):
         state = train_state(shard_params(fresh(), mesh, rules_for_mesh(mesh),
                                          model.logical_axes(cfg)), opt)
         seen.clear()
+        routed.clear()
         _, metrics = model.make_train_step(cfg, opt, mesh)(state, batch)
-        res = {"loss": float(metrics["loss"]), "experts": list(seen)}
+        res = {"loss": float(metrics["loss"]), "experts": list(seen), "routed": list(routed)}
         grads = _leaves(state["params"], lambda t: t.grad.full_tensor())
         params = _leaves(state["params"], lambda t: t.full_tensor().detach())
         if dist.get_rank() == 0:
@@ -328,7 +336,40 @@ def sharded_train(np_params):
                 params={n: p.numpy() for n, p in params.items()},
                 params_from_sharded_grads=_leaves(chk["params"], lambda t: t.detach().numpy()))
         out[case] = res
-    moe._experts = experts
+    moe._experts, moe._router = experts, router
+    return out
+
+
+def one_rank_train(np_params):
+    """GPT-2 tiny sharded on a world of one (every axis a unit axis, so
+    the DTensors live on a mesh of ``pp`` alone, the layer axis
+    ``Shard(0)`` over it) and unsharded, from the same params: both steps'
+    losses and gradients."""
+    import torch
+
+    from ray_tpu_torch.convert import from_jax_params
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.transformer import train_state
+    from ray_tpu_torch.parallel import MeshSpec, create_mesh, shard_params
+    from ray_tpu_torch.parallel.sharding import rules_for_mesh
+
+    cfg = gpt2.GPT2Config.tiny(dtype=torch.float32)
+    batch = {k: torch.from_numpy(v).long()
+             for k, v in train_batch(cfg.vocab_size, cfg.max_seq_len).items()}
+    out = {}
+    for name, mesh in (("sharded", create_mesh(MeshSpec(), device="cpu", keep_unit_axes=True)),
+                       ("unsharded", None)):
+        opt = gpt2.make_optimizer(lr=1e-3, warmup=0, total_steps=10)
+        params = from_jax_params(np_params, cfg, device="cpu")
+        if mesh is not None:
+            params = shard_params(params, mesh, rules_for_mesh(mesh), gpt2.logical_axes(cfg))
+        state = train_state(params, opt)
+        _, metrics = gpt2.make_train_step(cfg, opt, mesh)(state, batch)
+        full = (lambda t: t.full_tensor()) if mesh is not None else (lambda t: t)
+        out[name] = {"loss": float(metrics["loss"]),
+                     "grads": _leaves(state["params"], lambda t: full(t.grad).numpy())}
+        if mesh is not None:
+            out["layer_placements"] = [str(p) for p in state["params"]["blocks"]["wqkv"].placements]
     return out
 
 
