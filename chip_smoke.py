@@ -147,7 +147,35 @@ the backward kernels):
     ``TorchPredictor`` subclass that adds each batch's counter delta as a
     column, are 12 a batch, all on the tensor cores; each pool's card is
     free again after its last block.
-25. ``serve_bert_http`` (BASELINE config 5, ``bench.py``'s serve row):
+25. ``rl_ppo_atari_runtime`` (``bench.py``'s RL row): PPO with 4 remote
+    rollout workers and ``serve_policy`` holding the policy on the card
+    (see the phase's doc).
+26. ``tune_gpt2_trainer`` (this slice's main path): ``Tuner(TorchTrainer(
+    _gpt2_train_loop, ScalingConfig(num_workers=1, use_gpu=True,
+    resources_per_worker={"GPU": 0.5})), param_space={"lr":
+    grid_search([3e-4, 1e-4])}, TuneConfig(metric="loss", mode="min"))``:
+    two trials at once, each a Train worker on half the card, GPT-2 125M at
+    ``train_gpt2_trainer``'s recipe for 7 steps; the trial hosts hold half
+    a CPU each.  Gates: each trial's losses against an in-process
+    ``make_train_step`` at its learning rate (``TRAINER_LOSS_TOL``) and its
+    update against that run's (``TRAINER_UPDATE_TOL``); 24 / 12 / 12 flash
+    launches a step, all on the tensor cores; both Train workers alive at
+    once (the head's actor events); a storage directory for each trial;
+    ``get_best_result()`` names the lower last loss; the best checkpoint,
+    loaded here onto the card, gives its reported loss on the same batch.
+    Prints the fit's wall split into the trial hosts' start, the trainers'
+    start and the run loop, each trial's tokens/s beside
+    ``train_gpt2_trainer``'s and each worker's peak memory.
+27. ``rl_appo_atari_runtime``: APPO at ``rl_ppo_atari_runtime``'s sizes,
+    each remote worker's policy on a quarter of the card, the learner on
+    the card: env-steps/s beside PPO's, the learner's share of the wall,
+    the samples in flight as each step begins, the bytes of the weights
+    put a step; one update card against CPU at ``RL_TOL``; ``cleanup``
+    frees every share.
+28. ``rl_multiagent_offline``: ``MultiAgentPPO`` (two policies on the card)
+    and DQN trained offline from a PPO worker's ``output=`` files, each
+    against the same steps on a CPU learner at ``RL_TOL``.
+29. ``serve_bert_http`` (BASELINE config 5, ``bench.py``'s serve row):
     Serve on the same runtime (controller, asyncio proxy), BERT-base bf16
     from ``serve_bert``'s checkpoint in one ``num_gpus=1`` replica with
     ``@serve.batch(max_batch_size=16, batch_wait_timeout_s=0.005,
@@ -157,7 +185,7 @@ the backward kernels):
     mode, one batch's device work in the replica (profiler).  Gate: 16
     fixed sequences sent at once get the labels of an in-process
     ``TorchPredictor`` from the same checkpoint.
-26. ``serve_llm_deployment``: GPT-2 125M through ``llm_deployment`` (a
+30. ``serve_llm_deployment``: GPT-2 125M through ``llm_deployment`` (a
     ``num_gpus=1`` replica, the ``SERVE`` settings, seed 0).  Gate in f32
     first: GPT-2's width with two layers, 8 of ``serve_gpt2``'s prompts,
     greedy streams through the replica equal to an in-process engine's.
@@ -165,14 +193,14 @@ the backward kernels):
     them again as HTTP token streams; tokens/s beside ``serve_gpt2``'s,
     request p50/p99, the replica's TTFT and ITL, and the share of streams
     equal to ``serve_gpt2``'s (recorded, no gate).
-27. ``prefill_decode_graph``: GPT-2 125M bf16, prompt bucket 128, 32 new
+31. ``prefill_decode_graph``: GPT-2 125M bf16, prompt bucket 128, 32 new
     tokens, the two stages at ``num_gpus=0.5`` on card 0; 16 prompts one
     at a time, each request's wall split into prefill, channel hop and
     decode from the stages' ``compiled_dag`` spans, with the cache's
     bytes and whether the channel spilled it (its in-process cost beside
     it), then the 16 pipelined.  Gate: every stream equals the in-process
     ``prefill`` + greedy ``decode_chunk`` on the same weights.
-    In 25-27 each replica's or stage's own launch counts (read in its
+    In 29-31 each replica's or stage's own launch counts (read in its
     process through the compiled-graph control lane) are set to 0 just
     before the traffic and read just after.
 
@@ -180,7 +208,7 @@ Every bf16 launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 on the serving and training paths has to run the tensor-core design
 (their ``_tc`` launch counts equal their totals; the profiled steps find
 only the ``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
-summed over the serving, training, RL, Data, Serve and graph runs, and per run), the card's name
+summed over the serving, training, Tune, RL, Data, Serve and graph runs, and per run), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": {...}}``.  Exits non-zero,
 printing no result, when there is no CUDA device or any phase fails.
@@ -297,6 +325,24 @@ def device_ms(fn, calls: int = 10, warmup: int = 3, tries: int = 6, counts=None)
         return max(sessions)[1]
     raise RuntimeError(f"device_ms: the profiler recorded {[n for n, _ in sessions]} device "
                        f"events for {calls} calls in {tries} sessions")
+
+
+def profiled_events(fn, what: str, tries: int = 3) -> list:
+    """The device events (kernels and copies, user annotations excluded)
+    of one call of ``fn`` under torch.profiler, the call ending in a
+    synchronize.  On an H100 a session has come back with no device event
+    (``device_ms``), so a session without one runs ``fn`` again, up to
+    ``tries`` times; after that ``what`` fails."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        if dev:
+            return dev
+    check(False, f"{what}: the profiler saw no device time in {tries} sessions")
 
 
 def num_params(tree) -> int:
@@ -893,22 +939,21 @@ def phase_train_profile(state, step, batch, ms_per_step, phase="train_profile",
     start, end = ev(), ev()
     start.record()
     for _ in range(3):
-        state, m = step(state, batch)
+        state, _ = step(state, batch)
     end.record()
     end.synchronize()
     wall_ms = start.elapsed_time(end) / 3
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     start, end = ev(), ev()
-    with torch.profiler.profile(activities=acts) as prof:
+
+    profiled = {}
+
+    def profiled_step():
         start.record()
-        state, m = step(state, batch)
+        profiled["metrics"] = step(state, batch)[1]  # the state in place
         end.record()
-        torch.cuda.synchronize()
+
+    dev_events = profiled_events(profiled_step, phase)
     profiled_ms = start.elapsed_time(end)
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-    check(bool(dev_events), f"{phase}: the profiler saw no device time")
     by_name = {}
     for e in dev_events:
         n, us = by_name.get(e.name, (0, 0.0))
@@ -940,7 +985,7 @@ def phase_train_profile(state, step, batch, ms_per_step, phase="train_profile",
                   for k, (c, ms) in sorted(kinds.items(), key=lambda kv: -kv[1][1])],
          top_kernels=[{"name": n[:100], "count": c, "ms": us / 1e3, "share_of_step": us / 1e3 / wall_ms}
                       for n, (c, us) in top],
-         loss=m["loss"].item())
+         loss=profiled["metrics"]["loss"].item())
     return busy_ms
 
 
@@ -1195,13 +1240,7 @@ def serve_bert(root: str):
     check(logits.shape == (BERT_REQUESTS, cfg.num_classes) and bool(np.isfinite(logits).all()),
           f"serve_bert: logits of shape {logits.shape}, finite {np.isfinite(logits).all()}")
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        replica(batches[0])
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-    check(bool(dev_events), "serve_bert: the profiler saw no device time")
+    dev_events = profiled_events(lambda: replica(batches[0]), "serve_bert")
     busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
     by_name = {}
     for e in dev_events:
@@ -1463,13 +1502,7 @@ def profile_call(fn, reps: int = 20, top_n: int = 8) -> dict:
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    check(bool(dev), "profile_call: the profiler saw no device time")
+    dev = profiled_events(fn, "profile_call")
     copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     wall = pct(walls, 0.5)
@@ -1766,7 +1799,358 @@ def phase_rl_ppo_atari_runtime(rt, local_steps_per_s):
     finally:
         algo.cleanup()
         rt.kill(server)
+    return launches, steps / wall
+
+
+# rl_appo_atari_runtime: APPO at rl_ppo_atari_runtime's sizes, each remote
+# worker's policy on this share of the card, the learner on the card
+APPO_GPU_SHARE = 0.25
+
+
+def _policy_device(instance):
+    """Run in a rollout worker's process: its policy's device and its grant."""
+    return str(instance.policy.device), os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+def phase_rl_appo_atari_runtime(rt, ppo_steps_per_s):
+    """APPO (IMPALA's async sampling, PPO's clipped surrogate over V-trace)
+    at ``rl_ppo_atari_runtime``'s sizes: 4 remote workers of 64
+    ``SyntheticAtariEnv``s x fragments of 16, each on ``APPO_GPU_SHARE`` of
+    the card, ``batches_per_step=4`` (a PPO train batch of 4,096),
+    minibatches of 256 (APPO's one epoch), entropy 0.01, seed 0, the
+    learner on the card; 1 warm-up ``algo.train()`` and 3 timed.  Prints
+    env-steps/s beside ``rl_ppo_atari_runtime``'s, the learner's share of
+    the wall in ``train_one_step`` (its ``learner train`` spans), the
+    samples in flight and already landed as each step began, and the bytes
+    of the weights put once a step.  Gates: 4 samples in flight after every
+    step, finite loss terms, every worker's policy on its card share, no
+    flash launch, one update from a fixed 256-row batch on the card against
+    the same update on a CPU learner from the same state at ``RL_TOL``, and
+    after ``cleanup`` nothing in flight and the shares free again."""
+    from ray_tpu_torch.rllib import APPOConfig, SampleBatch, synthetic_atari_creator
+    from ray_tpu_torch.rllib import train_one_step
+    from ray_tpu_torch.rllib.appo import APPO_KEYS
+    from ray_tpu_torch.util.tree import tree_leaves
+
+    workers = RL_FRAGMENTS
+    batch_size = workers * RL_ENVS * RL_FRAGMENT
+    cfg = (APPOConfig()
+           .environment(env_creator=synthetic_atari_creator, env_config={"episode_len": 400})
+           .rollouts(num_rollout_workers=workers, num_envs_per_worker=RL_ENVS,
+                     rollout_fragment_length=RL_FRAGMENT)
+           .training(train_batch_size=batch_size, batches_per_step=workers,
+                     minibatch_size=RL_MINIBATCH, fcnet_hiddens=RL_HIDDENS, entropy_coeff=0.01)
+           .resources(num_cpus_per_worker=0.75, num_gpus_per_worker=APPO_GPU_SHARE)
+           .debugging(seed=0))
+    free_gpu = rt.available_resources().get("GPU", 0.0)
+    t0 = time.perf_counter()
+    algo = cfg.build()  # the learner on the card: the config's default
+    try:
+        procs = algo.workers.remote_workers
+        rt.get([w._submit_compiled_task(_tf32_off, (), name="tf32") for w in procs], timeout=120)
+        devices = rt.get([w._submit_compiled_task(_policy_device, (), name="device")
+                          for w in procs], timeout=60)
+        check(all(d == ("cuda", "0") for d in devices)
+              and abs(rt.available_resources().get("GPU", 0.0)
+                      - (free_gpu - workers * APPO_GPU_SHARE)) < 1e-9,
+              f"rl_appo_atari_runtime: workers' devices {devices}, "
+              f"{rt.available_resources().get('GPU')} GPU free")
+        setup_s = time.perf_counter() - t0
+        warm = algo.train()
+        check(len(algo._inflight) == workers, f"rl_appo_atari_runtime: {len(algo._inflight)} "
+              "samples in flight after the warm-up step")
+        actor_launches(rt, procs, reset=True)
+        build.reset_launches()
+        # the seconds of each step's training_step and V-trace batch (the
+        # rest of an iteration is Algorithm.step's metrics call, which
+        # waits for the re-armed samples)
+        spent = {"training_step": [], "vtrace": []}
+
+        def timed(name, fn):
+            def call(*args):
+                t = time.perf_counter()
+                out = fn(*args)
+                spent[name].append(time.perf_counter() - t)
+                return out
+            return call
+
+        algo.training_step = timed("training_step", algo.training_step)
+        algo._vtrace_batch = timed("vtrace", algo._vtrace_batch)
+        w0, steps0 = time.time(), algo._timesteps_total
+        t_start = time.perf_counter()
+        iters = []
+        for _ in range(RL_ITERS):
+            refs = list(algo._inflight)
+            landed, _ = rt.wait(refs, num_returns=len(refs), timeout=0)
+            t1 = time.perf_counter()
+            r = algo.train()
+            iters.append({"wall_s": time.perf_counter() - t1,
+                          "env_steps": r["timesteps_total"] - (iters[-1]["total"] if iters
+                                                               else steps0),
+                          "total": r["timesteps_total"], "in_flight_at_start": len(refs),
+                          "landed_at_start": len(landed), "in_flight_after": len(algo._inflight),
+                          "loss_terms": r["info"]["learner"]})
+            check(len(algo._inflight) == workers,
+                  f"rl_appo_atari_runtime: {len(algo._inflight)} samples in flight after a step")
+        wall = time.perf_counter() - t_start
+        w1 = time.time()
+        step_s, vtrace_s = sum(spent["training_step"]), sum(spent["vtrace"])
+        launches = dict(build.launches)
+        for k, n in actor_launches(rt, procs).items():
+            launches[k] = launches.get(k, 0) + n
+        steps = algo._timesteps_total - steps0
+        check(warm["timesteps_total"] == batch_size
+              and all(r["env_steps"] == batch_size for r in iters),
+              f"rl_appo_atari_runtime: env steps {warm['timesteps_total']}, {iters}")
+        check(all(np.isfinite(v) for r in iters for v in r["loss_terms"].values())
+              and set(iters[0]["loss_terms"]) == {"total_loss", "policy_loss", "vf_loss",
+                                                   "entropy", "kl"},
+              f"rl_appo_atari_runtime: loss terms {[r['loss_terms'] for r in iters]}")
+        check(not any(launches.values()), f"rl_appo_atari_runtime: kernel launches {launches}")
+        learner = [e for e in _rllib_spans(None, w0, w1) if e["message"] == "learner train"]
+        samples = [e for part in rt.get([w._submit_compiled_task(_rllib_spans, (w0, w1),
+                                                                 name="spans")
+                                         for w in procs], timeout=60)
+                   for e in part if e["message"] == "rollout sample"]
+        check(len(learner) == RL_ITERS and len(spent["training_step"]) == RL_ITERS,
+              f"rl_appo_atari_runtime: {len(learner)} learner spans, {spent}")
+        weights_bytes = sum(a.nbytes for a in tree_leaves(algo.workers.local_worker.get_weights()))
+        # parity: one update from a fixed 256-row batch (the local worker's
+        # fragment), on the card and on a CPU learner from the same state
+        policy = algo.get_policy()
+        fixed = algo.workers.local_worker.sample()
+        fixed = SampleBatch({k: v[:RL_MINIBATCH] for k, v in fixed.items()})
+        cpu = (APPOConfig().environment(env_creator=synthetic_atari_creator,
+                                        env_config={"episode_len": 400})
+               .training(minibatch_size=RL_MINIBATCH, fcnet_hiddens=RL_HIDDENS,
+                         entropy_coeff=0.01)
+               .resources(device="cpu").debugging(seed=0).build())
+        cpu.get_policy().set_state(policy.get_state())
+        kw = dict(num_sgd_iter=1, sgd_minibatch_size=RL_MINIBATCH, required_keys=APPO_KEYS)
+        got = train_one_step(policy, algo._vtrace_batch(fixed), rng=np.random.default_rng(0),
+                             **kw)
+        want = train_one_step(cpu.get_policy(), cpu._vtrace_batch(fixed),
+                              rng=np.random.default_rng(0), **kw)
+        loss_err = max(abs(got[k] - want[k]) for k in want)
+        weights_err = _tree_err(policy.get_weights(), cpu.get_policy().get_weights())
+        cpu.cleanup()
+        check(set(got) == set(want) and loss_err <= RL_TOL["loss"]
+              and weights_err <= RL_TOL["weights"],
+              f"rl_appo_atari_runtime: one update card vs CPU: loss {loss_err}, "
+              f"weights {weights_err}")
+    finally:
+        algo.cleanup()
+    deadline = time.monotonic() + 30
+    while abs(rt.available_resources().get("GPU", 0.0) - free_gpu) > 1e-9:
+        check(time.monotonic() < deadline, "rl_appo_atari_runtime: the workers' card shares "
+              f"are not free after cleanup: {rt.available_resources()}")
+        time.sleep(0.1)
+    check(not algo._inflight, "rl_appo_atari_runtime: samples in flight after cleanup")
+    learn_s = sum(e["span_dur"] for e in learner)
+    emit("rl_appo_atari_runtime",
+         model=f"APPO, nature-cnn actor-critic {RL_OBS} uint8, hiddens {RL_HIDDENS}, "
+               f"{RL_ACTIONS} actions, f32, TF32 off",
+         path=f"APPOConfig -> APPO, {workers} remote RolloutWorkers x {RL_ENVS} envs x "
+              f"{RL_FRAGMENT} at num_gpus_per_worker={APPO_GPU_SHARE}, batches_per_step="
+              f"{workers}, the learner on the card",
+         train_batch=batch_size, minibatch=RL_MINIBATCH, sgd_iters=1,
+         warmup_iters=RL_WARMUP, timed_iters=RL_ITERS, setup_s=setup_s,
+         env_steps_per_s=steps / wall, ppo_runtime_env_steps_per_s=ppo_steps_per_s,
+         ratio_to_ppo_runtime=steps / wall / ppo_steps_per_s, wall_s=wall,
+         learner_train_s=learn_s, learner_share_of_wall=learn_s / wall,
+         s_per_iter={"training_step": step_s / RL_ITERS, "vtrace": vtrace_s / RL_ITERS,
+                     "train_one_step": learn_s / RL_ITERS,
+                     "gather": (step_s - vtrace_s - learn_s) / RL_ITERS,
+                     "metrics_wait": (wall - step_s) / RL_ITERS},
+         worker_sample_s_mean=sum(e["span_dur"] for e in samples) / len(samples),
+         worker_samples=len(samples),
+         iters=[{k: v for k, v in r.items() if k != "loss_terms"} for r in iters],
+         mean_loss_terms={k: float(np.mean([r["loss_terms"][k] for r in iters]))
+                          for k in iters[0]["loss_terms"]},
+         weights_put_bytes_per_step=weights_bytes, weights_put_readers=workers,
+         worker_devices=devices, update_vs_cpu={"loss_max_abs_err": loss_err,
+                                                "weights_max_abs_err": weights_err,
+                                                "tol": RL_TOL, "card": got, "cpu": want},
+         shares_free_after_cleanup=True, launches=launches)
     return launches
+
+
+class _CartPole:
+    """CartPole-v1's dynamics, limits and 500-step truncation in numpy
+    (gymnasium's equations; the card's machine has no gymnasium), with
+    the observation and action spaces a worker reads."""
+
+    def __init__(self, config=None):
+        from ray_tpu_torch.rllib.envs import _Box, _Discrete
+
+        self.observation_space, self.action_space = _Box((4,), np.float32), _Discrete(2)
+        self._rng = np.random.default_rng(0)
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._s, self._t = self._rng.uniform(-0.05, 0.05, 4), 0
+        return self._s.astype(np.float32), {}
+
+    def step(self, action):
+        x, x_dot, th, th_dot = self._s
+        force = 10.0 if int(action) == 1 else -10.0
+        cos, sin = np.cos(th), np.sin(th)
+        temp = (force + 0.05 * th_dot ** 2 * sin) / 1.1
+        th_acc = (9.8 * sin - cos * temp) / (0.5 * (4.0 / 3.0 - 0.1 * cos ** 2 / 1.1))
+        x_acc = temp - 0.05 * th_acc * cos / 1.1
+        self._s = np.array([x + 0.02 * x_dot, x_dot + 0.02 * x_acc,
+                            th + 0.02 * th_dot, th_dot + 0.02 * th_acc])
+        self._t += 1
+        term = bool(abs(self._s[0]) > 2.4 or abs(self._s[2]) > 12 * 2 * np.pi / 360)
+        return self._s.astype(np.float32), 1.0, term, self._t >= 500, {}
+
+
+def _dual_cartpole(config):
+    """Two ``_CartPole``s in one ``MultiAgentEnv``; the episode ends when
+    both are done."""
+    from ray_tpu_torch.rllib import MultiAgentEnv
+
+    class DualCartPole(MultiAgentEnv):
+        agents = ["cart_0", "cart_1"]
+
+        def __init__(self):
+            self._envs = {a: _CartPole() for a in self.agents}
+            self._done = dict.fromkeys(self.agents, False)
+
+        def observation_space(self, agent_id):
+            return self._envs[agent_id].observation_space
+
+        def action_space(self, agent_id):
+            return self._envs[agent_id].action_space
+
+        def reset(self, *, seed=None, options=None):
+            self._done = dict.fromkeys(self.agents, False)
+            return {a: env.reset(seed=None if seed is None else seed + i)[0]
+                    for i, (a, env) in enumerate(self._envs.items())}, {}
+
+        def step(self, actions):
+            obs, rew, terms, truncs = {}, {}, {}, {}
+            for a, act in actions.items():
+                o, rew[a], terms[a], truncs[a], _ = self._envs[a].step(act)
+                self._done[a] = terms[a] or truncs[a]
+                if not self._done[a]:
+                    obs[a] = o
+            terms["__all__"], truncs["__all__"] = all(self._done.values()), False
+            return obs, rew, terms, truncs, {}
+
+    return DualCartPole()
+
+
+def phase_rl_multiagent_offline():
+    """A short card check of multi-agent PPO and offline IO, f32 with TF32
+    off, no runtime.  ``MultiAgentPPO`` on a two-agent CartPole, a policy
+    for each agent on the card, 2 training steps; a CPU learner from the
+    same weights is fed the same ``MultiAgentBatch``es: each step's
+    per-policy learner metrics and weights agree at ``RL_TOL``.  A PPO
+    ``RolloutWorker`` on the card (keeping ``next_obs``, which DQN's TD
+    targets read) writes 2 fragments with ``output=``; ``DQN`` with
+    ``offline_data(input_=...)`` takes one step on the card from those
+    files and one on the CPU from the same weights: learner metrics and
+    weights at ``RL_TOL``.  Returns the launch counts of both (none
+    expected)."""
+    import tempfile
+
+    from ray_tpu_torch.rllib import (DQNConfig, JsonReader, MultiAgentPPOConfig,
+                                     RolloutWorker, ppo)
+
+    t0 = time.perf_counter()
+    build.reset_launches()
+
+    def ma_config():
+        return (MultiAgentPPOConfig().environment(env_creator=_dual_cartpole)
+                .rollouts(rollout_fragment_length=100)
+                .training(train_batch_size=400, sgd_minibatch_size=128, num_sgd_iter=2,
+                          entropy_coeff=0.01)
+                .multi_agent(policies=["p0", "p1"], policy_mapping_fn=_agent_policy)
+                .debugging(seed=0))
+
+    card, cpu = ma_config().build(), ma_config().resources(device="cpu").build()
+    cpols, hpols = card.workers.local_worker.policies, cpu.workers.local_worker.policies
+    check(all(p.device.type == "cuda" for p in cpols.values()),
+          "rl_multiagent_offline: a policy is not on the card")
+    for pid, p in cpols.items():
+        hpols[pid].set_state(p.get_state())
+    drawn, sample = [], card.workers.synchronous_parallel_sample
+
+    def record():
+        drawn.append(sample())
+        return drawn[-1]
+
+    card.workers.synchronous_parallel_sample = record
+    cpu.workers.synchronous_parallel_sample = lambda: drawn.pop(0)
+    ma_err = {"loss": 0.0, "weights": 0.0}
+    counts = []
+    for _ in range(2):
+        got = card.training_step()["info"]["learner"]
+        want = cpu.training_step()["info"]["learner"]
+        check(set(got) == set(want) == {"p0", "p1"} and not drawn
+              and card._timesteps_total == cpu._timesteps_total,
+              f"rl_multiagent_offline: learner {set(got)} / {set(want)}")
+        counts.append(card._timesteps_total)
+        for pid in want:
+            ma_err["loss"] = max(ma_err["loss"], *(abs(got[pid][k] - want[pid][k])
+                                                   for k in want[pid]))
+            ma_err["weights"] = max(ma_err["weights"], _tree_err(cpols[pid].get_weights(),
+                                                                 hpols[pid].get_weights()))
+    card.cleanup()
+    cpu.cleanup()
+    check(ma_err["loss"] <= RL_TOL["loss"] and ma_err["weights"] <= RL_TOL["weights"],
+          f"rl_multiagent_offline: multi-agent card vs CPU {ma_err}")
+
+    with tempfile.TemporaryDirectory() as out:
+        worker = RolloutWorker(dict(ppo.PPO_DEFAULTS, env_creator=_CartPole, output=out,
+                                    rollout_fragment_length=200, _store_next_obs=True,
+                                    _postprocess_gae=True, seed=0,
+                                    _loss_factory=ppo._ppo_loss_factory))
+        check(worker.policy.device.type == "cuda", "rl_multiagent_offline: PPO worker device")
+        written = sum(worker.sample().count for _ in range(2))
+        files = sorted(os.listdir(out))
+        check(files == ["output-worker_0-0.json"] and JsonReader(out).read_all().count == written,
+              f"rl_multiagent_offline: offline files {files}")
+
+        def dqn(device=None):
+            return (DQNConfig().environment(env_creator=_CartPole).offline_data(input_=out)
+                    .training(timesteps_per_iteration=written, learning_starts=100,
+                              updates_per_iteration=8, train_batch_size=64)
+                    .resources(device=device).debugging(seed=0).build())
+
+        dcard, dcpu = dqn(), dqn("cpu")
+        dcpu.get_policy().set_state(dcard.get_policy().get_state())
+        dcpu.get_policy().update_target()
+        dcard.get_policy().update_target()
+        got = dcard.training_step()["info"]["learner"]
+        want = dcpu.training_step()["info"]["learner"]
+        dqn_err = {"loss": max(abs(got[k] - want[k]) for k in want),
+                   "weights": _tree_err(dcard.get_policy().get_weights(),
+                                        dcpu.get_policy().get_weights())}
+        dcard.cleanup()
+        dcpu.cleanup()
+    check(set(got) == set(want) and "total_loss" in got and dqn_err["loss"] <= RL_TOL["loss"]
+          and dqn_err["weights"] <= RL_TOL["weights"],
+          f"rl_multiagent_offline: offline DQN card vs CPU {dqn_err}, {got} / {want}")
+    launches = dict(build.launches)
+    check(not any(launches.values()), f"rl_multiagent_offline: kernel launches {launches}")
+    emit("rl_multiagent_offline",
+         multi_agent="MultiAgentPPO, two-agent CartPole (numpy), policies p0 and p1 on the "
+                     "card, 2 training steps of at least 400 agent steps, minibatches of 128 x "
+                     "2 epochs",
+         multi_agent_agent_steps=counts, multi_agent_vs_cpu=ma_err,
+         offline=f"PPO RolloutWorker on the card, output= 2 fragments of 200 ({written} "
+                 "transitions, next_obs kept); DQN offline_data(input_=...), one step of 8 "
+                 "updates of 64 rows",
+         offline_dqn_vs_cpu=dqn_err, offline_dqn_card=got, tol=RL_TOL,
+         wall_s=time.perf_counter() - t0, launches=launches)
+    return launches
+
+
+def _agent_policy(agent_id):
+    return f"p{agent_id[-1]}"
 
 
 def phase_train_gpt2_sharded():
@@ -2097,13 +2481,19 @@ def _gpt2_train_loop(config):
     gang's ``torch`` group (NCCL), AdamW; every step reports its loss, its
     StepProfiler phases, the live MFU and the flash launches it made.  The
     last report holds the update of all its steps against the in-process
-    one saved at ``config["reference_update"]``.  With ``config["dataset"]``
+    one saved at ``config["reference_update"]`` (a dict by learning rate
+    under Tune, whose trials set ``config["lr"]``; 3e-4 when unset).  With
+    ``config["checkpoint"]`` it also holds the loss of the final params on
+    the step's batch as ``loss`` (Tune's metric), with those params as its
+    checkpoint, the trial's name and the wall-clock times the loop and its
+    first step began; ``config["device_work"]`` False skips the profiled
+    steps after the last report's update.  With ``config["dataset"]``
     each step's batch is the next ``[B, T + 1]`` id rows of the worker's
     shard (``session.get_dataset_shard("train")``), inputs and targets the
     rows less their last and first id, billed to the ``ingest`` (the wait
     for the rows) and ``h2d`` (the copy to the card) phases; each report
     then holds the step's wait for its rows."""
-    from ray_tpu_torch.air import session
+    from ray_tpu_torch.air import Checkpoint, session
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.models.transformer import named_leaves
     from ray_tpu_torch.ops import _build
@@ -2112,13 +2502,15 @@ def _gpt2_train_loop(config):
     from ray_tpu_torch.util import collective
     from ray_tpu_torch.util.tree import tree_map
 
+    loop_began = time.time()
     dev = torch_utils.get_device()
     group = os.environ["RAY_TRAIN_COLLECTIVE_GROUP"]
     check(collective.get_group_backend(group) == "torch"
           and torch.distributed.get_backend() == "nccl",
           f"train_gpt2_trainer: group {collective.get_group_backend(group)}")
     cfg = gpt2.GPT2Config.gpt2_small()
-    opt = gpt2.make_optimizer(lr=3e-4)
+    lr = config.get("lr", 3e-4)
+    opt = gpt2.make_optimizer(lr=lr)
     state = gpt2.init_state(cfg, torch.Generator().manual_seed(0), opt, device=dev)
     init = {k: p.detach().clone() for k, p in named_leaves(state["params"])}
     b, t = config["batch"], cfg.max_seq_len
@@ -2160,6 +2552,7 @@ def _gpt2_train_loop(config):
 
     torch.cuda.reset_peak_memory_stats(dev)
     history = []
+    first_step_began = time.time()
     for i in range(config["warmup"] + config["steps"]):
         _build.reset_launches()
         wait = None
@@ -2176,11 +2569,23 @@ def _gpt2_train_loop(config):
                         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
                         "device": str(dev), "batch_wait_s": wait})
         session.report(history[-1])
-    update = _update_error(state["params"], init, config["reference_update"])
+    reference = config["reference_update"]
+    update = _update_error(state["params"], init,
+                           reference[lr] if isinstance(reference, dict) else reference)
     del init
-    device_work = _step_device_work(lambda: train_step(forward_backward))
-    session.report({"final": True, "summary": prof.summary(), "history": history,
-                    "n_params": n_params, "device_work": device_work, "update": update})
+    last = {"final": True, "summary": prof.summary(), "history": history,
+            "n_params": n_params, "update": update}
+    checkpoint = None
+    if config.get("checkpoint"):
+        with torch.no_grad():
+            last["loss"] = gpt2.loss_fn(state["params"], batch, cfg).item()
+        # the card's tensors: the checkpoint keeps host copies
+        checkpoint = Checkpoint.from_dict({"params": state["params"]})
+        last.update(trial=session.get_trial_name(), loop_began=loop_began,
+                    first_step_began=first_step_began)
+    if config.get("device_work", True):
+        last["device_work"] = _step_device_work(lambda: train_step(forward_backward))
+    session.report(last, checkpoint=checkpoint)
 
 
 def _update_error(params, init, path):
@@ -2215,13 +2620,7 @@ def _step_device_work(step, reps=3):
     end.record()
     end.synchronize()
     wall_ms = start.elapsed_time(end) / reps
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        step()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    check(bool(kernels), "train_gpt2_trainer: the profiler saw no device time in the worker")
+    kernels = profiled_events(step, "train_gpt2_trainer (in the worker)")
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     nccl = [e for e in kernels if "nccl" in e.name.lower()]
     return {"step_device_wall_ms": wall_ms, "device_busy_ms": busy, "kernels": len(kernels),
@@ -2229,17 +2628,17 @@ def _step_device_work(step, reps=3):
             "nccl_ms": sum(e.time_range.elapsed_us() for e in nccl) / 1e3}
 
 
-def _gpt2_reference(n, update_path, rows=None):
-    """``n`` steps of the in-process step (make_train_step) from the same
-    seed and batch (or, given ``rows``, over its ``[B, T + 1]`` id rows in
-    turn, as ``_gpt2_train_loop`` reads a dataset): their losses; each
-    leaf's update over them (the params less their init) is saved to
+def _gpt2_reference(n, update_path, rows=None, lr=3e-4):
+    """``n`` steps of the in-process step (make_train_step at ``lr``) from
+    the same seed and batch (or, given ``rows``, over its ``[B, T + 1]`` id
+    rows in turn, as ``_gpt2_train_loop`` reads a dataset): their losses;
+    each leaf's update over them (the params less their init) is saved to
     ``update_path`` on the host."""
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.models.transformer import named_leaves
 
     cfg = gpt2.GPT2Config.gpt2_small()
-    opt = gpt2.make_optimizer(lr=3e-4)
+    opt = gpt2.make_optimizer(lr=lr)
     state = gpt2.init_state(cfg, torch.Generator().manual_seed(0), opt, device="cuda")
     init = {k: p.detach().clone() for k, p in named_leaves(state["params"])}
     step = gpt2.make_train_step(cfg, opt)
@@ -2361,6 +2760,152 @@ def phase_train_gpt2_dataset(rt, in_process_row, trainer_row):
                                              np.int32)
     return phase_train_gpt2_trainer(rt, in_process_row, "train_gpt2_dataset", rows,
                                     trainer_row)[0]
+
+
+# tune_gpt2_trainer: a grid of two learning rates, each trial a TorchTrainer
+# worker on half the card; the trial hosts hold half a CPU each, so the two
+# hosts and the two Train workers (1 CPU each) take 3 of the runtime's 4
+TUNE_LRS = (3e-4, 1e-4)
+TUNE_TRIAL_RESOURCES = {"CPU": 0.5}
+
+
+def _actor_lives(w0):
+    """The head's actor events since ``w0`` (wall-clock): for each actor, its
+    class and the times of its first ``PENDING_CREATION``, ``ALIVE`` and
+    ``DEAD`` events (the head runs in this process)."""
+    from ray_tpu_torch._private import events
+
+    lives = {}
+    for r in events.buffer().snapshot():
+        if r.get("source") != "actor" or r["ts"] < w0:
+            continue
+        cls, _, state = r["message"].partition(" -> ")
+        life = lives.setdefault(r["entity_id"], {"class": cls})
+        life.setdefault(state.split(" ")[0], r["ts"])
+    return lives
+
+
+def phase_tune_gpt2_trainer(rt, trainer_row):
+    """This slice's main path: ``Tuner(TorchTrainer(_gpt2_train_loop, ...))``
+    over ``lr`` in ``TUNE_LRS``, two trials at once, each a Train worker on
+    half the card (see the module doc).  Returns the flash launches of both
+    trials' workers over all their steps."""
+    import tempfile
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import TorchTrainer
+    from ray_tpu_torch.util.tree import tree_map
+
+    cfg = gpt2.GPT2Config.gpt2_small()
+    n_steps = TRAINER_WARMUP + TRAINER_STEPS
+    with tempfile.TemporaryDirectory() as storage:
+        paths = {lr: os.path.join(storage, f"reference_update_{i}.pt")
+                 for i, lr in enumerate(TUNE_LRS)}
+        want_losses = {lr: _gpt2_reference(n_steps, paths[lr], lr=lr) for lr in TUNE_LRS}
+        trainer = TorchTrainer(
+            _gpt2_train_loop,
+            train_loop_config={"batch": TRAIN_BATCH, "warmup": TRAINER_WARMUP,
+                               "steps": TRAINER_STEPS, "reference_update": paths,
+                               "checkpoint": True, "device_work": False},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                         resources_per_worker={"GPU": 0.5}),
+            run_config=RunConfig(name="gpt2", storage_path=storage))
+        tuner = tune.Tuner(trainer, param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+                           tune_config=tune.TuneConfig(
+                               metric="loss", mode="min", max_concurrent_trials=len(TUNE_LRS),
+                               resources_per_trial=TUNE_TRIAL_RESOURCES),
+                           run_config=RunConfig(name="tune_gpt2", storage_path=storage))
+        w0, t0 = time.time(), time.perf_counter()
+        grid = tuner.fit()
+        fit_s = time.perf_counter() - t0
+        check(not grid.errors and len(grid) == len(TUNE_LRS), f"tune_gpt2_trainer: {grid.errors}")
+        trials = {grid[i].metrics["config"]["lr"]: grid[i] for i in range(len(grid))}
+        check(sorted(trials) == sorted(TUNE_LRS), f"tune_gpt2_trainer: trials {sorted(trials)}")
+        names = {lr: r.metrics["trial"] for lr, r in trials.items()}
+        check(len(set(names.values())) == len(TUNE_LRS)
+              and all(os.path.isdir(os.path.join(storage, n)) for n in names.values()),
+              f"tune_gpt2_trainer: trial storage {names}")
+        best = grid.get_best_result()
+        last = {lr: r.metrics["loss"] for lr, r in trials.items()}
+        check(best.metrics["config"]["lr"] == min(last, key=last.get),
+              f"tune_gpt2_trainer: best {best.metrics['config']} of last losses {last}")
+        params = tree_map(lambda x: x.cuda(), best.checkpoint.to_dict()["params"])
+        with torch.no_grad():
+            ckpt_loss = gpt2.loss_fn(params, _train_batch(cfg.vocab_size, TRAIN_BATCH,
+                                                          cfg.max_seq_len), cfg).item()
+        del params
+        torch.cuda.empty_cache()
+        check(abs(ckpt_loss - best.metrics["loss"]) <= TRAINER_LOSS_TOL,
+              f"tune_gpt2_trainer: the best checkpoint's loss {ckpt_loss} against the "
+              f"reported {best.metrics['loss']}")
+
+    lives = _actor_lives(w0)
+    workers = [v for v in lives.values() if v["class"] == "TrainWorker"]
+    hosts = [v for v in lives.values() if v["class"] == "_TrialHost"]
+    check(len(workers) == len(hosts) == len(TUNE_LRS)
+          and all({"PENDING_CREATION", "ALIVE"} <= set(v) for v in workers + hosts)
+          and all("DEAD" in v for v in workers)
+          and max(v["ALIVE"] for v in workers) < min(v["DEAD"] for v in workers),
+          f"tune_gpt2_trainer: the Train workers were not alive at once: {lives}")
+    n_layers = cfg.n_layers
+    want = {attn.KERNEL: 2 * n_layers, attn.DQ_KERNEL: n_layers, attn.DKV_KERNEL: n_layers}
+    tokens = TRAIN_BATCH * cfg.max_seq_len
+    launches, rows = {}, {}
+    for lr, r in trials.items():
+        m = r.metrics
+        steps = m["history"]
+        losses = [s["loss"] for s in steps]
+        diff = max(abs(a - b) for a, b in zip(losses, want_losses[lr]))
+        check(len(steps) == n_steps and all(np.isfinite(losses)) and diff <= TRAINER_LOSS_TOL,
+              f"tune_gpt2_trainer: lr {lr}: losses {losses} against the in-process "
+              f"{want_losses[lr]}")
+        check(m["update"]["max_rel_err"] <= TRAINER_UPDATE_TOL,
+              f"tune_gpt2_trainer: lr {lr}: update {m['update']}")
+        for s in steps:
+            got = {k: s["launches"][k] for k in want}
+            check(got == want, f"tune_gpt2_trainer: lr {lr} step {s['step']} launched {got}")
+            check(all(s["launches"][c] == s["launches"][k]
+                      for k, c in attn.TENSOR_CORE_COUNTER.items()),
+                  f"tune_gpt2_trainer: not every flash launch ran on the tensor cores: "
+                  f"{s['launches']}")
+            for k, n in s["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        steps_s = sum(s["wall_s"] for s in steps)
+        tok_s = sorted(tokens / s["wall_s"] for s in steps[TRAINER_WARMUP:])
+        rows[lr] = {
+            "trial": m["trial"], "device": steps[0]["device"], "losses": losses,
+            "in_process_losses": want_losses[lr], "max_loss_diff": diff,
+            "update_vs_in_process": m["update"], "last_loss": m["loss"],
+            "tokens_per_s_median": tok_s[len(tok_s) // 2], "tokens_per_s_best": tok_s[-1],
+            "worker_peak_mem_bytes": steps[-1]["peak_mem_bytes"],
+            "steps_s": steps_s, "loop_began_s": m["loop_began"] - w0,
+            "first_step_began_s": m["first_step_began"] - w0}
+    # the fit's wall less the longer trial's steps (the trials run at once):
+    # until both hosts are up, then until both trials' first steps, then the
+    # rest (the slower trial's end, its reports, checkpoints, saves and stops)
+    hosts_up = max(v["ALIVE"] for v in hosts) - w0
+    first_steps = max(r["first_step_began_s"] for r in rows.values())
+    longest = max(r["steps_s"] for r in rows.values())
+    overhead = {"trial_hosts_start": hosts_up, "trainers_start": first_steps - hosts_up,
+                "run_loop": fit_s - first_steps - longest, "total": fit_s - longest}
+    spawn = {c: [v["ALIVE"] - v["PENDING_CREATION"] for v in lives.values() if v["class"] == c]
+             for c in ("_TrialHost", "TrainWorker")}
+    emit("tune_gpt2_trainer",
+         model=f"gpt2 125M bf16 (f32 master weights), remat dots, B {TRAIN_BATCH} x T 1024",
+         path=f"Tuner(TorchTrainer(num_workers=1, use_gpu=True, resources_per_worker="
+              f"{{'GPU': 0.5}})), lr grid {list(TUNE_LRS)}, max_concurrent_trials "
+              f"{len(TUNE_LRS)}, resources_per_trial {TUNE_TRIAL_RESOURCES}",
+         fit_s=fit_s, wall_s_less_longest_trial_steps=overhead,
+         head_spawn_to_ready_s=spawn, trials=rows, best_lr=best.metrics["config"]["lr"],
+         best_checkpoint_loss=ckpt_loss, loss_tolerance=TRAINER_LOSS_TOL,
+         summed_step_s=sum(r["steps_s"] for r in rows.values()),
+         train_gpt2_trainer_tokens_per_s_median=trainer_row["tokens_per_s_median"],
+         both_trials_tokens_per_s_median=sum(r["tokens_per_s_median"] for r in rows.values()),
+         workers_alive_together=True,
+         flash_launches_per_step={k: v / (len(TUNE_LRS) * n_steps) for k, v in launches.items()})
+    return launches
 
 
 # data_ingest (bench.py's streaming_ingest row): 512 MiB of f64 from
@@ -3111,7 +3656,11 @@ def main() -> int:
             phase_data_ingest(rt)
             dataset_launches = phase_train_gpt2_dataset(rt, gpt2_row, trainer_row)
             predict_launches = phase_batch_predict_bert(rt, served_bert)
-            rl_runtime_launches = phase_rl_ppo_atari_runtime(rt, rl_local_steps_per_s)
+            rl_runtime_launches, ppo_runtime_steps_per_s = phase_rl_ppo_atari_runtime(
+                rt, rl_local_steps_per_s)
+            tune_launches = phase_tune_gpt2_trainer(rt, trainer_row)
+            appo_launches = phase_rl_appo_atari_runtime(rt, ppo_runtime_steps_per_s)
+            multiagent_offline_launches = phase_rl_multiagent_offline()
             from ray_tpu_torch import serve as rt_serve
 
             try:
@@ -3133,11 +3682,14 @@ def main() -> int:
             "serve_bert_http": bert_http_launches, "serve_llm_deployment": llm_launches,
             "prefill_decode_graph": graph_launches,
             "rl_parity": rl_parity_launches,
-            "rl_ppo_atari": rl_launches, "rl_ppo_atari_runtime": rl_runtime_launches}
+            "rl_ppo_atari": rl_launches, "rl_ppo_atari_runtime": rl_runtime_launches,
+            "tune_gpt2_trainer": tune_launches, "rl_appo_atari_runtime": appo_launches,
+            "rl_multiagent_offline": multiagent_offline_launches}
     for r in (fwd, *bwd.values()):
         kern = r["name"]
         r["launches_by_path"] = {path: n.get(kern, 0) for path, n in runs.items()
-                                 if kern == attn.KERNEL or path.startswith(("train", "rl_"))}
+                                 if kern == attn.KERNEL
+                                 or path.startswith(("train", "tune", "rl_"))}
         r["launches"] = sum(r["launches_by_path"].values())
         # equal to launches: train() and serve() checked it
         tc = attn.TENSOR_CORE_COUNTER[kern]

@@ -1,6 +1,8 @@
 """The port's AIR layer: ``Checkpoint`` (``air/checkpoint.py``), the run
 and scaling configs (``air/config.py``; ``ScalingConfig(use_gpu=True)``
-by default), ``session.report`` (``air/session.py``) and ``Result``."""
+by default), ``session.report`` (``air/session.py``), ``Result``, and
+the storage registry Tune syncs experiments through
+(``air/remote_storage.py``)."""
 
 from ray_tpu_torch.air.checkpoint import Checkpoint
 from ray_tpu_torch.air.config import (
@@ -10,7 +12,7 @@ from ray_tpu_torch.air.config import (
     ScalingConfig,
 )
 from ray_tpu_torch.air.result import Result
-from ray_tpu_torch.air import session
+from ray_tpu_torch.air import remote_storage, session
 
 __all__ = [
     "Checkpoint",
@@ -20,4 +22,5 @@ __all__ = [
     "CheckpointConfig",
     "Result",
     "session",
+    "remote_storage",
 ]

@@ -10,6 +10,12 @@ the port's runtime (``ray_tpu_torch.put`` / ``get``).  The JAX package's
 orbax pair ``save_jax``/``load_jax`` becomes :meth:`Checkpoint.save_torch`
 / :meth:`Checkpoint.load_torch`: ``torch.save`` of the whole tree as one
 file in the directory.
+
+A dict checkpoint keeps its tensors on the host: ``from_dict`` copies each
+tensor that lies on a card to the CPU, as a JAX array reaches the JAX
+package's checkpoints as host data.  So a checkpoint that a Train worker
+reports from its card unpickles in a process that holds no card (the
+process that runs the trainer's ``fit()``, a Tune trial host).
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ class Checkpoint:
     # -- constructors -------------------------------------------------
     @classmethod
     def from_dict(cls, data: Dict) -> "Checkpoint":
-        return cls(data=dict(data))
+        """A dict checkpoint; tensors on a card are copied to the host."""
+        return cls(data=_on_host(dict(data)))
 
     @classmethod
     def from_directory(cls, path: str) -> "Checkpoint":
@@ -133,6 +140,23 @@ class Checkpoint:
         kind = ("dict" if self._data is not None
                 else "dir" if self._local_path else "objref")
         return f"Checkpoint({kind})"
+
+
+def _on_host(data: Dict) -> Dict:
+    """``data`` with each tensor that lies on a device copied to the CPU;
+    ``data`` itself when none does."""
+    from ray_tpu_torch.util.tree import tree_map
+
+    moved = []
+
+    def host(x):
+        if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+            moved.append(x)
+            return x.detach().to("cpu")
+        return x
+
+    out = tree_map(host, data)
+    return out if moved else data
 
 
 def _uri_path(uri: str) -> str:

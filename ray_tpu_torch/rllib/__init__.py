@@ -4,12 +4,13 @@ runtime.
 Counterpart of ``ray_tpu/rllib/``: ``Algorithm``/``AlgorithmConfig`` as
 Trainables, remote ``RolloutWorker`` actors gathered in a ``WorkerSet``,
 ``SampleBatch`` columns, GAE postprocessing, and the algorithm families
-PPO, A2C, IMPALA (V-trace), DQN (replay and a target net) and SAC
-(continuous control), with vectorized envs and greedy evaluation.  The
+PPO, A2C, IMPALA (V-trace), APPO (IMPALA's async sampling with PPO's
+objective), DQN (replay and a target net) and SAC (continuous control),
+multi-agent PPO over ``MultiAgentEnv``s, with vectorized envs, greedy
+evaluation and offline JSON IO.  The
 ``PolicyServer`` holds a policy on a card for every rollout worker, with
 the frame-stack transport.  Env<->policy preprocessing is composable
 ``connectors`` pipelines, and models plug in through ``RLModule``.
-APPO, multi-agent and offline IO are not ported yet.
 """
 
 from ray_tpu_torch.rllib import connectors
@@ -20,9 +21,18 @@ from ray_tpu_torch.rllib.algorithm import (
     synchronous_parallel_sample,
     train_one_step,
 )
+from ray_tpu_torch.rllib.appo import APPO, APPOConfig
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig, DQNPolicy, make_dqn_loss
 from ray_tpu_torch.rllib.envs import SyntheticAtariEnv, synthetic_atari_creator
 from ray_tpu_torch.rllib.impala import Impala, ImpalaConfig, compute_vtrace, make_impala_loss
+from ray_tpu_torch.rllib.multi_agent import (
+    MultiAgentBatch,
+    MultiAgentEnv,
+    MultiAgentPPO,
+    MultiAgentPPOConfig,
+    MultiAgentRolloutWorker,
+)
+from ray_tpu_torch.rllib.offline import JsonReader, JsonWriter
 from ray_tpu_torch.rllib.policy import TorchPolicy, bind_loss
 from ray_tpu_torch.rllib.policy_server import PolicyServer, RemotePolicy, serve_policy
 from ray_tpu_torch.rllib.postprocessing import compute_gae
@@ -47,6 +57,8 @@ __all__ = [
     "A2CConfig",
     "Impala",
     "ImpalaConfig",
+    "APPO",
+    "APPOConfig",
     "compute_vtrace",
     "DQN",
     "DQNConfig",
@@ -55,6 +67,8 @@ __all__ = [
     "SACConfig",
     "SACPolicy",
     "ReplayBuffer",
+    "JsonReader",
+    "JsonWriter",
     "TorchPolicy",
     "bind_loss",
     "make_ppo_loss",
@@ -62,6 +76,11 @@ __all__ = [
     "make_impala_loss",
     "make_dqn_loss",
     "RolloutWorker",
+    "MultiAgentBatch",
+    "MultiAgentEnv",
+    "MultiAgentPPO",
+    "MultiAgentPPOConfig",
+    "MultiAgentRolloutWorker",
     "WorkerSet",
     "SampleBatch",
     "compute_gae",

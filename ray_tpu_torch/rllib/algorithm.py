@@ -10,8 +10,9 @@ Counterpart of ``ray_tpu/rllib/algorithm.py`` (the reference's
 The config names its devices, and nothing falls back: the learner's
 policy lives on ``resources(device=...)`` (the card when unset), and each
 remote rollout worker on a share of a card, ``num_gpus_per_worker``
-(default 0: the CPU).  Offline IO (``offline_data``) is not ported and
-raises.
+(default 0: the CPU).  Offline IO (``offline_data``): ``output`` makes
+every rollout worker write its fragments as JSON lines, and ``input_``
+feeds replay-based learners from such files (``offline.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ class AlgorithmConfig:
             "train_batch_size": 4000,
             "evaluation_interval": 0,  # 0 = never
             "evaluation_num_episodes": 5,
+            "input": None,
+            "output": None,
             "gamma": 0.99,
             "lr": 5e-4,
             "fcnet_hiddens": (64, 64),
@@ -144,9 +147,13 @@ class AlgorithmConfig:
 
     def offline_data(self, *, input_: Optional[str] = None,
                      output: Optional[str] = None) -> "AlgorithmConfig":
-        """Offline IO needs ``rllib/offline.py``, which is not ported."""
-        if input_ is not None or output is not None:
-            raise NotImplementedError("offline_data: rllib/offline.py is not ported")
+        """Offline IO (``rllib/offline``): ``output`` makes every rollout
+        worker write its fragments as JSON lines; ``input_`` trains
+        replay-based algorithms from recorded batches instead of an env."""
+        if input_ is not None:
+            self._config["input"] = input_
+        if output is not None:
+            self._config["output"] = output
         return self
 
     def debugging(self, *, seed: Optional[int] = None) -> "AlgorithmConfig":
@@ -184,7 +191,11 @@ class Algorithm(Trainable):
         self.workers = WorkerSet(merged)
         self._timesteps_total = 0
         self._iteration_count = 0
-        self.reader = None  # offline input, once offline.py is ported
+        self.reader = None
+        if merged.get("input"):
+            from ray_tpu_torch.rllib.offline import JsonReader
+
+            self.reader = JsonReader(merged["input"])
 
     def step(self) -> Dict[str, Any]:
         results = self.training_step()
@@ -211,6 +222,18 @@ class Algorithm(Trainable):
         """Greedy episodes on a fresh env (``Algorithm.evaluate``)."""
         return self.workers.local_worker.evaluate_episodes(
             int(self.config.get("evaluation_num_episodes", 5)))
+
+    def _read_offline(self, min_env_steps: int) -> SampleBatch:
+        """Recorded batches from ``config["input"]``, at least
+        ``min_env_steps`` transitions (the offline-training sampling seam)."""
+        parts, total = [], 0
+        while total < min_env_steps:
+            b = self.reader.next()
+            if b.count == 0:
+                continue
+            parts.append(b)
+            total += b.count
+        return SampleBatch.concat_samples(parts)
 
     def training_step(self) -> Dict[str, Any]:
         """Default: sample and do nothing (subclasses override)."""

@@ -7,7 +7,8 @@ exploration draws come from a numpy ``default_rng(seed)`` in the JAX
 package's order, so for the same Q-values and seed both policies act
 alike.  ``DQNConfig`` and ``DQN`` (the reference's ``dqn.py``
 training step: sample, store to replay, TD updates from replay, a
-periodic target sync) drive it; offline input waits for ``offline.py``.
+periodic target sync) drive it; with ``offline_data(input_=...)`` the
+recorded transitions feed the replay buffer in place of sampling.
 """
 
 from __future__ import annotations
@@ -135,10 +136,15 @@ class DQN(Algorithm):
 
     def training_step(self) -> Dict[str, Any]:
         cfg = self.config
-        self.workers.sync_weights()
-        self.workers.sync_global_vars(self._timesteps_total)
-        batch = synchronous_parallel_sample(self.workers,
-                                            max_env_steps=cfg["timesteps_per_iteration"])
+        if self.reader is not None:
+            # offline training: recorded transitions feed the replay buffer
+            # (rllib/offline input path); no env interaction at all
+            batch = self._read_offline(cfg["timesteps_per_iteration"])
+        else:
+            self.workers.sync_weights()
+            self.workers.sync_global_vars(self._timesteps_total)
+            batch = synchronous_parallel_sample(self.workers,
+                                                max_env_steps=cfg["timesteps_per_iteration"])
         self._timesteps_total += batch.count
         self.replay.add_batch(batch)
 

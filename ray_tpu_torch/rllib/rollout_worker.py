@@ -19,8 +19,8 @@ a tick, and the sample batch carries ``(worker, tick, env)`` references
 to the server's stacks in place of pixels.  Each fragment emits a
 ``rollout sample`` span (env, inference, connector and postprocess
 seconds) on the port's events plane, and keeps the same times in
-``last_sample_phases``.  Offline ``output`` (``offline.py``) is left out
-and raises where a config asks for it.
+``last_sample_phases``.  With ``output`` (``offline.py``) each fragment
+is also written as one JSON line.
 """
 
 from __future__ import annotations
@@ -85,9 +85,6 @@ class RolloutWorker:
 
     def __init__(self, config: Dict[str, Any], worker_index: int = 0, *,
                  device: DeviceLike = None):
-        if config.get("output"):
-            raise NotImplementedError("RolloutWorker: 'output' is not ported "
-                                      "(offline output needs rllib/offline.py)")
         self.config = config
         self.worker_index = worker_index
         env_creator: Optional[Callable] = config.get("env_creator")
@@ -174,12 +171,13 @@ class RolloutWorker:
             self.policy, "compute_actions_stacked")
         if self._fst:
             # reference rows replace pixels in the obs column, so every
-            # reader of obs as pixels is excluded: replay learners
-            # (next_obs) and V-trace's logp recompute
-            if self._store_next_obs or not self._postprocess_gae:
+            # reader of obs as pixels is excluded: offline writers, replay
+            # learners (next_obs) and V-trace's logp recompute
+            if config.get("output") or self._store_next_obs or not self._postprocess_gae:
                 raise ValueError(
-                    "frame_stack_transport supports on-policy GAE learners (PPO/A2C): "
-                    "the obs column holds device-snapshot references, not pixels")
+                    "frame_stack_transport supports on-policy GAE learners (PPO/A2C) "
+                    "without offline output: the obs column holds device-snapshot "
+                    "references, not pixels")
             self.policy.start_rollout(worker_index, self.num_envs)
             self._reset_mask = np.ones((self.num_envs,), bool)
         self.gamma = config.get("gamma", 0.99)
@@ -209,6 +207,11 @@ class RolloutWorker:
         self._episodes_total = 0
         self._total_steps = 0
         self.last_sample_phases: Dict[str, float] = {}
+        self._writer = None
+        if config.get("output"):
+            from ray_tpu_torch.rllib.offline import JsonWriter
+
+            self._writer = JsonWriter(config["output"], worker_index=worker_index)
 
     def _next_eps_id(self) -> int:
         self._eps_counter += 1
@@ -373,6 +376,8 @@ class RolloutWorker:
             else:
                 segments.extend(SampleBatch(c) for c, _ in deferred)
         batch = SampleBatch.concat_samples(segments)
+        if self._writer is not None:
+            self._writer.write(batch)
         wall = time.perf_counter() - t_wall
         self.last_sample_phases = {**phase, "wall_s": wall}
         events.emit("rllib", "rollout sample", entity_id=f"rollout-{self.worker_index}",

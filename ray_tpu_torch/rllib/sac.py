@@ -209,9 +209,12 @@ class SAC(Algorithm):
 
     def training_step(self) -> Dict[str, Any]:
         cfg = self.config
-        self.workers.sync_weights()
-        batch = synchronous_parallel_sample(self.workers,
-                                            max_env_steps=cfg["timesteps_per_iteration"])
+        if self.reader is not None:
+            batch = self._read_offline(cfg["timesteps_per_iteration"])
+        else:
+            self.workers.sync_weights()
+            batch = synchronous_parallel_sample(self.workers,
+                                                max_env_steps=cfg["timesteps_per_iteration"])
         self._timesteps_total += batch.count
         self.replay.add_batch(batch)
 

@@ -13,6 +13,8 @@ falls back.  The local worker's policy lives on ``config["device"]``
 policy on the CPU, with a share it asks the runtime for it and builds on
 the card, raising when it sees none.  A worker whose policy is a
 ``RemotePolicy`` holds no tensor, so the device it is given is unused.
+``config["_worker_class"]`` replaces ``RolloutWorker`` on every seat
+(``MultiAgentPPO`` sets ``MultiAgentRolloutWorker``).
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ class WorkerSet:
     def __init__(self, config: Dict[str, Any]):
         self.config = config
         n = config.get("num_rollout_workers", 0)
+        worker_cls = config.get("_worker_class") or RolloutWorker
         # the local worker holds the learner policy; it also samples when n == 0
-        self.local_worker = RolloutWorker(config, worker_index=0, device=config.get("device"))
+        self.local_worker = worker_cls(config, worker_index=0, device=config.get("device"))
         gpus = config.get("num_gpus_per_worker") or 0
         # rollout workers restart on crash and retry the in-flight sample;
         # sync_weights re-broadcasts the policy each training step anyway
@@ -48,7 +51,7 @@ class WorkerSet:
                 "max_restarts": 2, "max_task_retries": 2}
         if gpus:
             opts["num_gpus"] = gpus
-        RemoteWorker = ray_tpu_torch.remote(RolloutWorker)
+        RemoteWorker = ray_tpu_torch.remote(worker_cls)
         self.remote_workers = [
             RemoteWorker.options(**opts).remote(config, worker_index=i + 1,
                                                 device="cuda" if gpus else "cpu")
@@ -107,7 +110,8 @@ class WorkerSet:
             return self.local_worker.sample()
         batches = ray_tpu_torch.get([w.sample.remote() for w in self.remote_workers],
                                     timeout=600)
-        return SampleBatch.concat_samples(batches)
+        # MultiAgentBatch and SampleBatch both expose concat_samples
+        return type(batches[0]).concat_samples(batches)
 
     def collect_metrics(self) -> List[Dict[str, Any]]:
         if not self.remote_workers:

@@ -56,9 +56,12 @@ class BaseTrainer:
         raise NotImplementedError
 
     def as_trainable(self):
-        """A Tune trainable (base_trainer.py:500 analog): waits for the
-        port of Tune (ROADMAP A)."""
-        raise NotImplementedError("as_trainable needs the port of Tune (ROADMAP A)")
+        """A Tune trainable (base_trainer.py:500 analog): each trial runs
+        ``fit()`` with its config merged into ``train_loop_config``, under
+        its own ``run_config.name``."""
+        from ray_tpu_torch.tune.trainable import wrap_trainer
+
+        return wrap_trainer(self)
 
 
 class DataParallelTrainer(BaseTrainer):

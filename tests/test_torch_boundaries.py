@@ -52,6 +52,24 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
+def test_importing_tune_and_rllib_loads_neither_jax_nor_ray_tpu():
+    """Tune and RLlib with APPO, offline IO and multi-agent load neither
+    JAX nor ray_tpu, and start no runtime."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch, ray_tpu_torch.tune, ray_tpu_torch.tune.search\n"
+        "import ray_tpu_torch.rllib, ray_tpu_torch.rllib.appo, ray_tpu_torch.rllib.offline\n"
+        "import ray_tpu_torch.rllib.multi_agent, ray_tpu_torch.air.remote_storage\n"
+        "from ray_tpu_torch.tune import Tuner, TPESearcher, PopulationBasedTraining\n"
+        "from ray_tpu_torch.rllib import APPO, JsonReader, JsonWriter, MultiAgentPPO\n"
+        "from ray_tpu_torch._private import worker\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n"
+        "assert not ray_tpu_torch.is_initialized()\n"
+        "assert worker.global_worker.client is None\n" % (FORBIDDEN,))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
 def _module_level_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in tree.body:
@@ -119,10 +137,31 @@ def test_entry_points_raise_without_a_card(no_cuda):
             call()
 
 
+class _Space:
+    shape, n = (3,), 2
+
+
+def _two_agent_env(config):
+    """A MultiAgentEnv stub: spaces and agent ids are all a worker reads
+    before it builds its policies."""
+    from ray_tpu_torch.rllib import MultiAgentEnv
+
+    env = MultiAgentEnv()
+    env.agents = ["a"]
+    env.observation_space = env.action_space = lambda agent: _Space()
+    env.reset = lambda **kw: ({"a": torch.zeros(3).numpy()}, {})
+    return env
+
+
 def test_rl_entry_points_raise_without_a_card(no_cuda):
     from ray_tpu_torch import convert
     from ray_tpu_torch.rllib import DQNPolicy, RolloutWorker, SACPolicy, TorchPolicy, models
-    from ray_tpu_torch.rllib import DefaultActorCriticModule, synthetic_atari_creator
+    from ray_tpu_torch.rllib import (APPOConfig, DefaultActorCriticModule,
+                                     MultiAgentPPOConfig, MultiAgentRolloutWorker,
+                                     synthetic_atari_creator)
+
+    ma = dict(MultiAgentPPOConfig().environment(env_creator=_two_agent_env)
+              .multi_agent(policies=["p"], policy_mapping_fn=lambda a: "p").to_dict())
 
     g = torch.Generator()
     calls = [lambda: TorchPolicy(4, 2),
@@ -135,7 +174,10 @@ def test_rl_entry_points_raise_without_a_card(no_cuda):
              lambda: models.init_gaussian_actor(g, 3, 1),
              lambda: models.init_q_network(g, 3, 1),
              lambda: convert.from_jax_rl_params({}),
-             lambda: convert.from_jax_rl_state({"weights": {}})]
+             lambda: convert.from_jax_rl_state({"weights": {}}),
+             lambda: APPOConfig().environment(env_creator=synthetic_atari_creator).build(),
+             lambda: ma["_algo_class"](config=ma),
+             lambda: MultiAgentRolloutWorker(ma)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

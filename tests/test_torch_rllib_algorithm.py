@@ -163,18 +163,20 @@ def test_learner_device_defaults_to_the_card():
 
 
 def test_config_refuses_what_is_not_ported():
+    """Only the JAX framework is refused; offline IO is ported, and
+    ``offline_data`` sets the keys the JAX package's sets."""
     with pytest.raises(ValueError, match="torch"):
         PPOConfig().framework("jax")
     PPOConfig().framework("torch")
-    for kw in ({"input_": "/nowhere"}, {"output": "/nowhere"}):
-        with pytest.raises(NotImplementedError, match="offline"):
-            DQNConfig().offline_data(**kw)
+    cfg = DQNConfig().offline_data(input_="/in", output="/out").to_dict()
+    assert (cfg["input"], cfg["output"]) == ("/in", "/out")
 
 
-@pytest.mark.parametrize("name", ["PPO", "A2C", "Impala", "DQN", "SAC"])
+@pytest.mark.parametrize("name", ["PPO", "A2C", "Impala", "DQN", "SAC", "APPO",
+                                  "MultiAgentPPO"])
 def test_config_defaults_match_jax(name):
     """Every default of the JAX package's config, the same in the port's;
-    the port adds the devices and drops offline IO's keys."""
+    the port adds the devices."""
     import ray_tpu.rllib as jrl
     import ray_tpu_torch.rllib as trl
 
@@ -185,7 +187,7 @@ def test_config_defaults_match_jax(name):
     t = plain(getattr(trl, f"{name}Config")().to_dict())
     assert j.pop("framework") == "jax" and t.pop("framework") == "torch"
     assert t.pop("device") is None and t.pop("num_gpus_per_worker") == 0
-    assert j.pop("input") is None and j.pop("output") is None
+    assert t["input"] is None and t["output"] is None
     assert t == j
 
 

@@ -11,6 +11,9 @@ actions, values, the log-prob of the drawn action, DQN's epsilon-greedy
 actions (numpy draws) and SAC's update given JAX's own noise.
 """
 
+import os
+import tempfile
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -279,17 +282,24 @@ def test_rollout_worker_fragment_shape(env):
 
 
 def test_rollout_worker_raises_on_what_is_not_ported():
-    """Offline output is not ported and raises.  The frame-stack
-    transport and ``apply`` are: the transport needs a policy with the
-    stacked tick (a ``RemotePolicy``), so a local policy samples as
-    usual, as in the JAX package; ``apply`` runs a pickled function on
-    the worker."""
+    """Everything of the JAX package's worker is ported now: offline
+    ``output`` writes each fragment as a JSON line
+    (``test_torch_rllib_offline.py`` holds the files to the JAX
+    package's).  The frame-stack transport needs a policy with the stacked
+    tick (a ``RemotePolicy``), so a local policy samples as usual, as in
+    the JAX package; ``apply`` runs a pickled function on the worker."""
     import cloudpickle
+
+    from ray_tpu_torch.rllib import JsonReader
 
     base = {"env_creator": synthetic_atari_creator, "env_config": {"episode_len": 4},
             "fcnet_hiddens": (8,)}
-    with pytest.raises(NotImplementedError, match="output"):
-        RolloutWorker(dict(base, output=True), device="cpu")
+    with tempfile.TemporaryDirectory() as out:
+        b = RolloutWorker(dict(base, output=out, rollout_fragment_length=2),
+                          device="cpu").sample()
+        assert os.listdir(out) == ["output-worker_0-0.json"]
+        np.testing.assert_array_equal(JsonReader(out).read_all()[SampleBatch.OBS],
+                                      b[SampleBatch.OBS])
     w = RolloutWorker(dict(base, _frame_stack_transport=True, rollout_fragment_length=2),
                       device="cpu")
     assert w.sample()[SampleBatch.OBS].dtype == np.uint8
