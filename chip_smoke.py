@@ -117,7 +117,11 @@ the backward kernels):
     the same seed and batch within ``TRAINER_LOSS_TOL``, and each leaf's
     update over the 7 steps within ``TRAINER_UPDATE_TOL`` of the
     in-process update's norm (the first update runs at lr 0 and the
-    losses barely move, so the update is what sees the step).  The
+    losses barely move, so the update is what sees the step).  Every step
+    runs in ``util.profiling.timed("train_step")``, whose histogram must
+    count the 7; then ``profiling.profile_step(dir)`` arms one more step's
+    trace: it lands under ``dir``, names ``flash_fwd_kernel_tc`` among its
+    device events, and the step after it leaves ``dir`` as it was.  The
     worker's counts stand for this path in ``launches_by_path``.
 22. ``data_ingest`` (``bench.py``'s ``streaming_ingest`` row): Ray Data on
     the port, ``from_numpy`` of 512 MiB of f64 (``default_rng(3)``) in 16
@@ -200,7 +204,30 @@ the backward kernels):
     bytes and whether the channel spilled it (its in-process cost beside
     it), then the 16 pipelined.  Gate: every stream equals the in-process
     ``prefill`` + greedy ``decode_chunk`` on the same weights.
-    In 29-31 each replica's or stage's own launch counts (read in its
+32. ``multinode_pipeline_gpt2`` (after the runtime's shutdown): the
+    multi-node runtime.  A ``Cluster`` of real agents whose head holds no
+    card, a ``StandardAutoscaler`` under a ``Monitor`` over a
+    ``LocalNodeProvider`` (at most one node of 4 CPUs and the card, idle
+    timeout 5 s), and a ``MicrobatchPipeline`` of two GPT-2 125M
+    ``GPT2Stage`` actors at ``num_gpus=0.5``, which only the node the
+    autoscaler adds can place: stage 0 holds ``wte``/``wpe`` and blocks
+    0-5, stage 1 blocks 6-11, ``ln_f`` and the tied head, each from the
+    seed-0 init in bf16 over f32.  8 microbatches of 4 x 1025 ids
+    (``default_rng(0)``, ``[0, 50257)``), pipelined, then one at a time.
+    Gates: each microbatch's mean next-token NLL within 2e-3 of the
+    unsplit ``gpt2.apply`` here; the driver's edges are streams and the
+    stages' edge a shm ring, across which stage 0's card tensors reach
+    stage 1 on its card; both stages on the agent's node with
+    ``CUDA_VISIBLE_DEVICES`` "0"; 12 ``flash_fwd`` launches a microbatch,
+    all on the tensor cores; a ``syncer_report`` folded at the head; after
+    the teardown the node is reaped and the cluster holds no ``"GPU"``.
+    Prints the agent's import time, the seconds from the first submit to
+    the launch, the agent's registration and both stages ``ALIVE``, the
+    pipeline's wall beside the serial sum and the bubble model, each
+    stage's exec spans (pipelined and alone), the in-process forward of
+    the same tokens, the hop's bytes and its (de)serialization here, one
+    512 MiB array returned across the nodes in GiB/s, and the reap time.
+    In 29-32 each replica's or stage's own launch counts (read in its
     process through the compiled-graph control lane) are set to 0 just
     before the traffic and read just after.
 
@@ -208,7 +235,8 @@ Every bf16 launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 on the serving and training paths has to run the tensor-core design
 (their ``_tc`` launch counts equal their totals; the profiled steps find
 only the ``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
-summed over the serving, training, Tune, RL, Data, Serve and graph runs, and per run), the card's name
+summed over the serving, training, Tune, RL, Data, Serve, graph and
+multi-node pipeline runs, and per run), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": {...}}``.  Exits non-zero,
 printing no result, when there is no CUDA device or any phase fails.
@@ -2492,14 +2520,18 @@ def _gpt2_train_loop(config):
     shard (``session.get_dataset_shard("train")``), inputs and targets the
     rows less their last and first id, billed to the ``ingest`` (the wait
     for the rows) and ``h2d`` (the copy to the card) phases; each report
-    then holds the step's wait for its rows."""
+    then holds the step's wait for its rows.  Every step runs inside
+    ``profiling.timed("train_step")``, and the last report holds that
+    histogram's count and sum; with ``config["profile_dir"]`` it also
+    holds ``_one_step_trace``'s record of one more step traced by
+    ``profiling.profile_step``."""
     from ray_tpu_torch.air import Checkpoint, session
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.models.transformer import named_leaves
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as attn_mod
     from ray_tpu_torch.train import torch_utils
-    from ray_tpu_torch.util import collective
+    from ray_tpu_torch.util import collective, metrics, profiling
     from ray_tpu_torch.util.tree import tree_map
 
     loop_began = time.time()
@@ -2556,7 +2588,7 @@ def _gpt2_train_loop(config):
     for i in range(config["warmup"] + config["steps"]):
         _build.reset_launches()
         wait = None
-        with prof.step():
+        with profiling.timed("train_step"), prof.step():
             if config.get("dataset"):
                 batch, wait = next_batch()
             loss = train_step(step_fn)
@@ -2573,8 +2605,14 @@ def _gpt2_train_loop(config):
     update = _update_error(state["params"], init,
                            reference[lr] if isinstance(reference, dict) else reference)
     del init
+    (timed,) = metrics.registry().snapshot()[
+        "ray_tpu_torch_timed_train_step_seconds"]["values"].values()
     last = {"final": True, "summary": prof.summary(), "history": history,
-            "n_params": n_params, "update": update}
+            "n_params": n_params, "update": update,
+            "timed_train_step": {"count": timed["count"], "sum_s": timed["sum"]}}
+    if config.get("profile_dir"):
+        last["one_step_trace"] = _one_step_trace(prof, lambda: train_step(forward_backward),
+                                                 config["profile_dir"])
     checkpoint = None
     if config.get("checkpoint"):
         with torch.no_grad():
@@ -2586,6 +2624,43 @@ def _gpt2_train_loop(config):
     if config.get("device_work", True):
         last["device_work"] = _step_device_work(lambda: train_step(forward_backward))
     session.report(last, checkpoint=checkpoint)
+
+
+def _trace_files(logdir):
+    """``{name: (mtime_ns, size)}`` of the files in ``logdir``."""
+    if not os.path.isdir(logdir):
+        return {}
+    return {n: (st.st_mtime_ns, st.st_size) for n in sorted(os.listdir(logdir))
+            for st in [os.stat(os.path.join(logdir, n))]}
+
+
+def _one_step_trace(prof, step, logdir, tries=3):
+    """``profiling.profile_step(logdir)``, then one ``prof.step()`` of
+    ``step``: the files the trace wrote under ``logdir`` and the
+    ``flash_fwd`` kernels its device events name; then one more step, after
+    which ``logdir`` must be as it was (one step traced, the next not).  An
+    H100 profiler session has come back without device events
+    (``device_ms``), so a trace that names no flash kernel is taken again,
+    up to ``tries`` times."""
+    from ray_tpu_torch.util import profiling
+
+    for attempt in range(1, tries + 1):
+        armed = profiling.profile_step(logdir)
+        with prof.step():
+            step()
+        files = _trace_files(logdir)
+        kernels = set()
+        for name in files:
+            with open(os.path.join(logdir, name)) as f:
+                kernels |= {m for e in json.load(f).get("traceEvents", [])
+                            for m in re.findall(r"flash_fwd_kernel\w*", str(e.get("name", "")))}
+        if kernels:
+            break
+    with prof.step():
+        step()
+    return {"armed": armed, "attempts": attempt, "files": files,
+            "flash_kernels": sorted(kernels),
+            "next_step_untraced": _trace_files(logdir) == files}
 
 
 def _update_error(params, init, path):
@@ -2675,6 +2750,7 @@ def phase_train_gpt2_trainer(rt, in_process_row, phase="train_gpt2_trainer", row
     n_steps = TRAINER_WARMUP + TRAINER_STEPS
     with tempfile.TemporaryDirectory() as storage:
         update_path = os.path.join(storage, "reference_update.pt")
+        profile_dir = os.path.join(storage, "profile_step") if rows is None else None
         want_losses = _gpt2_reference(n_steps, update_path, rows)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2682,7 +2758,7 @@ def phase_train_gpt2_trainer(rt, in_process_row, phase="train_gpt2_trainer", row
             _gpt2_train_loop,
             train_loop_config={"batch": TRAIN_BATCH, "warmup": TRAINER_WARMUP,
                                "steps": TRAINER_STEPS, "reference_update": update_path,
-                               "dataset": rows is not None},
+                               "dataset": rows is not None, "profile_dir": profile_dir},
             torch_config=TorchConfig(use_torch_distributed=True),
             scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
             datasets=None if rows is None else {"train": rd.from_numpy(rows)},
@@ -2698,6 +2774,13 @@ def phase_train_gpt2_trainer(rt, in_process_row, phase="train_gpt2_trainer", row
     diff = max(abs(a - b) for a, b in zip(losses, want_losses))
     check(diff <= TRAINER_LOSS_TOL, f"{phase}: losses {losses} against the "
           f"in-process {want_losses}")
+    check(final["timed_train_step"]["count"] == n_steps,
+          f"{phase}: timed('train_step') counted {final['timed_train_step']}")
+    trace = final.get("one_step_trace")
+    if profile_dir is not None:
+        check(trace["armed"] and trace["files"] and trace["next_step_untraced"]
+              and "flash_fwd_kernel_tc" in trace["flash_kernels"],
+              f"{phase}: profile_step's one-step trace {trace}")
     update = final["update"]
     check(update["max_rel_err"] <= TRAINER_UPDATE_TOL,
           f"{phase}: the update of leaf {update['worst_leaf']} differs from the "
@@ -2734,6 +2817,7 @@ def phase_train_gpt2_trainer(rt, in_process_row, phase="train_gpt2_trainer", row
                in_process_losses=want_losses, max_loss_diff=diff,
                loss_tolerance=TRAINER_LOSS_TOL, update_vs_in_process=update,
                update_tolerance=TRAINER_UPDATE_TOL, **extra,
+               timed_train_step=final["timed_train_step"], one_step_trace=trace,
                phases_by_step=[{"step": r["step"], "wall_ms": r["wall_s"] * 1e3,
                                 "phases_ms": {k: v * 1e3 for k, v in r["phases"].items()},
                                 "mfu": r["mfu"]} for r in steps],
@@ -3574,6 +3658,342 @@ def phase_prefill_decode_graph(rt):
     return launches
 
 
+# multinode_pipeline_gpt2: M microbatches of B x (T + 1) ids through two
+# GPT-2 125M stages on half a card each, on a node the autoscaler adds;
+# the mean NLL of each microbatch against the unsplit forward within
+# PIPE_NLL_TOL (Train's parity tolerance); one 512 MiB array back across
+# the nodes; the node reaped after PIPE_IDLE_S idle seconds
+PIPE_MICROBATCHES, PIPE_BATCH, PIPE_STAGE_GPUS, PIPE_NLL_TOL = 8, 4, 0.5, 2e-3
+PIPE_SLOT_BYTES, PIPE_XFER_BYTES, PIPE_IDLE_S = 8 << 20, 512 << 20, 5.0
+
+
+def token_nll(logits, targets):
+    """Each token's next-token NLL (f32 ``[B, T]``): logsumexp less the
+    target's logit, as ``cross_entropy_loss`` computes before its mean."""
+    logits = logits.float()
+    return torch.logsumexp(logits, -1) - torch.gather(logits, -1, targets[..., None])[..., 0]
+
+
+class GPT2Stage:
+    """One stage of GPT-2 cut at block boundaries, an actor of
+    ``MicrobatchPipeline``: blocks ``lo``..``hi - 1`` of ``cfg``, from
+    ``params`` (the JAX package's layout as numpy, carried by
+    ``convert.from_jax_params``) or, when None, from the seed-0 ``init``;
+    f32 master weights, compute in ``cfg.dtype`` as ``gpt2.apply`` does.
+    The first stage holds ``wte``/``wpe`` and takes ``[B, T + 1]`` ids; the
+    last holds ``ln_f`` and the tied head and returns each token's
+    next-token NLL ``[B, T]`` as a host array.  Between stages the hidden
+    state and the targets cross as the tensors they are: the port's
+    serialization pickles a card tensor through torch's own reducer, which
+    copies its storage to the host (``torch.save``), and ``torch.load``
+    puts it back on ``cuda:0`` of the reader, the card its grant names (a
+    reader without one raises).  Each stage records the devices its
+    inputs arrived on (``arrived``) and the host ms of each call up to its
+    last kernel's end (``compute_ms``; the serialization of its result
+    follows in the graph's exec span), and runs on its own device: the
+    card unless ``device`` says otherwise (a stage granted no card
+    raises)."""
+
+    def __init__(self, cfg, lo, hi, params=None, device=None):
+        from ray_tpu_torch import resolve_device
+        from ray_tpu_torch.convert import from_jax_params
+        from ray_tpu_torch.models import gpt2
+
+        self.dev = resolve_device(device)
+        if params is None:
+            params = gpt2.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+        else:
+            params = from_jax_params(params, cfg, device="cpu")
+        self.cfg, self.first, self.last = cfg, lo == 0, hi == cfg.n_layers
+        self.arrived, self.compute_ms = set(), []
+        keep = {"blocks": {k: v[lo:hi] for k, v in params["blocks"].items()}}
+        names = (["wte", "wpe"] if self.first else []) + (
+            ["wte", "lnf_w", "lnf_b"] if self.last else [])
+        keep.update({k: params[k] for k in names})
+        self.params = {k: ({n: t.to(self.dev) for n, t in v.items()} if k == "blocks"
+                           else v.to(self.dev)) for k, v in keep.items()}
+
+    def run(self, x):
+        from ray_tpu_torch.models.transformer import apply_stack
+        from ray_tpu_torch.ops.layers import layernorm
+
+        p, dtype = self.params, self.cfg.dtype
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            if self.first:
+                ids = torch.from_numpy(np.array(x)).to(self.dev).long()
+                inputs, targets = ids[:, :-1], ids[:, 1:]
+                h = (p["wte"][inputs] + p["wpe"][:inputs.shape[1]]).to(dtype)
+            else:
+                self.arrived.update(str(t.device) for t in x)
+                h, targets = (t.to(self.dev) for t in x)
+            h, _ = apply_stack(h, p["blocks"], self.cfg)
+            if self.last:
+                h = layernorm(h, p["lnf_w"].to(dtype), p["lnf_b"].to(dtype))
+                h = token_nll(h @ p["wte"].T.to(dtype), targets).cpu().numpy()
+            elif self.dev.type == "cuda":
+                torch.cuda.synchronize(self.dev)
+        self.compute_ms.append((time.perf_counter() - t0) * 1e3)
+        return h if self.last else (h, targets)
+
+
+def _stage_record(instance):
+    return sorted(instance.arrived), list(instance.compute_ms)
+
+
+def _stage_place(instance):
+    import os
+
+    import ray_tpu_torch
+
+    return (ray_tpu_torch.get_runtime_context().node_id,
+            os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+
+def _head_events(source, w0):
+    """The head's flight-recorder events of ``source`` since ``w0``
+    (wall-clock; the head runs in this process)."""
+    from ray_tpu_torch._private import events
+
+    return [r for r in events.buffer().snapshot()
+            if r.get("source") == source and r["ts"] >= w0]
+
+
+def _pipe_spans(gid, seqs):
+    """The stages' exec spans ``{(label, seq): seconds}`` of ``seqs`` from
+    the head's event table (each stage's worker ships them)."""
+    from ray_tpu_torch._private.worker import global_worker
+
+    want = {(f"run:{k}", q) for k in (0, 1) for q in seqs}
+    deadline = time.monotonic() + 60
+    while True:
+        spans = {(r["message"], r["data"]["seq"]): r["span_dur"]
+                 for r in global_worker.node.events.list(limit=100_000, source="compiled_dag")
+                 if (r.get("entity_id") or "").startswith(gid) and r.get("span_dur")
+                 and r["message"].startswith("run:")}
+        if want <= set(spans) or time.monotonic() > deadline:
+            return spans
+        time.sleep(0.25)
+
+
+def _wait_for(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"multinode_pipeline_gpt2: timed out on {what}")
+        time.sleep(0.1)
+
+
+def phase_multinode_pipeline_gpt2():
+    """The multi-node runtime's path: a ``Cluster`` whose head holds no
+    card, a ``StandardAutoscaler`` over a ``LocalNodeProvider`` (at most one
+    node of 4 CPUs and the card, reaped after ``PIPE_IDLE_S`` idle
+    seconds), and a ``MicrobatchPipeline`` of two ``GPT2Stage`` actors at
+    ``num_gpus=PIPE_STAGE_GPUS``, which only the autoscaled node can place.
+    Stage 0 holds ``wte``/``wpe`` and blocks 0-5, stage 1 blocks 6-11,
+    ``ln_f`` and the tied head.  ``PIPE_MICROBATCHES`` microbatches of
+    ``PIPE_BATCH`` x 1025 ids (``default_rng(0)``, ``[0, 50257)``).  Gates:
+    each microbatch's mean NLL within ``PIPE_NLL_TOL`` of the unsplit
+    ``gpt2.apply`` here; the driver's edges are streams and the stages'
+    edge a shm ring, over which stage 1's inputs arrive on its card; both
+    stages on the agent's node with ``CUDA_VISIBLE_DEVICES`` "0"; 12
+    ``flash_fwd`` launches a microbatch, all on the tensor cores; a
+    ``syncer_report`` folded at the head; the node reaped and the GPU gone
+    after the teardown.  Returns the stages' launches over the timed run."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.autoscaler import (AutoscalingConfig, LocalNodeProvider, Monitor,
+                                          StandardAutoscaler)
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.dag.compiled import DRIVER, _deser, _ser
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel.pipeline import MicrobatchPipeline
+    from ray_tpu_torch.util.scheduling_strategies import NodeAffinitySchedulingStrategy
+
+    cfg = gpt2.GPT2Config.gpt2_small()
+    n_mb, n_stages = PIPE_MICROBATCHES, 2
+    half = cfg.n_layers // n_stages
+    rng = np.random.default_rng(0)
+    mbs = [rng.integers(0, 50257, (PIPE_BATCH, cfg.max_seq_len + 1), np.int32)
+           for _ in range(n_mb)]
+    t0 = time.perf_counter()
+    import_s = float(subprocess.run(
+        [sys.executable, "-c", "import time; t = time.perf_counter(); import ray_tpu_torch._private"
+         ".node_agent; print(time.perf_counter() - t)"], capture_output=True, text=True,
+        check=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__))).stdout)
+    cluster = Cluster(initialize_head=True, real_processes=True,
+                      head_node_args={"num_cpus": 2, "num_gpus": 0})
+    init_s = time.perf_counter() - t0
+    head = global_worker.node
+    provider, monitor = LocalNodeProvider(head), None
+    pipe = None
+    try:
+        check(rt.cluster_resources().get("GPU", 0) == 0, "multinode_pipeline_gpt2: the head "
+              f"holds cards: {rt.cluster_resources()}")
+        scaler = StandardAutoscaler(head, provider, AutoscalingConfig(
+            min_workers=0, max_workers=1, idle_timeout_s=PIPE_IDLE_S,
+            worker_node={"num_cpus": 4, "num_gpus": 1}))
+        monitor = Monitor(scaler, interval_s=0.5).start()
+        try:
+            stage = rt.remote(GPT2Stage).options(num_gpus=PIPE_STAGE_GPUS)
+            w0 = time.time()
+            pipe = MicrobatchPipeline(
+                [stage.bind(cfg, 0, half), stage.bind(cfg, half, cfg.n_layers)],
+                n_microbatches=n_mb, slot_bytes=PIPE_SLOT_BYTES)
+            compile_s = time.time() - w0
+            nodes = provider.non_terminated_nodes()
+            check(len(nodes) == 1, f"multinode_pipeline_gpt2: provider nodes {nodes}")
+            agent = nodes[0]
+            joined = [r["ts"] for r in _head_events("node", w0)
+                      if r["message"] == "node joined" and r.get("entity_id") == agent]
+            launched = [r["ts"] for r in _head_events("autoscaler", w0)
+                        if r["message"].startswith("scale up")]
+            lives = _actor_lives(w0)
+            alive = [lives[a._actor_id.hex()].get("ALIVE") for a in pipe.actors]
+            check(joined and launched and all(alive),
+                  f"multinode_pipeline_gpt2: joined {joined}, launched {launched}, lives {lives}")
+            places = rt.get([a._submit_compiled_task(_stage_place, (), name="place")
+                             for a in pipe.actors], timeout=60)
+            check(places == [(agent, "0")] * n_stages,
+                  f"multinode_pipeline_gpt2: stages at {places}, want {agent} with card 0")
+            edges = pipe._dag._edges
+            kinds = {("driver" if e["writer"] == DRIVER else e["writer"],
+                      "driver" if e["reader"] == DRIVER else e["reader"]): e["kind"] for e in edges}
+            check(kinds == {("driver", 0): "stream", (0, 1): "shm", (1, "driver"): "stream"},
+                  f"multinode_pipeline_gpt2: edges {kinds}")
+            pipe.run(mbs[:1], timeout=600)  # the stages' first calls
+            actor_launches(rt, pipe.actors, reset=True)
+            seq0 = pipe._dag._seq
+            t1 = time.perf_counter()
+            outs = pipe.run(mbs, timeout=600)
+            wall = time.perf_counter() - t1
+            launches = actor_launches(rt, pipe.actors)
+            arrived = [r[0] for r in rt.get([a._submit_compiled_task(_stage_record, (), name="rec")
+                                             for a in pipe.actors], timeout=60)]
+            check(arrived == [[], ["cuda:0"]], f"multinode_pipeline_gpt2: stage inputs arrived "
+                  f"on {arrived}, want stage 1's on its card")
+            # the same microbatches one at a time: each stage's span without
+            # the other stage's work beside it on the card
+            walls_one = []
+            for mb in mbs:
+                t1 = time.perf_counter()
+                pipe.run([mb], timeout=600)
+                walls_one.append(time.perf_counter() - t1)
+            spans = _pipe_spans(pipe._dag._gid, range(seq0, seq0 + 2 * n_mb))
+            # each call's compute: the warm-up's, the pipelined, one at a time
+            compute = [r[1][1:] for r in rt.get([a._submit_compiled_task(_stage_record, (),
+                                                                         name="rec")
+                                                 for a in pipe.actors], timeout=60)]
+            folded = head._syncer_versions.get(agent, 0)
+            check(folded >= 1, f"multinode_pipeline_gpt2: no syncer_report of {agent} folded "
+                  f"({head._syncer_versions})")
+
+            @rt.remote(scheduling_strategy=NodeAffinitySchedulingStrategy(agent))
+            def produce(n):
+                return np.arange(n, dtype=np.float64)
+
+            n = PIPE_XFER_BYTES // 8
+            ref = produce.remote(n)
+            rt.wait([ref], timeout=300)
+            t1 = time.perf_counter()
+            arr = rt.get(ref, timeout=300)
+            xfer_s = time.perf_counter() - t1
+            check(arr.shape == (n,) and arr[-1] == n - 1, "multinode_pipeline_gpt2: the "
+                  f"array from {agent} came back as {arr.shape}, last {arr[-1]}")
+            del arr, ref
+        finally:
+            if pipe is not None:
+                pipe.teardown()
+                for a in pipe.actors:
+                    rt.kill(a)
+        t1 = time.perf_counter()
+        _wait_for(lambda: not provider.non_terminated_nodes()
+                  and not rt.cluster_resources().get("GPU", 0), 120, "the idle node's reaping")
+        reap_s = time.perf_counter() - t1
+    finally:
+        if monitor is not None:
+            monitor.stop()
+        provider.shutdown()
+        cluster.shutdown()
+    check_tensor_cores("multinode_pipeline_gpt2", launches, cfg.n_layers * n_mb)
+    # the unsplit forward on the same weights and tokens, in this process
+    params = gpt2.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+
+    def forward():
+        with torch.inference_mode():
+            return [token_nll(gpt2.apply(params, ids[:, :-1], cfg), ids[:, 1:]).cpu().numpy()
+                    for ids in (torch.from_numpy(mb).cuda().long() for mb in mbs)]
+
+    want = forward()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    forward()
+    torch.cuda.synchronize()
+    in_process_s = time.perf_counter() - t1
+    del params
+    torch.cuda.empty_cache()
+    mean_diff = [abs(float(g.mean()) - float(w.mean())) for g, w in zip(outs, want)]
+    check(all(o.shape == (PIPE_BATCH, cfg.max_seq_len) and np.isfinite(o).all() for o in outs),
+          "multinode_pipeline_gpt2: NLL shapes or values")
+    check(max(mean_diff) <= PIPE_NLL_TOL, f"multinode_pipeline_gpt2: mean NLL differs from the "
+          f"unsplit forward by {mean_diff}")
+    stage_ms, stage_one_ms = [], []
+    for k in range(n_stages):
+        got = [spans.get((f"run:{k}", q)) for q in range(seq0, seq0 + 2 * n_mb)]
+        check(all(d is not None for d in got), f"multinode_pipeline_gpt2: stage {k} spans {got}")
+        stage_ms.append([d * 1e3 for d in got[:n_mb]])
+        stage_one_ms.append([d * 1e3 for d in got[n_mb:]])
+    stage_p50 = [pct(v, 0.5) for v in stage_ms]
+    one = [{"wall_ms": w * 1e3, "stage_ms": [v[i] for v in stage_one_ms],
+            "hops_ms": w * 1e3 - sum(v[i] for v in stage_one_ms)}
+           for i, w in enumerate(walls_one)]
+    # the hop's payload, and its serialization and deserialization here
+    hidden = torch.empty(PIPE_BATCH, cfg.max_seq_len, cfg.d_model, dtype=cfg.dtype, device="cuda")
+    targets = torch.empty(PIPE_BATCH, cfg.max_seq_len, dtype=torch.long, device="cuda")
+    ser_ms, deser_ms = [], []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        payload = _ser((hidden, targets))
+        ser_ms.append((time.perf_counter() - t1) * 1e3)
+        t1 = time.perf_counter()
+        back = _deser(payload)
+        torch.cuda.synchronize()
+        deser_ms.append((time.perf_counter() - t1) * 1e3)
+    check(back[0].device.type == "cuda" and back[0].shape == hidden.shape,
+          f"multinode_pipeline_gpt2: the hop's payload came back as {back[0].device}")
+    tokens = n_mb * PIPE_BATCH * cfg.max_seq_len
+    emit("multinode_pipeline_gpt2",
+         model=f"gpt2 125M bf16 (f32 master weights), 2 stages of {half} blocks at "
+               f"num_gpus={PIPE_STAGE_GPUS}, {n_mb} microbatches of {PIPE_BATCH} x "
+               f"{cfg.max_seq_len + 1} ids", agent_node=agent, stage_places=places,
+         edges={f"{w}->{r}": k for (w, r), k in kinds.items()},
+         agent_import_s=import_s, head_init_s=init_s, compile_s=compile_s,
+         submit_to_scale_up_s=launched[0] - w0, submit_to_agent_registered_s=joined[0] - w0,
+         submit_to_stages_alive_s=max(alive) - w0,
+         pipeline_wall_ms=wall * 1e3, tokens_per_s=tokens / wall,
+         stage_exec_ms_by_microbatch=stage_ms, stage_exec_ms_p50=stage_p50,
+         one_at_a_time=one, one_at_a_time_wall_ms_p50=pct([r["wall_ms"] for r in one], 0.5),
+         one_at_a_time_stage_ms_p50=[pct(v, 0.5) for v in stage_one_ms],
+         one_at_a_time_hops_ms_p50=pct([r["hops_ms"] for r in one], 0.5),
+         stage_compute_ms_p50=[pct(c[:n_mb], 0.5) for c in compute],
+         one_at_a_time_stage_compute_ms_p50=[pct(c[n_mb:], 0.5) for c in compute],
+         serial_sum_ms=n_stages * n_mb * max(stage_p50),
+         bubble_fraction_model=(n_stages - 1) / (n_mb + n_stages - 1),
+         bubble_model_wall_ms=(n_mb + n_stages - 1) * max(stage_p50),
+         in_process_forward_ms=in_process_s * 1e3,
+         hop_hidden_bytes=hidden.numel() * hidden.element_size(),
+         hop_payload_bytes=len(payload), slot_bytes=PIPE_SLOT_BYTES,
+         hop_ser_ms_in_process=pct(ser_ms, 0.5), hop_deser_ms_in_process=pct(deser_ms, 0.5),
+         stage_inputs_arrived_on=arrived,
+         mean_nll=[float(o.mean()) for o in outs], mean_nll_diff=mean_diff,
+         max_token_nll_diff=max(float(np.abs(g - w).max()) for g, w in zip(outs, want)),
+         nll_tolerance=PIPE_NLL_TOL, syncer_versions_folded=folded,
+         cross_node_bytes=PIPE_XFER_BYTES, cross_node_s=xfer_s,
+         cross_node_gib_per_s=PIPE_XFER_BYTES / 2**30 / xfer_s, reap_s=reap_s,
+         idle_timeout_s=PIPE_IDLE_S, flash_launches=launches.get(attn.KERNEL, 0),
+         flash_launches_tensor_core=launches.get(attn.FWD_TC, 0))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -3673,6 +4093,7 @@ def main() -> int:
             graph_launches = phase_prefill_decode_graph(rt)
         finally:
             rt.shutdown()
+    pipeline_launches = phase_multinode_pipeline_gpt2()
 
     runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama, "serve_bert": bert_launches,
             "train_gpt2": train_launches, "train_llama": llama_launches,
@@ -3681,6 +4102,7 @@ def main() -> int:
             "train_gpt2_dataset": dataset_launches, "batch_predict_bert": predict_launches,
             "serve_bert_http": bert_http_launches, "serve_llm_deployment": llm_launches,
             "prefill_decode_graph": graph_launches,
+            "multinode_pipeline_gpt2": pipeline_launches,
             "rl_parity": rl_parity_launches,
             "rl_ppo_atari": rl_launches, "rl_ppo_atari_runtime": rl_runtime_launches,
             "tune_gpt2_trainer": tune_launches, "rl_appo_atari_runtime": appo_launches,

@@ -26,7 +26,11 @@ Datasets over object-store blocks, the streaming executor, actor pools on
 cards, which feed ``TorchTrainer(datasets=...)`` and
 ``train.BatchPredictor``) and RLlib's (``rllib``: ``PPO``, ``A2C``,
 ``Impala``, ``DQN``, ``SAC`` as ``tune.Trainable``s over remote rollout
-workers, ``rllib.serve_policy``'s PolicyServer on a card).  Those names load on
+workers, ``rllib.serve_policy``'s PolicyServer on a card).  A cluster grows past
+the head's host through node agents (``_private/node_agent.py``, started
+by ``cluster_utils.Cluster`` or ``autoscaler.LocalNodeProvider``), which
+gossip over the syncer mesh (``_private/syncer.py``); stage actors on
+them run ``parallel.pipeline.MicrobatchPipeline``.  Those names load on
 first use, so importing the package starts no thread or process.
 
 Entry points (``models.*.init`` and ``init_state``,
@@ -59,4 +63,8 @@ def __getattr__(name):
         from ray_tpu_torch import _api
 
         return getattr(_api, name)
+    if name == "cluster_utils":  # the multi-node test harness, on first use
+        import importlib
+
+        return importlib.import_module("ray_tpu_torch.cluster_utils")
     raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")

@@ -395,6 +395,9 @@ class NodeState:
     # failure domain: hosts of one TPU slice share a slice_id and are
     # provisioned/terminated/replaced as one unit (SURVEY §7 hard-part 3)
     slice_id: Optional[str] = None
+    # the node's P2P syncer listener (mesh directory entry); None for
+    # emulated/head-local nodes
+    syncer_addr: Optional[tuple] = None
     # health checking (GcsHealthCheckManager analog)
     last_heartbeat: float = field(default_factory=time.time)
     last_ping: float = 0.0
@@ -614,6 +617,9 @@ class Node:
         # idle scale-down): their member deaths are not "degraded".
         # Self-cleaning: the last member's removal discards the mark.
         self._draining_slices: set = set()
+        # P2P mesh bookkeeping: highest snapshot version folded per node
+        # (version-gated merge at the head too), pruned on node removal
+        self._syncer_versions: Dict[str, int] = {}
         self.actors: Dict[bytes, ActorRuntime] = {}
         self.pgs: Dict[bytes, PGRuntime] = {}
         self.pending_tasks: deque = deque()
@@ -851,6 +857,7 @@ class Node:
                 return
             ns.alive = False
             ns.agent_conn = None
+            self._syncer_versions.pop(node_id, None)
             if node_id in self.gcs.nodes:
                 self.gcs.nodes[node_id].alive = False
             if ns.slice_id is not None:
@@ -898,6 +905,7 @@ class Node:
             events_mod.emit(
                 "node", "slice degraded", severity="ERROR", entity_id=sid,
                 dead_node=node_id, alive_members=alive_sib, gang_size=gang)
+        self._broadcast_syncer_peers()
         self._reconstruct_lost_objects(node_id)
         with self.lock:
             self._wake_scheduler()
@@ -1038,6 +1046,8 @@ class Node:
                         holder["ok"] = bool(msg.get("ok"))
                         holder["error"] = msg.get("error")
                         holder["event"].set()
+                elif mtype == "syncer_report":
+                    self._on_syncer_report(msg)
                 else:
                     self._handle_message(conn, handle, msg)
         finally:
@@ -1174,11 +1184,34 @@ class Node:
             ns.agent_conn = conn
             ns.agent_send_lock = self._conn_lock(conn)
             ns.fetch_addr = tuple(msg["fetch_addr"]) if msg.get("fetch_addr") else None
+            ns.syncer_addr = tuple(msg["syncer_addr"]) if msg.get("syncer_addr") else None
             self._wake_scheduler()
         logger.info("node %s joined with %s", node_id, msg["resources"])
         self.publish("node_change", {"node_id": node_id, "alive": True,
                                      "resources": msg["resources"]})
+        self._broadcast_syncer_peers()
         return node_id
+
+    # ------------------------------------------------------------------
+    # P2P resource/health mesh (head side of _private/syncer.py)
+    # ------------------------------------------------------------------
+    def _broadcast_syncer_peers(self) -> None:
+        """Ship the mesh directory to every agent (on membership change).
+        The directory is the union of alive syncer-capable nodes; agents
+        prune their stores to it."""
+        with self.lock:
+            peers = {nid: list(ns.syncer_addr)
+                     for nid, ns in self.nodes.items()
+                     if ns.alive and ns.syncer_addr}
+            agents = [ns for ns in self.nodes.values()
+                      if ns.alive and ns.agent_conn is not None]
+        if not peers:
+            return
+        for ns in agents:
+            try:
+                ns.agent_send({"type": "syncer_peers", "peers": peers})
+            except (OSError, ValueError):
+                pass  # its conn-close path will reap it
 
     def mark_slice_draining(self, slice_id: str, draining: bool = True) -> None:
         """Deliberate slice-atomic termination in progress: member deaths
@@ -1189,6 +1222,64 @@ class Node:
                 self._draining_slices.add(slice_id)
             else:
                 self._draining_slices.discard(slice_id)
+
+    def _on_syncer_report(self, msg: dict) -> None:
+        """Fold one agent's converged mesh view.
+
+        Version-gated exactly like the agents' own merges: any snapshot
+        strictly newer than what the head has folded counts as a
+        heartbeat for THAT node (its author was alive at snap ts) — so a
+        node whose direct link to the head is broken stays alive and
+        fresh through its peers' reports, and the head is no longer the
+        sole fan-in for liveness.  Death rumors (connection refused — the
+        peer's listener is gone) and suspect quorums (>= SUSPECT_QUORUM
+        distinct observers of an unresponsive peer) remove nodes ahead of
+        the missed-pong timeout; both are double-checked against the
+        head's own recent direct contact so a one-sided partition can't
+        kill a node the head still hears from."""
+        from ray_tpu_torch._private.syncer import SUSPECT_QUORUM
+
+        now = time.time()
+        period = self.cfg.health_check_period_s
+        to_remove: Dict[str, Tuple[str, dict]] = {}  # nid -> (why, data);
+        # dict, not list: a paused-then-killed node sits in BOTH the
+        # deaths and suspects tables — remove it once
+        with self.lock:
+            for nid, snap in (msg.get("snaps") or {}).items():
+                ns = self.nodes.get(nid)
+                if ns is None or not ns.alive:
+                    continue
+                version = int(snap.get("version", 0))
+                if version <= self._syncer_versions.get(nid, 0):
+                    continue
+                self._syncer_versions[nid] = version
+                ts = min(float(snap.get("ts", now)), now)
+                if ts > ns.last_heartbeat:
+                    ns.last_heartbeat = ts
+                if snap.get("stats") and ns.agent_conn is not None:
+                    ns.host_stats = snap["stats"]
+            for nid, death in (msg.get("deaths") or {}).items():
+                ns = self.nodes.get(nid)
+                if (ns is not None and ns.alive
+                        and now - ns.last_heartbeat > period):
+                    to_remove[nid] = ("peer-detected node death", {
+                        "observer": death.get("by"),
+                        "detect_latency_s": round(now - death.get("ts", now), 3),
+                    })
+            for nid, observers in (msg.get("suspects") or {}).items():
+                ns = self.nodes.get(nid)
+                if (nid not in to_remove and ns is not None and ns.alive
+                        and len(observers) >= SUSPECT_QUORUM
+                        and now - ns.last_heartbeat > 2 * period):
+                    to_remove[nid] = ("peer-quorum node unresponsive", {
+                        "observers": sorted(observers)[:8],
+                        "quorum": len(observers),
+                    })
+        for nid, (why, data) in to_remove.items():
+            logger.warning("syncer: removing node %s (%s)", nid, why)
+            events_mod.emit("syncer", why, severity="ERROR", entity_id=nid,
+                            **data)
+            self.remove_node_state(nid)
 
     def _on_remote_worker_exited(self, msg: dict) -> None:
         wid = bytes.fromhex(msg["worker_id"])

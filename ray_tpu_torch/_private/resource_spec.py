@@ -82,3 +82,30 @@ def autodetect_resources(
     except ImportError:
         total.setdefault("memory", 8.0 * 1024**3)
     return total, ids
+
+
+def host_stats() -> Dict[str, float]:
+    """Live host utilization for node heartbeats (the per-node metrics
+    the reference's dashboard agent reports,
+    ``dashboard/modules/reporter/reporter_agent.py:253``).  /proc reads
+    only — no psutil dependency on the hot heartbeat path."""
+    stats: Dict[str, float] = {"cpu_count": float(os.cpu_count() or 1)}
+    try:
+        with open("/proc/loadavg") as f:
+            stats["load_1m"] = float(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        mem: Dict[str, int] = {}
+        with open("/proc/meminfo") as f:
+            for line in f:
+                k, _, rest = line.partition(":")
+                if k in ("MemTotal", "MemAvailable"):
+                    mem[k] = int(rest.split()[0])  # kB
+        if mem:
+            stats["mem_total_mb"] = round(mem.get("MemTotal", 0) / 1024, 1)
+            stats["mem_available_mb"] = round(
+                mem.get("MemAvailable", 0) / 1024, 1)
+    except (OSError, ValueError):
+        pass
+    return stats

@@ -1,0 +1,23 @@
+"""ray_tpu_torch.autoscaler — demand-driven cluster scaling.
+
+The port's copy of ``ray_tpu/autoscaler`` (analog of
+``python/ray/autoscaler``): the ``StandardAutoscaler`` reconcile loop
+(``_private/autoscaler.py:167``) over pluggable ``NodeProvider``s
+(``autoscaler/node_provider.py:13``), with a local provider whose nodes
+are real node-agent subprocesses holding ``node_config["num_gpus"]``
+cards.  Demand counts ``"GPU"``: a pending actor or task that asks for a
+card the cluster lacks waits as demand until a node with one joins.
+"""
+
+from ray_tpu_torch.autoscaler.autoscaler import (
+    AutoscalingConfig,
+    Monitor,
+    StandardAutoscaler,
+)
+from ray_tpu_torch.autoscaler.local_node_provider import LocalNodeProvider
+from ray_tpu_torch.autoscaler.node_provider import NodeProvider
+
+__all__ = [
+    "AutoscalingConfig", "StandardAutoscaler", "Monitor", "NodeProvider",
+    "LocalNodeProvider",
+]

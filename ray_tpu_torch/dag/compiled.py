@@ -7,18 +7,21 @@ zero scheduler involvement.  Every actor in the graph runs a persistent
 execution loop on a dedicated thread (installed through the
 ``compiled_graph`` task lane in ``actor.py``/``_private/worker.py``, so the
 loop never occupies the normal method lane), and every edge is a
-pre-allocated fixed-slot SPSC shm ring (``dag/channel.py``).  The
-dynamic path re-submits every node per call — each
+pre-allocated channel (``dag/channel.py``): a fixed-slot SPSC shm ring for
+same-node edges, an ``object_transfer``-style authenticated stream for
+cross-node edges.  The dynamic path re-submits every node per call — each
 hop paying dispatch + object-plane sealing; here a call is just channel
 hops, which is what pipeline-parallel schedules and prefill→decode serving
 need to keep up with a card's step times.
 
-Compile protocol (driver-side, two actor round trips, all at compile
+Compile protocol (driver-side, three actor round trips, all at compile
 time only):
 
-1. ``prepare`` — each actor creates its OUT-edge shm rings in the
-   session's namespace.
-2. ``start`` — each actor attaches its IN-edge readers and starts the loop.
+1. ``locality`` — each actor reports ``(hostname, shm_dir)``; comparing
+   endpoint localities picks each edge's transport.
+2. ``prepare`` — each actor creates its OUT-edge resources (shm rings in
+   its node's namespace / stream listeners) and returns stream addresses.
+3. ``start`` — each actor attaches its IN-edge readers and starts the loop.
 
 Execution semantics:
 
@@ -54,9 +57,7 @@ Limitations vs the reference aDAG: DAG nodes must be actor method calls
 (no bare task nodes), node arguments may reference other nodes only at
 top level (no nesting inside containers), one output node, asyncio actors
 not special-cased, ObjectRefs cannot ride channel payloads (nothing would
-pin them; loudly rejected).  The port's runtime runs one node per
-head, so every edge is a shm ring: edges between hosts (the reference's
-stream channel) wait for a node agent.  Concurrency caveat: compiled
+pin them; loudly rejected).  Concurrency caveat: compiled
 methods run on the graph's dedicated loop thread — they are serialized
 against each other but NOT against normal ``.remote()`` method calls on
 the same actor (same tradeoff as the reference's aDAG executor thread),
@@ -67,6 +68,7 @@ itself.
 from __future__ import annotations
 
 import os
+import socket
 import threading
 import time
 import traceback
@@ -81,6 +83,8 @@ from ray_tpu_torch.dag.channel import (
     ChannelClosedError,
     ChannelTimeoutError,
     ShmChannel,
+    StreamReaderChannel,
+    StreamWriterChannel,
 )
 from ray_tpu_torch.dag.dag_node import ClassMethodNode, ClassNode, InputNode, _DAGInput
 from ray_tpu_torch.exceptions import ActorDiedError, RayTaskError
@@ -139,6 +143,12 @@ def _deser_error(payload: bytes) -> BaseException:
     if isinstance(err, BaseException):
         return err
     return RayTaskError(f"upstream compiled-graph error: {err!r}")
+
+
+def _locality() -> Tuple[str, str]:
+    from ray_tpu_torch._private.shm import shm_dir
+
+    return (socket.gethostname(), shm_dir())
 
 
 # ---------------------------------------------------------------------------
@@ -204,9 +214,10 @@ _LOCAL_LOCK = make_lock("compiled.local_channels")
 class _ActorGraph:
     """Per-actor compiled-graph state living in the actor's worker."""
 
-    def __init__(self, gid: str, tasks: List[_TaskPlan]):
+    def __init__(self, gid: str, tasks: List[_TaskPlan], authkey: bytes):
         self.gid = gid
         self.tasks = tasks
+        self.authkey = authkey
         self.writers: Dict[int, Any] = {}   # eid -> writer channel
         self.readers: Dict[int, Any] = {}   # eid -> reader channel
         self.owned_segments: List[str] = []
@@ -389,23 +400,35 @@ def _cdag_rpc(instance, op: str, blob: bytes = b"") -> Any:
     """
     import cloudpickle
 
+    if op == "locality":
+        return _locality()
+
     if op == "prepare":
         plan = cloudpickle.loads(blob)
-        g = _ActorGraph(plan["gid"], plan["tasks"])
+        g = _ActorGraph(plan["gid"], plan["tasks"], plan["authkey"])
+        addrs: Dict[int, tuple] = {}
         for eid, spec in plan["out_channels"].items():
-            g.writers[eid] = ShmChannel.create(spec["name"], spec["slots"],
-                                               spec["slot_bytes"])
-            g.owned_segments.append(spec["name"])
+            if spec["kind"] == "shm":
+                ch = ShmChannel.create(spec["name"], spec["slots"],
+                                       spec["slot_bytes"])
+                g.owned_segments.append(spec["name"])
+            else:
+                ch = StreamWriterChannel(spec["slots"], plan["authkey"])
+                addrs[eid] = ch.addr
+            g.writers[eid] = ch
         with _LOCAL_LOCK:
             _LOCAL_GRAPHS[plan["gid"]] = g
-        return "ok"
+        return addrs
 
     if op == "start":
         info = cloudpickle.loads(blob)
         with _LOCAL_LOCK:
             g = _LOCAL_GRAPHS[info["gid"]]
-        for eid, name in info["in_channels"].items():
-            g.readers[eid] = ShmChannel.attach(name)
+        for eid, spec in info["in_channels"].items():
+            if spec["kind"] == "shm":
+                g.readers[eid] = ShmChannel.attach(spec["name"])
+            else:
+                g.readers[eid] = StreamReaderChannel(spec["addr"], g.authkey)
         g.instance = instance
         g.thread = threading.Thread(
             target=g.run_loop, daemon=True,
@@ -608,29 +631,49 @@ class CompiledDAG:
         self._edges = edges
         self._out_eid = out_eid
 
+        # -- locality gather (round trip 1) ----------------------------
+        loc_refs = [h._submit_compiled_task(_cdag_rpc, ("locality",),
+                                            name="cdag.locality")
+                    for h in self.actors]
+        localities = ray_tpu_torch.get(loc_refs, timeout=120)
+        driver_loc = _locality()
+
         from ray_tpu_torch._private.shm import session_shm_name
 
+        authkey = self._authkey()
         for eid, e in enumerate(edges):
-            e["name"] = session_shm_name(f"cdag{self._gid}e{eid}")
+            wloc = driver_loc if e["writer"] == DRIVER else \
+                localities[actor_of_node[e["writer"]]]
+            rloc = driver_loc if e["reader"] == DRIVER else \
+                localities[actor_of_node[e["reader"]]]
+            e["kind"] = "shm" if wloc == rloc else "stream"
+            if e["kind"] == "shm":
+                e["name"] = session_shm_name(f"cdag{self._gid}e{eid}")
 
-        # -- prepare (round trip 1): writers create their channels ------
+        # -- prepare (round trip 2): writers create their channels ------
         import cloudpickle
 
         prep_refs = []
         for slot, h in enumerate(self.actors):
             my_tasks = [p for j, p in enumerate(plans)
                         if actor_of_node[j] == slot]
-            out_channels = {
-                eid: {"name": edges[eid]["name"],
-                      "slots": self._max_inflight,
-                      "slot_bytes": self._slot_bytes}
-                for p in my_tasks for eid in p.out_edges}
-            plan = {"gid": self._gid, "tasks": my_tasks,
+            out_channels = {}
+            for p in my_tasks:
+                for eid in p.out_edges:
+                    e = edges[eid]
+                    spec = {"kind": e["kind"], "slots": self._max_inflight,
+                            "slot_bytes": self._slot_bytes}
+                    if e["kind"] == "shm":
+                        spec["name"] = e["name"]
+                    out_channels[eid] = spec
+            plan = {"gid": self._gid, "tasks": my_tasks, "authkey": authkey,
                     "out_channels": out_channels}
             prep_refs.append(h._submit_compiled_task(
                 _cdag_rpc, ("prepare", cloudpickle.dumps(plan)),
                 name="cdag.prepare"))
-        ray_tpu_torch.get(prep_refs, timeout=120)
+        stream_addrs: Dict[int, tuple] = {}
+        for reply in ray_tpu_torch.get(prep_refs, timeout=120):
+            stream_addrs.update(reply)
         # driver-side writers (input/trigger edges)
         self._writers: Dict[int, Any] = {}
         self._input_eids: List[int] = []
@@ -638,22 +681,38 @@ class CompiledDAG:
             if e["writer"] != DRIVER:
                 continue
             self._input_eids.append(eid)
-            self._writers[eid] = ShmChannel.create(
-                e["name"], self._max_inflight, self._slot_bytes)
+            if e["kind"] == "shm":
+                self._writers[eid] = ShmChannel.create(
+                    e["name"], self._max_inflight, self._slot_bytes)
+            else:
+                ch = StreamWriterChannel(self._max_inflight, authkey)
+                stream_addrs[eid] = ch.addr
+                self._writers[eid] = ch
 
-        # -- start (round trip 2): readers attach, loops start ----------
+        # -- start (round trip 3): readers attach, loops start ----------
         start_refs = []
         for slot, h in enumerate(self.actors):
-            in_channels = {
-                eid: edges[eid]["name"]
-                for j, p in enumerate(plans) if actor_of_node[j] == slot
-                for eid in p.in_edges}
+            in_channels = {}
+            for j, p in enumerate(plans):
+                if actor_of_node[j] != slot:
+                    continue
+                for eid in p.in_edges:
+                    e = edges[eid]
+                    if e["kind"] == "shm":
+                        in_channels[eid] = {"kind": "shm", "name": e["name"]}
+                    else:
+                        in_channels[eid] = {"kind": "stream",
+                                            "addr": stream_addrs[eid]}
             info = {"gid": self._gid, "in_channels": in_channels}
             start_refs.append(h._submit_compiled_task(
                 _cdag_rpc, ("start", cloudpickle.dumps(info)),
                 name="cdag.start"))
         ray_tpu_torch.get(start_refs, timeout=120)
-        self._reader = ShmChannel.attach(edges[out_eid]["name"])
+        out_e = edges[out_eid]
+        if out_e["kind"] == "shm":
+            self._reader = ShmChannel.attach(out_e["name"])
+        else:
+            self._reader = StreamReaderChannel(stream_addrs[out_eid], authkey)
         self._actor_ids = {h._actor_id.hex() for h in self.actors}
         # restart-detection baseline, snapshotted NOW: a ClassNode caches
         # its actor handle, so compile may adopt an actor that already
@@ -670,7 +729,8 @@ class CompiledDAG:
             pass  # conservative default 0 per actor
         _events.emit(_SOURCE, "graph compiled", entity_id=self._gid,
                      nodes=len(plans), actors=len(self.actors),
-                     edges=len(edges))
+                     edges=len(edges),
+                     stream_edges=sum(e["kind"] == "stream" for e in edges))
 
     # -- execution -----------------------------------------------------
     def execute(self, *args, **kwargs) -> CompiledDAGRef:
@@ -824,8 +884,8 @@ class CompiledDAG:
                 self._drain_output(block=True)
                 broken = (self._broken if seq not in self._results else None)
             if broken:
-                # actor death is the usual cause of a poisoned output —
-                # surface it as the typed ActorDiedError
+                # actor death is the usual cause of a poisoned output
+                # (stream EOF) — surface it as the typed ActorDiedError
                 self._check_alive()
                 raise CompiledGraphError(
                     f"compiled DAG is broken ({broken}); teardown() and "
@@ -855,6 +915,12 @@ class CompiledDAG:
         if isinstance(value, _Traced):  # traced execution: unwrap the output
             value = value.value
         return value
+
+    def _authkey(self) -> bytes:
+        node = self._w.node
+        if node is not None:
+            return node.authkey
+        return bytes.fromhex(os.environ["RAY_TPU_TORCH_AUTHKEY"])
 
     def _actor_rows(self) -> List[dict]:
         """The head's state rows (``actor_id`` hex, ``class_name``,
@@ -916,7 +982,7 @@ class CompiledDAG:
         # poison every same-namespace shm edge by name — covers edges
         # between two actors whose writer died and can't poison for itself
         for e in getattr(self, "_edges", []):
-            if "name" in e:
+            if e.get("kind") == "shm":
                 try:
                     ch = ShmChannel.attach(e["name"])
                     ch.poison()
@@ -944,7 +1010,7 @@ class CompiledDAG:
         from ray_tpu_torch._private.shm import ShmSegment
 
         for e in getattr(self, "_edges", []):
-            if "name" in e and e["writer"] == DRIVER:
+            if e.get("kind") == "shm" and e["writer"] == DRIVER:
                 ShmSegment.unlink(e["name"])
         _events.emit(_SOURCE, "graph torn down", entity_id=self._gid)
 

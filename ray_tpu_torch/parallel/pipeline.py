@@ -21,13 +21,16 @@ body keeps its global view of those axes.
   a masked all-reduce, the aux divided by ``M``.
 
 The backward is autograd through those collectives: there is no
-hand-written reverse schedule.  ``MicrobatchPipeline``, which pipelines
-between actors over a compiled graph, needs the runtime and is not here.
+hand-written reverse schedule.
+
+:class:`MicrobatchPipeline` is the same schedule at actor granularity:
+stage actors chained by a compiled execution graph (``dag/compiled.py``),
+the shape used when stages are whole hosts.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
@@ -129,3 +132,63 @@ def gpipe(stage_body: Callable[[Any, Any], Tuple[Any, Any]], blocks: Any, x: DTe
         return DTensor.from_local(t.to_local(), mesh, pl, run_check=False)
 
     return to_mesh(out), to_mesh(aux)
+
+
+# ---------------------------------------------------------------------------
+# Actor-level microbatch pipelining over a compiled execution graph
+# ---------------------------------------------------------------------------
+
+
+class MicrobatchPipeline:
+    """The GPipe microbatch schedule at ACTOR granularity, driven by a
+    compiled execution graph (``dag/compiled.py``).
+
+    :func:`gpipe` above pipelines *inside* one program over the ``pp``
+    mesh axis; this class pipelines *between* stage actors — the shape
+    used when stages are whole hosts (one model shard per node) rather
+    than mesh slices.  The stage chain compiles once into per-actor
+    execution loops connected by pre-allocated channels (shm rings on one
+    node, streams between nodes), so streaming ``M`` microbatches keeps
+    every stage busy: stage ``k`` processes microbatch ``i`` while stage
+    ``k+1`` processes ``i-1`` — the classic ``(S-1)/(M+S-1)`` bubble, with
+    per-hop cost a channel write instead of a scheduler round trip.
+
+    ``stages`` are bound actor constructors (``Actor.bind(...)`` class
+    nodes); each stage's ``method`` takes the previous stage's output.
+    ``n_microbatches`` defaults to ``2 * len(stages)``, and the channels
+    hold ``n_microbatches + len(stages)`` executions unless
+    ``max_inflight`` is given; other keywords go to
+    ``experimental_compile``.
+    """
+
+    def __init__(self, stages: Sequence[Any], *, method: str = "run",
+                 n_microbatches: int = 0, **compile_kwargs):
+        from ray_tpu_torch.dag import InputNode
+
+        if not stages:
+            raise ValueError("MicrobatchPipeline needs at least one stage")
+        self.n_stages = len(stages)
+        self.n_microbatches = n_microbatches or 2 * len(stages)
+        with InputNode() as inp:
+            h = inp
+            for s in stages:
+                h = getattr(s, method).bind(h)
+        compile_kwargs.setdefault(
+            "max_inflight", self.n_microbatches + len(stages))
+        self._dag = h.experimental_compile(**compile_kwargs)
+
+    @property
+    def actors(self) -> List[Any]:
+        return self._dag.actors
+
+    def run(self, microbatches: Sequence[Any],
+            timeout: Optional[float] = None) -> List[Any]:
+        """Stream the microbatches through the stage chain; returns the
+        last stage's outputs in order.  All microbatches are in flight
+        together (channel slots bound the depth), which is the entire
+        point — submit-then-drain would serialize the stages."""
+        refs = [self._dag.execute(mb) for mb in microbatches]
+        return [r.get(timeout=timeout) for r in refs]
+
+    def teardown(self) -> None:
+        self._dag.teardown()

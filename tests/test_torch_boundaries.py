@@ -70,6 +70,45 @@ def test_importing_tune_and_rllib_loads_neither_jax_nor_ray_tpu():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
+def test_node_agent_and_its_workers_load_neither_jax_nor_ray_tpu():
+    """A subprocess starts a port head and a real node agent
+    (``python -m ray_tpu_torch._private.node_agent`` through
+    ``cluster_utils.Cluster``), runs a task on the agent's node and an
+    autoscaler pass: with ``PYTHONPROFILEIMPORTTIME`` in the agent's env,
+    every module the agent imports is listed on stderr, and none is JAX's
+    or ray_tpu's; the task's worker reports its own modules, and the
+    subprocess itself loads neither."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch\n"
+        "from ray_tpu_torch.autoscaler import LocalNodeProvider, StandardAutoscaler\n"
+        "from ray_tpu_torch._private.worker import global_worker\n"
+        "from ray_tpu_torch.cluster_utils import Cluster\n"
+        "from ray_tpu_torch.util.scheduling_strategies import NodeAffinitySchedulingStrategy\n"
+        "c = Cluster(head_node_args={'num_cpus': 1, 'num_gpus': 0}, real_processes=True)\n"
+        "try:\n"
+        "    b = c.add_node(num_cpus=1, env={'PYTHONPROFILEIMPORTTIME': '1'})\n"
+        "    f = ray_tpu_torch.remote(scheduling_strategy=NodeAffinitySchedulingStrategy(b))(\n"
+        "        lambda: (ray_tpu_torch.get_runtime_context().node_id,\n"
+        "                 [m for m in sys.modules if m.split('.')[0] in %r]))\n"
+        "    assert ray_tpu_torch.get(f.remote(), timeout=120) == (b, [])\n"
+        "    head = global_worker.node\n"
+        "    StandardAutoscaler(head, LocalNodeProvider(head)).update()\n"
+        "finally:\n"
+        "    c.shutdown()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n" % (FORBIDDEN, FORBIDDEN))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=240,
+                         capture_output=True, text=True)
+    loaded = {line.rsplit("|", 1)[1].strip() for line in out.stderr.splitlines()
+              if line.startswith("import time:") and "|" in line}
+    # the agent's own modules were listed
+    assert {"ray_tpu_torch._private.syncer", "ray_tpu_torch._private.object_transfer",
+            "ray_tpu_torch._private.log_plane"} <= loaded, sorted(loaded)[:50]
+    bad = sorted(m for m in loaded if m.split(".")[0] in FORBIDDEN)
+    assert not bad, bad
+
+
 def _module_level_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in tree.body:

@@ -3,13 +3,14 @@
 ``tests/test_compiled_dag.py``: the channel substrate (ring semantics,
 overflow, poison, the stream transport on loopback), the compiled-graph
 lifecycle, the chaos contract (a SIGKILLed mid-graph actor surfaces as a
-typed error, never a hang) and the flight recorder.  Left out with what
-they drive: the microbatch pipeline (``MicrobatchPipeline`` is not
-ported) and cross-node stream edges (the port runs one node per head).
-The prefill→decode graph is held to the JAX package's ``prefill`` +
-``decode_chunk`` on the same weights.
+typed error, never a hang), the flight recorder, the microbatch
+pipeline's schedule and cross-node stream edges over a real agent.  The
+prefill→decode graph is held to the JAX package's ``prefill`` +
+``decode_chunk`` on the same weights, and a two-stage tiny GPT-2
+``MicrobatchPipeline`` to its ``gpt2.apply``.
 
-One port head serves the module (``init(num_cpus=4, num_gpus=2)``); no
+One port head serves the module (``init(num_cpus=4, num_gpus=2)``) until
+the last test, which replaces it with a ``Cluster`` of real agents; no
 JAX head starts.
 """
 
@@ -461,3 +462,120 @@ def test_prefill_decode_stages_share_card_zero_on_half_grants(compiled_cluster):
         assert ray_tpu_torch.available_resources()["GPU"] == 1.0
     finally:
         g.teardown()
+
+
+# ---------------------------------------------------------------------------
+# workload proofs: the microbatch pipeline between stage actors
+# ---------------------------------------------------------------------------
+
+
+def test_microbatch_pipeline_schedule(compiled_cluster):
+    from ray_tpu_torch.parallel.pipeline import MicrobatchPipeline
+
+    @ray_tpu_torch.remote
+    class Add:
+        def __init__(self, k):
+            self.k = k
+
+        def run(self, x):
+            time.sleep(0.05)
+            return x + self.k
+
+    pipe = MicrobatchPipeline([Add.bind(1), Add.bind(10), Add.bind(100)],
+                              n_microbatches=6)
+    try:
+        assert pipe.n_microbatches == 6 and pipe._dag._max_inflight == 6 + 3
+        t0 = time.perf_counter()
+        out = pipe.run(list(range(6)), timeout=120)
+        wall = time.perf_counter() - t0
+        assert out == [i + 111 for i in range(6)]
+        # serial = S*M*0.05 = 0.9s; the pipelined schedule is
+        # (M+S-1)*0.05 = 0.4s.  Assert the stages actually overlapped.
+        assert wall < 0.8, f"no pipeline overlap: wall={wall:.2f}s"
+        assert len(pipe.actors) == 3
+    finally:
+        pipe.teardown()
+
+
+def test_microbatch_pipeline_gpt2_stages_match_jax_apply(compiled_cluster):
+    """Tiny GPT-2 in f32 cut into two stage actors (``chip_smoke.GPT2Stage``,
+    the card phase's stage on the CPU here): each microbatch's per-token
+    next-token NLL through ``MicrobatchPipeline`` equals the JAX package's
+    ``gpt2.apply`` on the same weights (carried across by
+    ``convert.from_jax_params``) within 1e-5, absolute and relative, the
+    f32 tolerance of ``test_torch_bert.py`` (torch's and XLA's CPU
+    reductions differ in order: up to 5e-6 of an NLL of ~6 has been seen
+    under the tier-1 run's 6 workers)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from chip_smoke import GPT2Stage
+    from ray_tpu.models import gpt2 as jgpt2
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel.pipeline import MicrobatchPipeline
+
+    jcfg = jgpt2.GPT2Config.tiny(dtype=jnp.float32)
+    cfg = gpt2.GPT2Config.tiny(dtype=torch.float32)
+    params = jax.tree.map(np.asarray, jgpt2.init(jcfg, jax.random.PRNGKey(3)))
+    rng = np.random.default_rng(5)
+    mbs = [rng.integers(0, cfg.vocab_size, (2, 17), np.int32) for _ in range(4)]
+    stage = ray_tpu_torch.remote(GPT2Stage)
+    pipe = MicrobatchPipeline(
+        [stage.bind(cfg, 0, 1, params, device="cpu"), stage.bind(cfg, 1, 2, params, device="cpu")],
+        n_microbatches=len(mbs))
+    try:
+        got = pipe.run(mbs, timeout=300)
+    finally:
+        pipe.teardown()
+    for ids, nll in zip(mbs, got):
+        logits = jgpt2.apply(params, jnp.asarray(ids[:, :-1]), jcfg)
+        want = jax.nn.logsumexp(logits, -1) - jnp.take_along_axis(
+            logits, jnp.asarray(ids[:, 1:])[..., None], -1)[..., 0]
+        assert nll.shape == (2, 16) and nll.dtype == np.float32
+        np.testing.assert_allclose(nll, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# cross-node: stream channels over a real agent process
+# ---------------------------------------------------------------------------
+
+
+def test_compiled_graph_cross_node_stream_edges(compiled_cluster):
+    """Two stages pinned to different REAL nodes (private shm namespaces):
+    the edge between them must come up as a stream channel and the graph
+    must still round-trip.  Runs last: it replaces the module's head with a
+    ``Cluster``'s."""
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.util.scheduling_strategies import NodeAffinitySchedulingStrategy
+
+    ray_tpu_torch.shutdown()
+    cluster = Cluster(initialize_head=True,
+                      head_node_args={"num_cpus": 2, "num_gpus": 0},
+                      real_processes=True)
+    try:
+        node_b = cluster.add_node(num_cpus=2)
+        head = cluster.node_ids[0]
+
+        with InputNode() as inp:
+            s1 = _Stage.options(
+                scheduling_strategy=NodeAffinitySchedulingStrategy(head)
+            ).bind(1)
+            s2 = _Stage.options(
+                scheduling_strategy=NodeAffinitySchedulingStrategy(node_b)
+            ).bind(10)
+            dag = s2.fwd.bind(s1.fwd.bind(inp))
+        cg = dag.experimental_compile(max_inflight=2)
+        try:
+            kinds = [(e["writer"], e["reader"], e["kind"]) for e in cg._edges]
+            # the driver and stage 1 share the head's namespace; stage 2's
+            # node has its own, so both of its edges are streams
+            assert sorted(kinds) == [(-1, 0, "shm"), (0, 1, "stream"), (1, -1, "stream")], kinds
+            assert isinstance(cg._reader, StreamReaderChannel)
+            for i in range(5):
+                assert cg.execute(i).get(timeout=120) == i + 11
+        finally:
+            cg.teardown()
+    finally:
+        cluster.shutdown()

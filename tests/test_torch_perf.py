@@ -98,3 +98,63 @@ def test_active_profiler_and_memory_sample_on_the_cpu():
     sample = perf.sample_device_memory()
     assert sample["kind"] == "host_rss" and sample["bytes_in_use"] > 0
     assert not torch.cuda.is_initialized()
+
+
+def test_profiling_double_start_guard_and_profile_step(tmp_path):
+    """``profile_trace`` degrades to a no-op when a trace is already live,
+    and ``profile_step`` arms a one-step trace on the active profiler (the
+    JAX package's test by name): False without one; with one, the next
+    ``prof.step()`` writes a trace under the directory and the step after
+    it runs untraced."""
+    from ray_tpu_torch.util import profiling
+
+    outer = tmp_path / "outer"
+    with profiling.profile_trace(str(outer)):
+        with profiling.profile_trace(str(tmp_path / "inner")):
+            torch.ones(3).sum()
+    assert outer.exists() and any(outer.rglob("*"))
+    assert not (tmp_path / "inner").exists()
+    # no active profiler: arming reports False
+    assert perf.active_profiler() is None
+    assert profiling.profile_step(str(tmp_path / "none")) is False
+    prof = perf.StepProfiler(hbm_every=0).install()
+    try:
+        stepdir = tmp_path / "one-step"
+        assert profiling.profile_step(str(stepdir)) is True
+        with prof.step():
+            (torch.ones(8, 8) @ torch.ones(8, 8)).sum()
+        files = {(p, p.stat().st_mtime_ns, p.stat().st_size) for p in stepdir.rglob("*")}
+        assert files
+        # one-shot: the NEXT step runs untraced
+        with prof.step():
+            pass
+        assert {(p, p.stat().st_mtime_ns, p.stat().st_size) for p in stepdir.rglob("*")} == files
+        assert len(prof.steps) == 2
+    finally:
+        prof.uninstall()
+    assert not (tmp_path / "none").exists()
+
+
+def test_profiling_timed_scope():
+    """``timed`` records a histogram ``ray_tpu_torch_timed_<name>_seconds``
+    shaped as the JAX package's ``ray_tpu_timed_<name>_seconds`` for the
+    same scopes (type, bounds, count), and ``span`` is a no-op without
+    OpenTelemetry."""
+    from ray_tpu.util import metrics as jax_metrics
+    from ray_tpu.util import profiling as jax_profiling
+    from ray_tpu_torch.util import metrics, profiling
+
+    for mod in (profiling, jax_profiling):
+        for _ in range(2):
+            with mod.timed("unit_scope"):
+                time.sleep(0.01)
+    snap = metrics.registry().snapshot()["ray_tpu_torch_timed_unit_scope_seconds"]
+    jax_snap = jax_metrics.registry().snapshot()["ray_tpu_timed_unit_scope_seconds"]
+    (vals,), (jax_vals,) = snap["values"].values(), jax_snap["values"].values()
+    assert vals["count"] == jax_vals["count"] >= 2 and vals["sum"] >= 0.02
+    assert snap["type"] == jax_snap["type"] == "histogram"
+    assert tuple(vals["bounds"]) == tuple(jax_vals["bounds"])
+    assert sum(vals["buckets"]) == vals["count"]
+
+    with profiling.span("noop-span"):
+        pass
