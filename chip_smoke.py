@@ -230,13 +230,34 @@ the backward kernels):
     In 29-32 each replica's or stage's own launch counts (read in its
     process through the compiled-graph control lane) are set to 0 just
     before the traffic and read just after.
+33. ``operator_job_gpt2`` (after 32, with no head in this process): the
+    operator plane.  ``autoscaler.commands.up`` with the local runner
+    starts ``python -m ray_tpu_torch start --head`` (2 CPUs, no card) and
+    one node agent (4 CPUs, ``--num-gpus 1``); ``python -m ray_tpu_torch
+    status`` sees 2 nodes and 1 GPU; ``JobSubmissionClient`` submits a
+    driver script whose ``num_gpus=1`` actor runs GPT-2 125M bf16 (seed
+    0) greedy over 8 prompts (``default_rng(0)``) x 32 new tokens, every
+    prompt queued before the engine starts.  Gates: SUCCEEDED; the streams
+    equal an engine's of the same settings here; 12 ``flash_fwd`` launches
+    (one prefill of all 8), all on the tensor cores, counted in the actor;
+    the actor on the agent's node under ``CUDA_VISIBLE_DEVICES`` "0";
+    ``list_nodes``, ``list_actors``, ``list_jobs``, ``summarize_tasks``,
+    ``list_events`` and ``timeline_dump`` show the card, the actor, the
+    job and its method's slice; a second job holding the card, stopped by
+    ``python -m ray_tpu_torch job-stop``, is STOPPED and the grant is back
+    within 30 s; after ``commands.down`` no head, agent or actor process
+    runs and ``nvidia-smi --query-compute-apps=pid`` lists none of them.
+    Prints ``up``'s seconds to the session record and to the agent's
+    registration, submit to RUNNING and to SUCCEEDED, ``job-stop`` to the
+    grant freed, ``down`` to every process gone, and the card's name and
+    power limit.
 
 Every bf16 launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 on the serving and training paths has to run the tensor-core design
 (their ``_tc`` launch counts equal their totals; the profiled steps find
 only the ``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
-summed over the serving, training, Tune, RL, Data, Serve, graph and
-multi-node pipeline runs, and per run), the card's name
+summed over the serving, training, Tune, RL, Data, Serve, graph,
+multi-node pipeline and operator-job runs, and per run), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": {...}}``.  Exits non-zero,
 printing no result, when there is no CUDA device or any phase fails.
@@ -509,10 +530,12 @@ TC_EDGE_CASES = [(2, 3, 97, 131, 64, True, torch.bfloat16), (2, 3, 97, 131, 128,
 
 # the Serve paths' own shapes, on the model's fused qkv layout: the
 # prefill stage of prefill_decode_graph (one request, bucket 128, bf16,
-# tensor cores) and the f32 gate of serve_llm_deployment (an admission of
-# 16 slots at 128, f32, CUDA cores)
+# tensor cores), the f32 gate of serve_llm_deployment (an admission of
+# 16 slots at 128, f32, CUDA cores) and operator_job_gpt2's job (one
+# prefill of 8 slots at 128, bf16, tensor cores)
 SERVE_PATH_CASES = [(1, 12, 128, 128, 64, True, torch.bfloat16, "fused"),
-                    (16, 12, 128, 128, 64, True, torch.float32, "fused")]
+                    (16, 12, 128, 128, 64, True, torch.float32, "fused"),
+                    (8, 12, 128, 128, 64, True, torch.bfloat16, "fused")]
 
 # BERT-base's attention (non-causal, bf16, D 64, q/k/v views of one fused
 # projection): serve_bert's 16 x 128 batch, and a 4 x 512 one at the
@@ -3994,6 +4017,344 @@ def phase_multinode_pipeline_gpt2():
     return launches
 
 
+# operator_job_gpt2: 8 fixed prompts (numpy default_rng(0), 16-99 ids in
+# [1, 50000)) x 32 new greedy tokens through GPT-2 125M bf16 (seed 0) in a
+# submitted job's num_gpus=1 actor; every prompt is queued before the
+# engine starts, so one prefill admits all 8 (12 flash_fwd launches)
+OP_PROMPTS, OP_NEW_TOKENS = 8, 32
+OP_ENGINE = dict(n_slots=8, max_new_tokens=32, decode_chunk_steps=16, prefill_buckets=(128,))
+OP_CLUSTER = {"cluster_name": "smoke", "provider": {"type": "local"},
+              "head_node": {"address": "127.0.0.1", "num_cpus": 2, "num_gpus": 0},
+              "worker_nodes": [{"address": "127.0.0.1", "num_cpus": 4, "num_gpus": 1}]}
+# seconds: the agent's registration, each job, the grant's release after
+# job-stop, and the cluster's exit after down
+OP_JOIN_S, OP_JOB_S, OP_FREE_S, OP_DOWN_S = 120, 600, 30, 60
+
+# The submitted job's driver: ``python3 <this file> <args.json> run|hold``.
+# It joins through RAY_TPU_TORCH_ADDRESS (the head puts it in the job's
+# env) and starts a num_gpus=1 actor.  "run": the actor builds the
+# engine on its card, zeroes its launch counts, generates, reads them and
+# the driver prints one OPERATOR_RESULT line.  "hold": the actor holds
+# its grant, the driver prints OPERATOR_HOLDING and sleeps until stopped.
+OPERATOR_DRIVER = r'''
+import json, os, sys, time
+
+import ray_tpu_torch as rt
+
+args = json.load(open(sys.argv[1]))
+rt.init()
+
+
+@rt.remote(num_gpus=1)
+class Generator:
+    def place(self):
+        return {"node_id": rt.get_runtime_context().node_id, "pid": os.getpid(),
+                "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    def run(self, prompts, new_tokens, engine):
+        import torch
+        from ray_tpu_torch.ops import _build
+        from ray_tpu_torch.ops import attention as attn
+        from ray_tpu_torch.serve.llm import GenerationEngine, make_config
+
+        t0 = time.perf_counter()
+        eng = GenerationEngine(make_config("gpt2", "125m"), seed=0, device="cuda",
+                               **dict(engine, prefill_buckets=tuple(engine["prefill_buckets"])))
+        build_s = time.perf_counter() - t0
+        futs = [eng.submit(p, new_tokens) for p in prompts]
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        eng.start()
+        try:
+            streams = [f.result(timeout=600) for f in futs]
+        finally:
+            eng.stop()
+        generate_s = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        return dict(self.place(), streams=streams, engine_build_s=build_s,
+                    generate_s=generate_s, prefills=eng.prefills,
+                    flash_fwd=launches.get(attn.KERNEL, 0),
+                    flash_fwd_tc=launches.get(attn.FWD_TC, 0),
+                    peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+actor = Generator.remote()
+if sys.argv[2] == "run":
+    out = rt.get(actor.run.remote(args["prompts"], args["new_tokens"], args["engine"]),
+                 timeout=600)
+    print("OPERATOR_RESULT " + json.dumps(dict(out, driver_pid=os.getpid())), flush=True)
+else:
+    held = rt.get(actor.place.remote(), timeout=600)
+    print("OPERATOR_HOLDING " + json.dumps(dict(held, driver_pid=os.getpid())), flush=True)
+    time.sleep(3600)
+'''
+
+
+def _running(pid) -> bool:
+    """True while ``pid`` runs (a zombie awaiting its reaper has ended)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _descendants(roots) -> list:
+    """Every live process whose chain of parents reaches one of ``roots``."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                parent[int(d)] = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError):
+            continue
+    out, todo = [], list(roots)
+    while todo:
+        root = todo.pop()
+        kids = [p for p, pp in parent.items() if pp == root]
+        out += kids
+        todo += kids
+    return sorted(out)
+
+
+def _card_pids() -> list:
+    """The pids ``nvidia-smi`` lists as holding a context on a card."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return [int(p) for p in out.stdout.split() if p.strip().isdigit()]
+
+
+def _op_wait(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while True:
+        out = cond()
+        if out:
+            return out
+        check(time.monotonic() < deadline, f"operator_job_gpt2: timed out on {what}")
+        time.sleep(0.1)
+
+
+def _job_line(client, job_id, tag):
+    for line in client.get_job_logs(job_id).splitlines():
+        if line.startswith(tag + " "):
+            return json.loads(line[len(tag) + 1:])
+    return None
+
+
+def _cli(args, env):
+    """``python -m ray_tpu_torch <args>`` started from the repo root,
+    talking to the cluster in ``env``."""
+    return subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", *args],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, **env})
+
+
+def phase_operator_job_gpt2():
+    """The operator plane: ``autoscaler.commands.up`` with the local
+    runner brings up a head of 2 CPUs and no card and one node of 4 CPUs
+    holding the card; ``python -m ray_tpu_torch status`` sees 2 nodes and
+    1 GPU; ``JobSubmissionClient.submit_job`` runs ``OPERATOR_DRIVER``,
+    whose ``num_gpus=1`` actor generates ``OP_NEW_TOKENS`` greedy tokens
+    for each of ``OP_PROMPTS`` prompts with GPT-2 125M bf16 (seed 0).
+    Gates: the job SUCCEEDED; its streams equal an engine's of the same
+    settings in this process; its 12 ``flash_fwd`` launches all on the
+    tensor cores; the actor on the agent's node under
+    ``CUDA_VISIBLE_DEVICES`` "0"; the state API (nodes, actors, jobs,
+    task summary, events) and ``timeline_dump`` show the job, its actor
+    and the card; a second job holding the card, stopped by ``python -m
+    ray_tpu_torch job-stop``, ends STOPPED and the grant is back within
+    ``OP_FREE_S``; after ``down`` none of these runs (read in ``/proc``):
+    the head, the agent, each job's driver and actor, and every process
+    the head or the agent ran just before ``down``; ``nvidia-smi`` lists
+    none of them (it lists pids of its own namespace).  Returns the actor's
+    launch counts (zeroed in its process just before the generation and
+    read just after)."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import commands
+    from ray_tpu_torch.experimental import state
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+    from ray_tpu_torch.serve.llm import GenerationEngine, make_config
+    from ray_tpu_torch.util.timeline import timeline_dump
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 50000, rng.integers(16, 100)).tolist() for _ in range(OP_PROMPTS)]
+    # the reference streams: the same engine settings and queue order here
+    cfg = make_config("gpt2", "125m")
+    ref = GenerationEngine(cfg, seed=0, device="cuda", **OP_ENGINE)
+    futs = [ref.submit(p, OP_NEW_TOKENS) for p in prompts]
+    ref.start()
+    try:
+        want = [f.result(timeout=600) for f in futs]
+    finally:
+        ref.stop()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke_listed = os.getpid() in _card_pids()
+
+    pids, client, clis = {}, None, []
+    with tempfile.TemporaryDirectory(prefix="operator_job_") as tmp:
+        script, args_path = os.path.join(tmp, "driver.py"), os.path.join(tmp, "args.json")
+        with open(script, "w") as f:
+            f.write(OPERATOR_DRIVER)
+        with open(args_path, "w") as f:
+            json.dump({"prompts": prompts, "new_tokens": OP_NEW_TOKENS, "engine": OP_ENGINE}, f)
+        t0 = time.perf_counter()
+        try:
+            out = commands.up(OP_CLUSTER)
+            up_s = time.perf_counter() - t0
+            from ray_tpu_torch._private.config import session_root
+
+            with open(os.path.join(session_root(), "last_session.json")) as f:
+                pids["head"] = json.load(f)["pid"]
+            env = {"RAY_TPU_TORCH_ADDRESS": out["address"], "RAY_TPU_TORCH_AUTHKEY": out["authkey"]}
+            rt.init(address=out["address"], _authkey=bytes.fromhex(out["authkey"]))
+            agent = out["workers"][0]["node_id"]
+            _op_wait(lambda: rt.cluster_resources().get("GPU") == 1.0, OP_JOIN_S,
+                     "the agent's registration")
+            registered_s = time.perf_counter() - t0
+            pids["agent"] = next(iter(_pids_of("ray_tpu_torch._private.node_agent", agent)), None)
+            # `status` runs beside the first job (its own start is mostly
+            # torch's import)
+            status_proc = _cli(["status"], env)
+            clis.append(status_proc)
+            client = JobSubmissionClient(out["address"], bytes.fromhex(out["authkey"]))
+            t1 = time.perf_counter()
+            job = client.submit_job(entrypoint=f"{sys.executable} {script} {args_path} run",
+                                    metadata={"phase": "operator_job_gpt2"})
+            _op_wait(lambda: client.get_job_status(job) != "PENDING", 60, "RUNNING")
+            running_s = time.perf_counter() - t1
+            status_1 = client.wait_until_finish(job, timeout=OP_JOB_S, poll_s=0.1)
+            job_s = time.perf_counter() - t1
+            result = _job_line(client, job, "OPERATOR_RESULT")
+            check(status_1 == "SUCCEEDED" and result is not None,
+                  f"operator_job_gpt2: job {status_1}; its log:\n{client.get_job_logs(job)[-4000:]}")
+            pids["actor_run"], pids["driver_run"] = result["pid"], result["driver_pid"]
+            stdout, stderr = status_proc.communicate(timeout=120)
+            check(status_proc.returncode == 0, f"operator_job_gpt2: status failed: {stderr}")
+            status = json.loads(stdout)
+            status_gpus = sum(r.get("GPU", 0) for r in status["cluster_resources"].values())
+            check(status["nodes"] == 2 and status_gpus == 1.0,
+                  f"operator_job_gpt2: status {status}")
+            check(result["streams"] == want, "operator_job_gpt2: the job's greedy streams differ "
+                  "from the in-process engine's")
+            check(result["node_id"] == agent and result["cuda_visible_devices"] == "0",
+                  f"operator_job_gpt2: the actor ran on {result['node_id']} under "
+                  f"CUDA_VISIBLE_DEVICES {result['cuda_visible_devices']!r}, want {agent} and '0'")
+            launches = {attn.KERNEL: result["flash_fwd"], attn.FWD_TC: result["flash_fwd_tc"]}
+            # the job's driver is gone: its actor is reaped and the card is free
+            _op_wait(lambda: rt.available_resources().get("GPU") == 1.0, OP_FREE_S,
+                     "the first job's grant")
+
+            # the state API and the timeline, from this driver
+            nodes = {r["node_id"]: r for r in state.list_nodes()}
+            check(sum(r["alive"] for r in nodes.values()) == 2
+                  and nodes[agent]["resources"].get("GPU") == 1.0
+                  and nodes[agent]["available"].get("GPU") == 1.0
+                  and nodes["node-head"]["resources"].get("GPU") == 0.0,
+                  f"operator_job_gpt2: list_nodes {nodes}")
+            actors = [a for a in state.list_actors() if a["class_name"] == "Generator"]
+            check(len(actors) == 1 and actors[0]["node_id"] == agent,
+                  f"operator_job_gpt2: list_actors {actors}")
+            jobs = {j["job_id"]: j for j in state.list_jobs()}
+            check(jobs[job]["status"] == "SUCCEEDED" and jobs[job]["returncode"] == 0,
+                  f"operator_job_gpt2: list_jobs {jobs}")
+            tasks = state.summarize_tasks()
+            events = state.list_events(limit=100)
+            check(tasks.get("Generator.run") == {"FINISHED": 1} and events,
+                  f"operator_job_gpt2: summarize_tasks {tasks}, {len(events)} events")
+            trace_path = timeline_dump(os.path.join(tmp, "timeline.json"))
+            with open(trace_path) as f:
+                slices = [e for e in json.load(f)
+                          if e.get("name") == "Generator.run" and e.get("ph") == "X"]
+            check(len(slices) == 1 and slices[0]["pid"] == agent,
+                  f"operator_job_gpt2: timeline slices of Generator.run {slices}")
+
+            # a second job holds the card; job-stop frees it
+            hold = client.submit_job(entrypoint=f"{sys.executable} {script} {args_path} hold")
+            held = _op_wait(lambda: _job_line(client, hold, "OPERATOR_HOLDING"), OP_JOB_S,
+                            "the second job's actor")
+            pids["actor_hold"], pids["driver_hold"] = held["pid"], held["driver_pid"]
+            check(held["node_id"] == agent and rt.available_resources().get("GPU", 0) == 0,
+                  f"operator_job_gpt2: second job's actor {held}, free "
+                  f"{rt.available_resources()}")
+            t1 = time.perf_counter()
+            stop = _cli(["job-stop", hold], env)
+            clis.append(stop)
+            stdout, stderr = stop.communicate(timeout=120)
+            stop_cmd_s = time.perf_counter() - t1
+            check(stop.returncode == 0 and stdout.strip() == "stopped",
+                  f"operator_job_gpt2: job-stop {stop.returncode} {stdout!r} {stderr}")
+            status_2 = client.wait_until_finish(hold, timeout=60, poll_s=0.1)
+            _op_wait(lambda: rt.available_resources().get("GPU") == 1.0, OP_FREE_S,
+                     "the stopped job's grant")
+            freed_s = time.perf_counter() - t1
+            check(status_2 == "STOPPED", f"operator_job_gpt2: the stopped job is {status_2}")
+        finally:
+            for proc in clis:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+            if client is not None:
+                client.close()
+            rt.shutdown()
+            # every process the head and the agent started and still run
+            # (the head is the subreaper of its forked workers)
+            tree = _descendants([p for p in (pids.get("head"), pids.get("agent")) if p])
+            t1 = time.perf_counter()
+            commands.down(OP_CLUSTER)
+    pids.update({f"child_{p}": p for p in tree if p not in pids.values()})
+    left = lambda: [k for k, p in pids.items() if p is not None and _running(p)]
+    _op_wait(lambda: not left(), OP_DOWN_S, f"the cluster's exit ({left()} still run)")
+    down_s = time.perf_counter() - t1
+    for p in pids.values():
+        try:  # a zombie reparented to this process
+            os.waitpid(p, os.WNOHANG)
+        except (ChildProcessError, TypeError):
+            pass
+    listed = _card_pids()
+    on_card = sorted(set(listed) & {p for p in pids.values() if p})
+    check(pids.get("agent") is not None and not on_card,
+          f"operator_job_gpt2: agent pid {pids.get('agent')}; cluster pids on the card {on_card}")
+    check_tensor_cores("operator_job_gpt2", launches, cfg.n_layers)
+    emit("operator_job_gpt2",
+         model="gpt2 125m bf16, seed 0, one num_gpus=1 actor in a submitted job",
+         engine={k: v for k, v in OP_ENGINE.items() if k != "prefill_buckets"},
+         prompts=OP_PROMPTS, new_tokens=OP_NEW_TOKENS, agent_node=agent,
+         actor_cuda_visible_devices=result["cuda_visible_devices"],
+         up_to_session_record_s=up_s, up_to_agent_registered_s=registered_s,
+         submit_to_running_s=running_s, submit_to_succeeded_s=job_s,
+         actor_engine_build_s=result["engine_build_s"], actor_generate_s=result["generate_s"],
+         actor_peak_mem_bytes=result["peak_mem_bytes"], streams_equal_in_process=True,
+         job_stop_command_s=stop_cmd_s, job_stop_to_grant_freed_s=freed_s,
+         grant_free_limit_s=OP_FREE_S, down_to_all_exited_s=down_s,
+         cluster_pids=pids, cluster_pids_on_card=on_card, card_pids_listed=listed,
+         nvidia_smi_lists_this_process=smoke_listed,
+         timeline_method_slice_ms=slices[0]["dur"] / 1e3,
+         tasks_by_name=tasks, events_listed=len(events),
+         flash_launches=launches[attn.KERNEL], flash_launches_tensor_core=launches[attn.FWD_TC],
+         card=nvidia_smi())
+    return launches
+
+
+def _pids_of(*needles):
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode()
+        except OSError:
+            continue
+        if all(n in cmd for n in needles) and _running(int(d)):
+            out.append(int(d))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -4094,6 +4455,9 @@ def main() -> int:
         finally:
             rt.shutdown()
     pipeline_launches = phase_multinode_pipeline_gpt2()
+    gc.collect()
+    torch.cuda.empty_cache()
+    operator_launches = phase_operator_job_gpt2()
 
     runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama, "serve_bert": bert_launches,
             "train_gpt2": train_launches, "train_llama": llama_launches,
@@ -4103,6 +4467,7 @@ def main() -> int:
             "serve_bert_http": bert_http_launches, "serve_llm_deployment": llm_launches,
             "prefill_decode_graph": graph_launches,
             "multinode_pipeline_gpt2": pipeline_launches,
+            "operator_job_gpt2": operator_launches,
             "rl_parity": rl_parity_launches,
             "rl_ppo_atari": rl_launches, "rl_ppo_atari_runtime": rl_runtime_launches,
             "tune_gpt2_trainer": tune_launches, "rl_appo_atari_runtime": appo_launches,

@@ -30,8 +30,13 @@ workers, ``rllib.serve_policy``'s PolicyServer on a card).  A cluster grows past
 the head's host through node agents (``_private/node_agent.py``, started
 by ``cluster_utils.Cluster`` or ``autoscaler.LocalNodeProvider``), which
 gossip over the syncer mesh (``_private/syncer.py``); stage actors on
-them run ``parallel.pipeline.MicrobatchPipeline``.  Those names load on
-first use, so importing the package starts no thread or process.
+them run ``parallel.pipeline.MicrobatchPipeline``.  An operator starts,
+inspects and stops a cluster with ``python -m ray_tpu_torch``
+(``scripts/cli.py``: ``start``, ``up``/``down``, ``submit`` to the head's
+job manager, ``list``, ``timeline``), or from Python with
+``job_submission.JobSubmissionClient``, ``experimental.state`` and
+``util.timeline``.  Those names load on first use, so importing the
+package starts no thread or process.
 
 Entry points (``models.*.init`` and ``init_state``,
 ``models.generate.init_cache``, ``ops.moe.init_moe_params``,

@@ -759,6 +759,17 @@ class Node:
         # own emits live in the process-local ring and dump to the session
         self.events = events_mod.EventTable()
         self._events_dumped_seq = 0
+        # request traces: span-carrying events (trace source + traced
+        # compiled-graph spans) assemble into per-trace span trees here;
+        # the head process's own ring is folded lazily at query time
+        self.traces = events_mod.TraceTable()
+        self._traces_local_seq = 0
+        self._traces_fold_lock = make_lock("node.traces_fold")
+        # job submission (JobManager analog): entrypoint drivers run as
+        # subprocesses of the head with the cluster address in their env
+        from ray_tpu_torch._private.job_manager import JobManager
+
+        self.job_manager = JobManager(self)
         self._dispatch_n = 0  # dispatch-event sampling counter
         # log plane: local capture files (head, local workers) are tailed
         # and each job's records stream to its subscribed drivers over
@@ -1502,8 +1513,49 @@ class Node:
             threading.Thread(
                 target=self._on_broadcast, args=(conn, msg), daemon=True
             ).start()
+        elif mtype == "submit_job":
+            try:
+                value = self.job_manager.submit(
+                    msg["entrypoint"], msg.get("runtime_env"), msg.get("job_id"),
+                    msg.get("metadata"))
+            except ValueError as e:  # a duplicate job id
+                value = {"__state_error__": str(e)}
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"], "value": value})
+        elif mtype == "job_info":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self.job_manager.info(msg["job_id"])})
+        elif mtype == "job_logs":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self.job_manager.logs(msg["job_id"])})
+        elif mtype == "stop_job":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self.job_manager.stop(msg["job_id"])})
+        elif mtype == "list_state":
+            try:
+                rows, total = self._list_state_page(
+                    msg["what"], msg.get("limit", 1000), msg.get("filters"))
+            except ValueError as e:
+                # in-band error marker: a table the port does not keep
+                rows, total = {"__state_error__": str(e)}, 0
+            # total rides next to the rows so clients can surface
+            # truncation instead of passing a partial view off as complete
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": rows, "total": total})
+        elif mtype == "summarize_state":
+            try:
+                value = self._summarize_state(msg["what"])
+            except ValueError as e:
+                # in-band error marker: a top-level "error" key means a
+                # transport failure to the client, not a bad argument
+                value = {"__state_error__": str(e)}
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": value})
         elif mtype == "events_report":
             self.events.add(msg["origin"], msg["events"])
+            self.traces.add(msg["origin"], msg["events"])
+        elif mtype == "get_trace":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self._get_trace(msg["trace_id"])})
         elif mtype == "log_report":
             self._ingest_log_report(msg["origin"], msg.get("records") or [],
                                     msg.get("streams"))
@@ -2982,7 +3034,8 @@ class Node:
                         # right here, skipping a scheduler-thread round trip
                         # per completion (the hot-loop latency of a task wave)
                         self._fast_redispatch(ns, w)
-    def _finish_task_record(self, tid: bytes, msg: dict) -> None:
+    def _finish_task_record(self, tid: bytes, msg: dict,
+                            node_id: Optional[str] = None) -> None:
         """Terminal task-table bookkeeping shared by the plain and actor
         task_done paths.  gcs.lock guards the row (NOT the head lock —
         the actor path completes on its shard without ever taking it, so
@@ -2998,6 +3051,10 @@ class Node:
                 ti.exec_end = msg.get("exec_end")
                 ti.worker_pid = msg.get("worker_pid")
                 ti.end_time = time.time()
+                if ti.node_id is None:
+                    # an actor method ran on its actor's node (the
+                    # timeline's and list_tasks' row for it)
+                    ti.node_id = node_id
         if tid in self._dynamic_yields or tid in self._dynamic_waiters:
             self._wake_dynamic_waiters(tid)
 
@@ -3029,7 +3086,7 @@ class Node:
             self.publish("error", {"task": spec.get("name"),
                                    "task_id": tid.hex(),
                                    "error": msg.get("error_str")})
-        self._finish_task_record(tid, msg)
+        self._finish_task_record(tid, msg, w.node_id)
         if art is not None:
             with art.shard.lock:
                 # a concurrency slot opened: dispatch the next queued
@@ -3940,6 +3997,206 @@ class Node:
             self.publish(channel, {"records": out})
 
     # ------------------------------------------------------------------
+    # introspection
+    # ------------------------------------------------------------------
+    # state tables whose stores the port does not carry yet
+    _CUT_TABLES = ("slices", "tenants", "logs", "incidents", "slos")
+
+    def _list_state(self, what: str, limit: int = 1000,
+                    filters: Optional[dict] = None) -> List[dict]:
+        return self._list_state_page(what, limit, filters)[0]
+
+    def _list_state_page(self, what: str, limit: int = 1000,
+                         filters: Optional[dict] = None,
+                         ) -> Tuple[List[dict], int]:
+        """State API backend (experimental/state/api.py:729-1333 analog),
+        returning ``(rows, total)`` so a truncated listing is visibly
+        truncated.  ``filters`` (events only: source/severity) apply
+        BEFORE the limit truncation — filtering the newest N cluster-wide
+        rows client-side would hide a rare WARNING behind thousands of
+        sampled DEBUGs.  Node rows carry each node's ``available``
+        resources beside its totals (``"GPU"`` among them)."""
+
+        def rows(items):
+            out = []
+            for it in list(items)[:limit]:
+                d = {}
+                for k in it.__dataclass_fields__:
+                    if k == "creation_spec":  # big blobs; not introspection data
+                        continue
+                    v = getattr(it, k)
+                    d[k] = v.hex() if isinstance(v, bytes) else v
+                out.append(d)
+            return out
+
+        with self.gcs.lock:
+            if what == "actors":
+                return rows(self.gcs.actors.values()), len(self.gcs.actors)
+            if what == "nodes":
+                node_rows, total = rows(self.gcs.nodes.values()), len(self.gcs.nodes)
+            if what == "tasks":
+                return rows(self.gcs.tasks.values()), len(self.gcs.tasks)
+            if what == "placement_groups":
+                return (rows(self.gcs.placement_groups.values()),
+                        len(self.gcs.placement_groups))
+        if what == "nodes":
+            with self.lock:
+                for r in node_rows:
+                    ns = self.nodes.get(r["node_id"])
+                    r["available"] = dict(ns.available) if ns is not None and ns.alive else {}
+            return node_rows, total
+        if what == "objects":
+            return (self.registry.list_objects(limit),
+                    self.registry.stats()["num_objects"])
+        if what == "workers":
+            with self.lock:
+                return [
+                    {"worker_id": w.worker_id.hex(), "node_id": w.node_id,
+                     "state": w.state, "is_actor_worker": w.is_actor_worker,
+                     "pid": w.proc.pid if w.proc else None}
+                    for w in list(self.workers.values())[:limit]
+                ], len(self.workers)
+        if what == "jobs":
+            jobs = self.job_manager.list_jobs()
+            return jobs[:limit], len(jobs)
+        if what == "events":
+            # worker-shipped table + the head's own ring, one timeline;
+            # the table computes its filtered total in the same pass
+            src = (filters or {}).get("source")
+            sev = (filters or {}).get("severity")
+            out, table_total = self.events.list_with_total(
+                limit, source=src, severity=sev)
+            local = [
+                dict(r, origin="head") for r in events_mod.local_events()
+                if (src is None or r.get("source") == src)
+                and (sev is None or r.get("severity") == sev)]
+            out.extend(local)
+            out.sort(key=lambda r: r.get("ts", 0.0))
+            return out[-limit:], table_total + len(local)
+        if what == "traces":
+            self._fold_local_traces()
+            return self.traces.list(limit), len(self.traces)
+        if what in self._CUT_TABLES:
+            raise ValueError(f"state table {what!r} is not kept by "
+                             "ray_tpu_torch yet (its store is not ported)")
+        raise ValueError(f"unknown state table {what!r}")
+
+    # ------------------------------------------------------------------
+    # request traces (state_aggregator + tracing backend analog)
+    # ------------------------------------------------------------------
+    def _fold_local_traces(self) -> None:
+        """Fold span events the HEAD process itself emitted (in-process
+        drivers, serve routers living here) into the trace table.  Lazy —
+        run at query time, cursored so each ring row folds once (the lock
+        keeps the cursor single-writer across query + flush threads)."""
+        with self._traces_fold_lock:
+            rows = events_mod.buffer().since(self._traces_local_seq)
+            if rows:
+                self._traces_local_seq = rows[-1]["seq"]
+                self.traces.add("head", rows)
+
+    def _task_spans(self, trace_id: str) -> Tuple[List[dict], int]:
+        """Task-table rows of this trace rendered as spans: the task span
+        itself plus scheduler-queue and execution child spans — queue-time
+        attribution comes straight from the control plane, no extra
+        instrumentation on the dispatch path.
+
+        Bounded like the TraceTable: the join keeps the FIRST N matching
+        tasks by submission time (root/ingress work lands early; a traced
+        50k-task streaming job must not produce a 150k-span payload) and
+        the match runs on a snapshot taken under gcs.lock, not with the
+        lock held across rendering."""
+        with self.gcs.lock:
+            snapshot = list(self.gcs.tasks.values())
+        tasks = [t for t in snapshot
+                 if t.trace_ctx and t.trace_ctx.get("trace_id") == trace_id]
+        dropped = 0
+        cap = max(1, events_mod.DEFAULT_TRACE_SPANS // 3)
+        if len(tasks) > cap:
+            tasks.sort(key=lambda t: t.start_time)
+            dropped = len(tasks) - cap
+            tasks = tasks[:cap]
+        out: List[dict] = []
+        now = time.time()
+        for t in tasks:
+            tc = t.trace_ctx
+            sid = tc.get("span_id") or t.task_id.hex()[:16]
+            end = t.end_time or now
+            out.append({
+                "name": t.name, "trace_id": trace_id, "span_id": sid,
+                "parent_span_id": tc.get("parent_span_id", ""),
+                "phase": "task", "source": "task",
+                "origin": t.node_id or "pending",
+                "start": t.start_time, "end": end,
+                "data": {"task_id": t.task_id.hex(), "state": t.state},
+            })
+            if t.exec_start:
+                out.append({
+                    "name": f"{t.name} (queued)", "trace_id": trace_id,
+                    "span_id": f"{sid}.q", "parent_span_id": sid,
+                    "phase": "scheduler_queue", "source": "task",
+                    "origin": t.node_id or "pending",
+                    "start": t.start_time, "end": t.exec_start,
+                })
+                out.append({
+                    "name": f"{t.name} (exec)", "trace_id": trace_id,
+                    "span_id": f"{sid}.x", "parent_span_id": sid,
+                    "phase": "execution", "source": "task",
+                    "origin": t.node_id or "pending",
+                    "start": t.exec_start, "end": t.exec_end or end,
+                })
+        return out, dropped
+
+    def _get_trace(self, trace_id: str) -> Optional[dict]:
+        """One assembled trace: shipped/local recorder spans + task-table
+        spans, sorted by start time.  None for an unknown id.  ``logs``
+        stays empty: the head keeps no log store to join stamped lines
+        from."""
+        self._fold_local_traces()
+        base = self.traces.get(trace_id)
+        task_spans, task_dropped = self._task_spans(trace_id)
+        if base is None and not task_spans:
+            return None
+        spans = (base["spans"] if base else []) + task_spans
+        spans.sort(key=lambda s: s["start"])
+        return {
+            "trace_id": trace_id,
+            "spans": spans,
+            "logs": [],
+            "dropped_spans": (base["dropped_spans"] if base else 0)
+            + task_dropped,
+        }
+
+    def _summarize_state(self, what: str) -> dict:
+        """Head-side aggregation for ``summarize_*`` (state_aggregator
+        analog): counting happens HERE over the full tables instead of
+        shipping up to 100k rows to the client to be counted locally."""
+        from collections import Counter
+
+        if what == "events":
+            by_source: Dict[str, Counter] = {}
+            for e in self._list_state("events", 100_000):
+                by_source.setdefault(
+                    e["source"], Counter())[e["severity"]] += 1
+            return {src: dict(sev) for src, sev in by_source.items()}
+        if what == "tasks":
+            by_name: Dict[str, Counter] = {}
+            with self.gcs.lock:
+                for t in self.gcs.tasks.values():
+                    by_name.setdefault(t.name, Counter())[t.state] += 1
+            return {name: dict(states) for name, states in by_name.items()}
+        if what == "actors":
+            by_cls: Dict[str, Counter] = {}
+            with self.gcs.lock:
+                for a in self.gcs.actors.values():
+                    by_cls.setdefault(a.class_name, Counter())[a.state] += 1
+            return {cls: dict(states) for cls, states in by_cls.items()}
+        if what == "traces":
+            self._fold_local_traces()
+            return self.traces.summarize()
+        raise ValueError(f"unknown summary table {what!r}")
+
+    # ------------------------------------------------------------------
     # resource accounting over time (metrics TSDB + top/memory surfaces)
     # ------------------------------------------------------------------
     def _actor_states(self, actor_ids_hex: List[str]) -> List[dict]:
@@ -4038,6 +4295,10 @@ class Node:
             self._live_conns.clear()
         for conn in conns:
             force_close_connection(conn)
+        try:
+            self.job_manager.shutdown()
+        except Exception:
+            pass
         try:
             self.object_server.close()
         except Exception:

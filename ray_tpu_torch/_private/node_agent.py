@@ -416,6 +416,11 @@ def main() -> None:
                    help="failure-domain id: hosts that share it are "
                         "provisioned/replaced as one unit")
     args = p.parse_args()
+    import signal
+
+    # SIGTERM (``autoscaler.commands.down``) unwinds through
+    # ``serve_forever``'s ``finally``, which stops this node's workers
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
     authkey = bytes.fromhex(args.authkey or os.environ["RAY_TPU_TORCH_AUTHKEY"])
     logging.basicConfig(level=os.environ.get("RAY_TPU_TORCH_LOG_LEVEL", "INFO"))
     import json

@@ -1,0 +1,152 @@
+"""Cluster state API — ``ray.experimental.state.api`` analog.
+
+``list_actors``/``list_tasks``/``list_objects``/``summarize_*``
+(reference ``python/ray/experimental/state/api.py:729,952,996,1269-1333``,
+aggregated by ``dashboard/state_aggregator.py``): live introspection of
+the control plane, served by the head's ``list_state`` RPC.
+
+``summarize_*`` aggregate HEAD-SIDE via the ``summarize_state`` RPC
+(``state_aggregator.py`` summary path): the head counts over its full
+tables and ships the counts, instead of this client pulling up to 100k
+rows to count locally.  ``list_traces``/``get_trace``/``summarize_traces``
+expose the request-trace plane (``util/tracing.py`` spans assembled by the
+head's TraceTable).
+
+A table the head does not keep (slices, tenants, logs, incidents, SLOs:
+their stores are not ported) raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Dict, List, Optional
+
+
+def _client():
+    from ray_tpu_torch._private.worker import global_worker
+
+    if not global_worker.connected:
+        raise RuntimeError("ray_tpu_torch.init() must run before the state API")
+    return global_worker.client
+
+
+def list_state_page(what: str, limit: int = 1000,
+                    filters: Optional[dict] = None) -> dict:
+    """One page of a state table WITH its truncation marker:
+    ``{"rows", "total", "truncated"}``.  The plain ``list_*`` helpers
+    return bare rows for compatibility — use this when completeness
+    matters (the CLI prints the marker from it)."""
+    msg = {"type": "list_state", "what": what, "limit": limit}
+    if filters:
+        msg["filters"] = filters
+    reply = _client().request(msg)
+    rows = reply["value"]
+    if isinstance(rows, dict) and "__state_error__" in rows:
+        raise ValueError(rows["__state_error__"])
+    total = reply.get("total", len(rows))
+    return {"rows": rows, "total": total, "truncated": total > len(rows)}
+
+
+def _list(what: str, limit: int, filters: Optional[dict] = None) -> List[dict]:
+    page = list_state_page(what, limit, filters)
+    if page["truncated"]:
+        # a silent cap reads as "this is everything" on a large cluster —
+        # make the partial view loud without changing the return shape
+        warnings.warn(
+            f"list_{what} truncated: showing {len(page['rows'])} of "
+            f"{page['total']} rows (raise limit= to see the rest)",
+            stacklevel=3)
+    return page["rows"]
+
+
+def list_actors(limit: int = 1000) -> List[dict]:
+    return _list("actors", limit)
+
+
+def list_nodes(limit: int = 1000) -> List[dict]:
+    """One row per node: its total ``resources`` and, while it is alive,
+    its ``available`` ones (``"GPU"`` among both on a node with cards)."""
+    return _list("nodes", limit)
+
+
+def list_tasks(limit: int = 1000) -> List[dict]:
+    return _list("tasks", limit)
+
+
+def list_objects(limit: int = 1000) -> List[dict]:
+    return _list("objects", limit)
+
+
+def list_placement_groups(limit: int = 1000) -> List[dict]:
+    return _list("placement_groups", limit)
+
+
+def list_workers(limit: int = 1000) -> List[dict]:
+    return _list("workers", limit)
+
+
+def list_jobs(limit: int = 1000) -> List[dict]:
+    """Submitted jobs (the head's JobManager): id, entrypoint, status,
+    return code, times, metadata, log path."""
+    return _list("jobs", limit)
+
+
+def list_events(limit: int = 1000, source: Optional[str] = None,
+                severity: Optional[str] = None) -> List[dict]:
+    """Flight-recorder events from the head's cluster-wide event table
+    (scheduler dispatches, spills, OOM kills, backpressure stalls, slot
+    admissions...), oldest-first.  ``source``/``severity`` filter
+    HEAD-SIDE, before the limit — a rare WARNING stays findable behind
+    thousands of newer sampled DEBUG rows."""
+    filters = {}
+    if source is not None:
+        filters["source"] = source
+    if severity is not None:
+        filters["severity"] = severity
+    return _list("events", limit, filters or None)
+
+
+def summarize_state(what: str) -> dict:
+    """Head-side aggregation RPC: the head counts over its full tables
+    and ships only the counts (the client never pulls row dumps)."""
+    value = _client().request(
+        {"type": "summarize_state", "what": what})["value"]
+    if isinstance(value, dict) and "__state_error__" in value:
+        raise ValueError(value["__state_error__"])
+    return value
+
+
+def summarize_events() -> Dict[str, Dict[str, int]]:
+    """Event counts grouped by source and severity (head-side)."""
+    return summarize_state("events")
+
+
+def summarize_tasks() -> Dict[str, Dict[str, int]]:
+    """Task counts grouped by name and state (summarize_tasks analog,
+    aggregated head-side)."""
+    return summarize_state("tasks")
+
+
+def summarize_actors() -> Dict[str, Dict[str, int]]:
+    return summarize_state("actors")
+
+
+def summarize_traces() -> dict:
+    """Trace counts + duration percentiles from the head's TraceTable."""
+    return summarize_state("traces")
+
+
+def list_traces(limit: int = 100) -> List[dict]:
+    """Summaries of recently updated traces (id, root span name, span
+    count, start, duration)."""
+    return _list("traces", limit)
+
+
+def get_trace(trace_id: str) -> Optional[dict]:
+    """One assembled trace: recorder spans (router admission, channel
+    waits, compiled-graph node executions, get waits...) merged with
+    task-table spans (queue + execution attribution), sorted by start.
+    ``logs`` is empty (the head keeps no log store).  None if the id is
+    unknown."""
+    return _client().request(
+        {"type": "get_trace", "trace_id": trace_id})["value"]

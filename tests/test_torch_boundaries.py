@@ -396,3 +396,31 @@ def test_data_loads_neither_jax_nor_arrow_and_starts_nothing():
         "assert threading.active_count() == 1, threading.enumerate()\n"
         "assert not torch.cuda.is_initialized()\n" % (FORBIDDEN,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_operator_plane_loads_neither_jax_nor_ray_tpu_and_starts_nothing():
+    """The CLI, the job manager and client, the state API, the timeline
+    and ``up``/``down`` import no JAX and nothing of ``ray_tpu``;
+    importing them starts no thread and makes no CUDA context, and
+    ``python -m ray_tpu_torch --help`` prints its subcommands the same
+    way."""
+    code = (
+        "import sys, threading, torch\n"
+        "import ray_tpu_torch.scripts.cli, ray_tpu_torch.job_submission\n"
+        "import ray_tpu_torch._private.job_manager, ray_tpu_torch.experimental\n"
+        "import ray_tpu_torch.experimental.state, ray_tpu_torch.experimental.state.api\n"
+        "import ray_tpu_torch.util.timeline, ray_tpu_torch.autoscaler.commands\n"
+        "import runpy\n"
+        "sys.argv = ['ray_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('ray_tpu_torch', run_name='__main__', alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not torch.cuda.is_initialized()\n" % (FORBIDDEN,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                         capture_output=True, text=True)
+    assert "{start,up,down,stop,status,list,submit,job-logs,job-stop,timeline,events," \
+           "trace,serve-status}" in out.stdout
