@@ -204,7 +204,36 @@ the backward kernels):
     bytes and whether the channel spilled it (its in-process cost beside
     it), then the 16 pipelined.  Gate: every stream equals the in-process
     ``prefill`` + greedy ``decode_chunk`` on the same weights.
-32. ``multinode_pipeline_gpt2`` (after the runtime's shutdown): the
+32. ``util_pool_bert_accounting`` (after the runtime's shutdown, on a
+    fresh ``ray_tpu_torch.init(num_cpus=4)`` with
+    ``RAY_TPU_TORCH_METRICS_PUSH_S=0.5`` and the ``/proc`` sampler on):
+    ``serve_bert``'s 768 x 128 ids in 48 batches of 16 (put by the
+    driver), scored by BERT-base bf16 from its directory checkpoint in
+    two ``num_gpus=0.5`` actors.  (1) ``ActorPool.map``: the labels equal
+    ``serve_bert``'s; 12 ``flash_fwd`` launches a batch in the actors, all
+    on the tensor cores (their counts set to 0 just before the map and
+    read just after); sequences/s beside ``batch_predict_bert``'s pools
+    and the pool's start.  (2) A producer task puts the 48 batches into a
+    ``Queue(maxsize=8)`` and one of the actors drains it: the labels again,
+    batches/s and the producer's seconds blocked on ``Full``.  (3)
+    ``multiprocessing.Pool(4)``: each batch's non-pad count and an id
+    checksum equal the driver's, by ``map`` and in order by ``imap``.  (4)
+    Each scored batch is published on a channel the driver subscribes to:
+    exactly 48 from the map and 48 from the queue, in each actor's order.  (5) With the
+    actors idle, after two push intervals: ``query_metric(
+    "ray_tpu_hbm_bytes_in_use")`` holds one card series per actor whose
+    last value equals the actor's ``allocated_bytes.all.current``;
+    ``top_snapshot()`` lists both actors' workers with RSS and CPU from
+    the sampler and a card row each; ``memory_summary()`` gives the driver
+    at least the batches' bytes; ``doctor_report()`` has no trend finding;
+    ``python -m ray_tpu_torch metrics``, ``top --iterations 1``,
+    ``memory``, ``perf`` and ``doctor`` exit 0.  Prints the TSDB's series,
+    the bytes of each actor's push and the head's median fold time a
+    report, and the median ms of one push's snapshot and pickle in each
+    actor.  (6) The push's cost: the pool's rate over as many more maps as
+    span 20 pushes at 0.5 s, then, on another fresh init at the default 5 s
+    push, over the same number of maps: both rates from this call.
+33. ``multinode_pipeline_gpt2`` (after 32): the
     multi-node runtime.  A ``Cluster`` of real agents whose head holds no
     card, a ``StandardAutoscaler`` under a ``Monitor`` over a
     ``LocalNodeProvider`` (at most one node of 4 CPUs and the card, idle
@@ -227,10 +256,10 @@ the backward kernels):
     stage's exec spans (pipelined and alone), the in-process forward of
     the same tokens, the hop's bytes and its (de)serialization here, one
     512 MiB array returned across the nodes in GiB/s, and the reap time.
-    In 29-32 each replica's or stage's own launch counts (read in its
+    In 29-31 and 33 each replica's or stage's own launch counts (read in its
     process through the compiled-graph control lane) are set to 0 just
     before the traffic and read just after.
-33. ``operator_job_gpt2`` (after 32, with no head in this process): the
+34. ``operator_job_gpt2`` (after 33, with no head in this process): the
     operator plane.  ``autoscaler.commands.up`` with the local runner
     starts ``python -m ray_tpu_torch start --head`` (2 CPUs, no card) and
     one node agent (4 CPUs, ``--num-gpus 1``); ``python -m ray_tpu_torch
@@ -257,7 +286,7 @@ on the serving and training paths has to run the tensor-core design
 (their ``_tc`` launch counts equal their totals; the profiled steps find
 only the ``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
 summed over the serving, training, Tune, RL, Data, Serve, graph,
-multi-node pipeline and operator-job runs, and per run), the card's name
+util-pool, multi-node pipeline and operator-job runs, and per run), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": {...}}``.  Exits non-zero,
 printing no result, when there is no CUDA device or any phase fails.
@@ -3181,7 +3210,378 @@ def phase_batch_predict_bert(rt, served):
                  f"parallelism={n_batches})",
          batch_size=BERT_BATCH, pools=pools,
          serve_bert_in_process_sequences_per_s=served["sequences_per_s"])
-    return {attn.KERNEL: launches["flash_fwd"], attn.FWD_TC: launches["flash_fwd_tc"]}
+    return ({attn.KERNEL: launches["flash_fwd"], attn.FWD_TC: launches["flash_fwd_tc"]},
+            {f"{w}x{share}": {k: row[k] for k in ("sequences_per_s",
+                                                 "sequences_per_s_after_first_batch")}
+             for (w, share), row in zip(PREDICT_POOLS, pools)})
+
+
+# util_pool_bert_accounting: serve_bert's 768 x 128 ids in 48 batches of
+# 16 through an ActorPool of two half-card BERT-base actors, a Queue of 8
+# drained by one of them, and a multiprocessing Pool of 4 CPU workers; the
+# metrics push at 0.5 s, then at its 5 s default for the push-cost rerun,
+# each rate over enough maps to span 20 pushes at 0.5 s
+POOL_ACTORS, POOL_SHARE, POOL_PUSH_S, POOL_QUEUE, POOL_CPU_WORKERS = 2, 0.5, 0.5, 8, 4
+POOL_RATE_PUSHES = 20
+POOL_CHANNEL = "util_pool_bert"
+POOL_CLI = (["metrics"], ["top", "--iterations", "1"], ["memory"], ["perf"], ["doctor"])
+
+
+class BertScorer:
+    """One half-card actor of ``util_pool_bert_accounting``: BERT-base bf16
+    from ``serve_bert``'s directory checkpoint through ``TorchPredictor``,
+    warmed up on one batch.  Each batch it scores is published on
+    ``POOL_CHANNEL`` with its run's tag, this actor's pid and its own
+    count in that run, and ends
+    with ``util/perf.py``'s device-memory gauges set from the allocator,
+    as a serving process sets them."""
+
+    def __init__(self, checkpoint):
+        from ray_tpu_torch.air import Checkpoint
+        from ray_tpu_torch.models import bert
+        from ray_tpu_torch.train import TorchPredictor
+
+        self.cfg = bert.BertConfig.base()
+        self.pred = TorchPredictor.from_checkpoint(
+            Checkpoint.from_directory(checkpoint),
+            lambda p, toks: bert.apply(p, toks, self.cfg), device="cuda")
+        self.n = {}
+        self._score(np.ones((BERT_BATCH, BERT_SEQ), np.int64))
+        torch.cuda.synchronize()
+
+    def _score(self, toks):
+        from ray_tpu_torch.models import bert
+
+        bert.check_tokens(toks, self.cfg)
+        return self.pred.predict(toks).argmax(-1)
+
+    def ready(self):
+        return os.environ["RAY_TPU_TORCH_WORKER_ID"], os.getpid()
+
+    def score(self, toks, tag="map"):
+        from ray_tpu_torch.util import perf, pubsub
+
+        labels = self._score(toks)
+        n = self.n.get(tag, 0)
+        pubsub.publish(POOL_CHANNEL, (tag, os.getpid(), n))
+        self.n[tag] = n + 1
+        perf.publish_device_memory()
+        return labels
+
+    def drain(self, q, n):
+        """Score ``n`` (index, batch) items from ``q`` in arrival order."""
+        out = []
+        for _ in range(n):
+            i, toks = q.get(timeout=120)
+            out.append((i, self.score(toks, "queue")))
+        return out
+
+    def allocated(self):
+        return int(torch.cuda.memory_stats()["allocated_bytes.all.current"])
+
+    def push_ms(self, n=200):
+        """The median ms of what one metrics push costs this process
+        before its socket write: the registry's snapshot and the frame's
+        pickle."""
+        import pickle
+
+        from ray_tpu_torch.util.metrics import registry
+
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            pickle.dumps({"type": "metrics_report", "origin": "", "metrics": registry().snapshot()})
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[n // 2] * 1e3
+
+
+def _batch_stats(toks):
+    """A batch's non-pad count and an id checksum (the Pool's work)."""
+    ids = np.asarray(toks, np.int64)
+    return int((ids != 0).sum()), int((ids * (np.arange(ids.size) % 7 + 1).reshape(ids.shape)).sum())
+
+
+def _pool_producer(q, refs):
+    """Put the batches into the Queue in order; the seconds spent blocked
+    on ``Full`` (a ``put_nowait`` that found it full, then the blocking
+    ``put``'s wait)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.util.queue import Full
+
+    blocked = 0.0
+    for i, ref in enumerate(refs):
+        item = (i, ray_tpu_torch.get(ref, timeout=120))
+        try:
+            q.put_nowait(item)
+        except Full:
+            t0 = time.perf_counter()
+            q.put(item, timeout=120)
+            blocked += time.perf_counter() - t0
+    return blocked
+
+
+def _pool_map(rt, checkpoint, refs):
+    """Two ``BertScorer`` actors at ``POOL_SHARE`` of the card, ready, then
+    ``ActorPool.map`` over ``refs``: the actors, their (worker id, pid),
+    the seconds to ready, the labels in order, the map's wall, and the
+    flash launches the actors made in the map (their counts set to 0 just
+    before it)."""
+    from ray_tpu_torch.util import ActorPool
+
+    t0 = time.perf_counter()
+    actors = [rt.remote(num_gpus=POOL_SHARE)(BertScorer).remote(checkpoint)
+              for _ in range(POOL_ACTORS)]
+    ids = rt.get([a.ready.remote() for a in actors], timeout=300)
+    start_s = time.perf_counter() - t0
+    actor_launches(rt, actors, reset=True)
+    t0 = time.perf_counter()
+    labels = list(ActorPool(actors).map(lambda a, r: a.score.remote(r), refs))
+    wall = time.perf_counter() - t0
+    return actors, ids, start_s, np.concatenate(labels), wall, actor_launches(rt, actors)
+
+
+def _pool_rate(rt, actors, refs, maps, want):
+    """``maps`` more ``ActorPool.map`` calls over ``refs``, each held to
+    ``want``: the sequences per second over all of them, and their flash
+    launches (the counts set to 0 just before)."""
+    from ray_tpu_torch.util import ActorPool
+
+    actor_launches(rt, actors, reset=True)
+    pool = ActorPool(actors)
+    t0 = time.perf_counter()
+    for _ in range(maps):
+        labels = np.concatenate(list(pool.map(lambda a, r: a.score.remote(r, "rate"), refs)))
+        check(bool((labels == want).all()),
+              f"util_pool_bert_accounting: {int((labels != want).sum())} labels of a rate map differ")
+    wall = time.perf_counter() - t0
+    return maps * BERT_REQUESTS / wall, actor_launches(rt, actors)
+
+
+def _wrap_folds(node):
+    """Time the head's fold of every ``metrics_report`` frame (merge into
+    the registry, the TSDB ingest, the top cache) on its connection
+    threads, and keep the pickled size of each frame a worker pushed."""
+    import pickle
+
+    folds, sizes, orig = [], {}, node._handle_message
+
+    def handle(conn, worker, msg):
+        if msg.get("type") != "metrics_report":
+            return orig(conn, worker, msg)
+        t0 = time.perf_counter()
+        try:
+            return orig(conn, worker, msg)
+        finally:
+            folds.append(time.perf_counter() - t0)
+            sizes[msg["origin"]] = len(pickle.dumps(msg))
+
+    node._handle_message = handle
+    return folds, sizes
+
+
+def phase_util_pool_bert_accounting(served, predict_rates):
+    """The util libraries and the resource-accounting plane on the card
+    (see the module doc).  Returns the flash launches of every map and
+    the queue's drain."""
+    import math
+    import subprocess as sp
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import events as events_mod
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.experimental.state import api as state
+    from ray_tpu_torch.util import doctor, pubsub
+    from ray_tpu_torch.util.multiprocessing import Pool
+    from ray_tpu_torch.util.queue import Queue
+
+    phase, card = "util_pool_bert_accounting", nvidia_smi()
+    want_labels = served["labels"]
+    requests = np.random.default_rng(0).integers(1, BERT_ID_HIGH, (BERT_REQUESTS, BERT_SEQ))
+    batches = [requests[i:i + BERT_BATCH] for i in range(0, BERT_REQUESTS, BERT_BATCH)]
+    from ray_tpu_torch.models import bert
+
+    bert_layers = bert.BertConfig.base().n_layers
+    want_flash = bert_layers * len(batches)
+    os.environ["RAY_TPU_TORCH_METRICS_PUSH_S"] = str(POOL_PUSH_S)
+    rt.init(num_cpus=4)
+    node = global_worker.node
+    try:
+        folds, push_bytes = _wrap_folds(node)
+        got = []
+        pubsub.subscribe(POOL_CHANNEL, got.append)
+        refs = [rt.put(b) for b in batches]
+
+        # 1. ActorPool
+        actors, ids, start_s, labels, wall, launches = _pool_map(rt, served["checkpoint"], refs)
+        check(labels.shape == want_labels.shape and bool((labels == want_labels).all()),
+              f"{phase}: {int((labels != want_labels).sum())} pool labels differ from serve_bert's")
+        check_tensor_cores(phase, launches, want_flash)
+        total = dict(launches)
+        pool_row = {"actors": POOL_ACTORS, "num_gpus": POOL_SHARE, "start_s": start_s,
+                    "wall_s": wall, "sequences_per_s": BERT_REQUESTS / wall,
+                    "flash_launches": launches.get(attn.KERNEL, 0)}
+
+        # 2. Queue: a producer task and one half-card actor draining it
+        q = Queue(maxsize=POOL_QUEUE)
+        actor_launches(rt, actors[:1], reset=True)
+        t0 = time.perf_counter()
+        producer = rt.remote(num_cpus=1)(_pool_producer).remote(q, refs)
+        drained = actors[0].drain.remote(q, len(batches))
+        items, blocked = rt.get([drained, producer], timeout=300)
+        q_wall = time.perf_counter() - t0
+        q_launches = actor_launches(rt, actors[:1])
+        check([i for i, _ in items] == list(range(len(batches))),
+              f"{phase}: the queue delivered {[i for i, _ in items]}")
+        q_labels = np.concatenate([lab for _, lab in items])
+        check(bool((q_labels == want_labels).all()),
+              f"{phase}: {int((q_labels != want_labels).sum())} queue labels differ")
+        check_tensor_cores(f"{phase} (queue)", q_launches, want_flash)
+        for k, n in q_launches.items():
+            total[k] = total.get(k, 0) + n
+
+        # 3. multiprocessing Pool of CPU workers
+        want_stats = [_batch_stats(b) for b in batches]
+        mp = Pool(POOL_CPU_WORKERS)
+        t0 = time.perf_counter()
+        stats = mp.map(_batch_stats, batches)
+        mp_wall = time.perf_counter() - t0
+        ordered = list(mp.imap(_batch_stats, batches))
+        check(stats == ordered == want_stats, f"{phase}: Pool stats differ from the driver's")
+        mp.close()
+        mp.join()
+
+        # 4. pubsub: one message per batch scored, in each actor's order
+        deadline = time.monotonic() + 30
+        while len(got) < 2 * len(batches) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        time.sleep(2 * POOL_PUSH_S)  # nothing more arrives
+        per_actor = {}
+        for tag, pid, n in got:
+            per_actor.setdefault((tag, pid), []).append(n)
+        counts = {f"{tag}:{pid}": len(ns) for (tag, pid), ns in per_actor.items()}
+        for tag in ("map", "queue"):
+            n_tag = sum(len(ns) for (t, _), ns in per_actor.items() if t == tag)
+            check(n_tag == len(batches), f"{phase}: pubsub got {n_tag} '{tag}' messages, "
+                                         f"want {len(batches)}: {counts}")
+        check(all(ns == list(range(len(ns))) for ns in per_actor.values()),
+              f"{phase}: pubsub messages out of an actor's order: {per_actor}")
+
+        # 5. accounting, read while the actors are idle
+        time.sleep(2 * POOL_PUSH_S)
+        allocated = rt.get([a.allocated.remote() for a in actors], timeout=60)
+        wids = [w for w, _ in ids]
+        q_hbm = state.query_metric("ray_tpu_hbm_bytes_in_use", window_s=600)
+        series = {}
+        for row in q_hbm["series"]:
+            if row["tags"].get("kind") == "hbm" and row["points"]:
+                series.setdefault(row["tags"]["origin"], []).append(row["points"][-1][1])
+        check(all(len(series.get(w, [])) == 1 for w in wids),
+              f"{phase}: card-memory series by worker {series}, want one per actor {wids}")
+        check([series[w][0] for w in wids] == [float(b) for b in allocated],
+              f"{phase}: pushed card memory {[series[w][0] for w in wids]} != the actors' "
+              f"allocator readings {allocated}")
+        def top_misses():
+            """Each actor's fields that top lacks: its sampled RSS or CPU,
+            its worker row, or its card row."""
+            top = state.top_snapshot()
+            rows = {w["worker_id"]: w for w in top["workers"]}
+            hbm_rows = {r["tags"].get("origin") for r in top["hbm"]
+                        if r["tags"].get("kind") == "hbm"}
+            misses = {}
+            for w in wids:
+                lack = [f for f in ("rss_mb", "cpu_pct") if rows.get(w, {}).get(f) is None]
+                lack += [] if w in rows else ["worker_row"]
+                lack += [] if w in hbm_rows else ["card_row"]
+                if lack:
+                    misses[w] = lack
+            return misses
+
+        # an origin whose frame reached the head late is expired from the
+        # merged registry (and its card row from top) until its next push
+        top_polls, deadline = 1, time.monotonic() + 10 * POOL_PUSH_S
+        first_misses = misses = top_misses()
+        while misses and time.monotonic() < deadline:
+            time.sleep(POOL_PUSH_S / 2)
+            top_polls += 1
+            misses = top_misses()
+        expiries = {w: sum(1 for e in events_mod.local_events()
+                           if e["message"] == "metrics origin expired" and e.get("entity_id") == w)
+                    for w in wids}
+        check(not misses, f"{phase}: top lacks {misses} after {top_polls} reads (first read "
+                          f"{first_misses}; the actors' origin expiries {expiries})")
+        audit = state.memory_summary(limit=0)
+        batch_bytes = sum(b.nbytes for b in batches)
+        driver = sum(o["bytes"] for o in audit["by_owner"] if o["owner_kind"] == "driver")
+        check(driver >= batch_bytes, f"{phase}: the driver owns {driver} bytes, want at least "
+                                     f"the batches' {batch_bytes}")
+        event_rules = {r.__name__[len("_rule_"):] for r in doctor.RULES}
+        findings = state.doctor_report()
+        trends = [f["rule"] for f in findings if f["rule"] not in event_rules]
+        check(not trends, f"{phase}: the doctor reports trend findings {findings}")
+        host, port = node.tcp_address
+        env = {**os.environ, "RAY_TPU_TORCH_ADDRESS": f"tcp://{host}:{port}",
+               "RAY_TPU_TORCH_AUTHKEY": node.authkey.hex()}
+        t0 = time.perf_counter()
+        procs = [sp.Popen([sys.executable, "-m", "ray_tpu_torch", *argv], env=env, text=True,
+                          stdout=sp.PIPE, stderr=sp.PIPE) for argv in POOL_CLI]
+        outs = [p.communicate(timeout=120) for p in procs]
+        cli_s = time.perf_counter() - t0
+        bad = [(argv, p.returncode, out[-1500:], err[-800:])
+               for argv, p, (out, err) in zip(POOL_CLI, procs, outs) if p.returncode != 0]
+        check(not bad, f"{phase}: CLI commands failed: {bad}")
+        tsdb_stats = node.tsdb.stats()
+        fold_ms = sorted(folds)[len(folds) // 2] * 1e3 if folds else None
+        worker_push_bytes = {w: push_bytes.get(w) for w in wids}
+        push_ms = dict(zip(wids, rt.get([a.push_ms.remote() for a in actors], timeout=60)))
+        pubsub.unsubscribe(POOL_CHANNEL)
+
+        # 6. the push's cost: the pool's rate over maps that span
+        # POOL_RATE_PUSHES pushes here, then over as many at the 5 s default
+        rate_maps = math.ceil(POOL_RATE_PUSHES * POOL_PUSH_S / wall)
+        rate, rate_launches = _pool_rate(rt, actors, refs, rate_maps, want_labels)
+        check_tensor_cores(f"{phase} (rate maps)", rate_launches, want_flash * rate_maps)
+        for a in actors:
+            rt.kill(a)
+        q.shutdown()
+        mp.terminate()
+    finally:
+        rt.shutdown()
+        os.environ.pop("RAY_TPU_TORCH_METRICS_PUSH_S", None)
+
+    rt.init(num_cpus=4)
+    try:
+        refs = [rt.put(b) for b in batches]
+        actors, _, start5, labels5, _, launches5 = _pool_map(rt, served["checkpoint"], refs)
+        check(bool((labels5 == want_labels).all()), f"{phase}: labels at the 5 s push differ")
+        check_tensor_cores(f"{phase} (5 s push)", launches5, want_flash)
+        rate5, rate5_launches = _pool_rate(rt, actors, refs, rate_maps, want_labels)
+        check_tensor_cores(f"{phase} (rate maps, 5 s push)", rate5_launches, want_flash * rate_maps)
+    finally:
+        rt.shutdown()
+    for launched in (rate_launches, launches5, rate5_launches):
+        for k, n in launched.items():
+            total[k] = total.get(k, 0) + n
+    emit(phase, card=card, model="bert-base bf16, serve_bert's directory checkpoint",
+         batches=len(batches), batch=BERT_BATCH, seq_len=BERT_SEQ, push_s=POOL_PUSH_S,
+         actor_pool=pool_row,
+         rate_maps=rate_maps, rate_pushes_at_0_5s=POOL_RATE_PUSHES,
+         actor_pool_sequences_per_s_over_rate_maps={"push_0.5s": rate, "push_5s": rate5},
+         actor_pool_start_s_at_5s_push=start5,
+         batch_predict_bert_sequences_per_s=predict_rates,
+         serve_bert_in_process_sequences_per_s=served["sequences_per_s"],
+         queue={"maxsize": POOL_QUEUE, "wall_s": q_wall,
+                "batches_per_s": len(batches) / q_wall, "producer_blocked_on_full_s": blocked,
+                "flash_launches": q_launches.get(attn.KERNEL, 0)},
+         mp_pool={"workers": POOL_CPU_WORKERS, "map_s": mp_wall},
+         pubsub_messages=len(got), pubsub_per_actor=counts,
+         card_memory_bytes=dict(zip(wids, allocated)), tsdb=tsdb_stats,
+         tsdb_series=tsdb_stats["num_series"], worker_push_bytes=worker_push_bytes,
+         fold_ms_median=fold_ms, folds=len(folds), worker_push_ms_median=push_ms,
+         driver_owned_bytes=driver, batch_bytes=batch_bytes,
+         doctor_findings=[f["rule"] for f in findings], top_reads=top_polls,
+         top_first_read_misses=first_misses, origin_expiries=expiries, cli_s=cli_s,
+         flash_launches_per_batch=bert_layers)
+    return total
 
 
 # BASELINE config 5 behind HTTP (bench.py run_serve_bench): the replica's
@@ -4436,7 +4836,7 @@ def main() -> int:
             trainer_launches, trainer_row = phase_train_gpt2_trainer(rt, gpt2_row)
             phase_data_ingest(rt)
             dataset_launches = phase_train_gpt2_dataset(rt, gpt2_row, trainer_row)
-            predict_launches = phase_batch_predict_bert(rt, served_bert)
+            predict_launches, predict_rates = phase_batch_predict_bert(rt, served_bert)
             rl_runtime_launches, ppo_runtime_steps_per_s = phase_rl_ppo_atari_runtime(
                 rt, rl_local_steps_per_s)
             tune_launches = phase_tune_gpt2_trainer(rt, trainer_row)
@@ -4454,6 +4854,7 @@ def main() -> int:
             graph_launches = phase_prefill_decode_graph(rt)
         finally:
             rt.shutdown()
+        pool_launches = phase_util_pool_bert_accounting(served_bert, predict_rates)
     pipeline_launches = phase_multinode_pipeline_gpt2()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4468,6 +4869,7 @@ def main() -> int:
             "prefill_decode_graph": graph_launches,
             "multinode_pipeline_gpt2": pipeline_launches,
             "operator_job_gpt2": operator_launches,
+            "util_pool_bert_accounting": pool_launches,
             "rl_parity": rl_parity_launches,
             "rl_ppo_atari": rl_launches, "rl_ppo_atari_runtime": rl_runtime_launches,
             "tune_gpt2_trainer": tune_launches, "rl_appo_atari_runtime": appo_launches,

@@ -21,6 +21,11 @@ seams so they can be split later:
   bundle policies (``bundle_scheduling_policy.h:82-106``)
 - get/wait request parking               <-> raylet ``WaitManager`` +
   plasma ``GetRequestQueue``
+- merged worker metrics + ``tsdb``        <-> the metrics agent's export
+  path: every worker's and agent's ``metrics_report`` folds into one
+  registry and a time-series store, which ``top``, ``memory``, ``perf``
+  and ``doctor`` read (``_memory_audit``, ``_top_snapshot``,
+  ``_perf_summary``, ``_doctor_report``)
 
 Multiple ``NodeState``s in one head process emulate a multi-node cluster —
 the same trick as the reference's in-process multi-raylet test Cluster
@@ -281,6 +286,19 @@ class _ForkServerClient:
                 self._proc.kill()
             except Exception:
                 pass
+
+
+class _SessionRing:
+    """This process's event ring from a head's start on.  The ring is the
+    process's, and outlives ``shutdown``: an earlier session's events in
+    it (a driver that ran one cluster, then another) are not this
+    cluster's, and its listings and doctor must not report them."""
+
+    def __init__(self, seq0: int):
+        self.seq0 = seq0
+
+    def since(self, seq: int) -> List[dict]:
+        return events_mod.buffer().since(max(seq, self.seq0))
 
 
 def _fits(req: Dict[str, float], avail: Dict[str, float]) -> bool:
@@ -546,6 +564,11 @@ class Node:
         from ray_tpu_torch._private import shm as shm_mod
 
         self.cfg = get_config()
+        # the process's event ring outlives a session: a head started
+        # after another in the same process reads only what was emitted
+        # since its own start (its event listings, traces, crash trail,
+        # doctor)
+        self._session_ring = _SessionRing(events_mod.buffer().last_seq())
         self.session_dir = session_dir or (
             # raylint: disable=R3 (once per session)
             os.path.join(session_root(),
@@ -758,18 +781,55 @@ class Node:
         # flight recorder: worker-shipped events fold in here; the head's
         # own emits live in the process-local ring and dump to the session
         self.events = events_mod.EventTable()
-        self._events_dumped_seq = 0
+        self._events_dumped_seq = self._session_ring.seq0
         # request traces: span-carrying events (trace source + traced
         # compiled-graph spans) assemble into per-trace span trees here;
         # the head process's own ring is folded lazily at query time
         self.traces = events_mod.TraceTable()
-        self._traces_local_seq = 0
+        self._traces_local_seq = self._session_ring.seq0
         self._traces_fold_lock = make_lock("node.traces_fold")
         # job submission (JobManager analog): entrypoint drivers run as
         # subprocesses of the head with the cluster address in their env
         from ray_tpu_torch._private.job_manager import JobManager
 
         self.job_manager = JobManager(self)
+        # merged worker metrics: every worker and node agent pushes its
+        # registry snapshot here (metrics_report), folded per origin
+        from ray_tpu_torch.util import metrics as metrics_mod
+
+        self.worker_metrics_registry = metrics_mod._Registry()
+        # Resource accounting over time: every registry snapshot that
+        # reaches the head (worker pushes, node-agent resource samples,
+        # the head's own self-sample loop) also folds into a bounded
+        # in-memory TSDB, so trends — RSS slopes, store growth, queue
+        # climbs — are queryable instead of inferable (util/tsdb.py).
+        from ray_tpu_torch.util import tsdb as tsdb_mod
+
+        self.tsdb = tsdb_mod.TimeSeriesStore()
+        # Two expiry horizons off the push cadence: the LIVE merged
+        # registry drops origins after 3 missed pushes (a dead worker
+        # must leave the merged view promptly; the next push self-heals a
+        # false positive), while the TSDB keeps series 4x longer — history
+        # is the thing a transient pusher backoff must not erase, and a
+        # dead process's recent trend is exactly what a post-mortem
+        # wants to read.  An origin is only ever expired after it pushed
+        # once: a worker still importing torch before its first push is
+        # not in the registry yet, so no window can read it as dead.
+        self._origin_expiry_s = (tsdb_mod.ORIGIN_EXPIRY_INTERVALS
+                                 * metrics_mod.push_interval_s())
+        self._tsdb_expiry_s = 4 * self._origin_expiry_s
+        # latest per-entity /proc stats for the top view:
+        # worker_id hex (or "head"/"agent:<node>") -> stats dict.
+        # _proc_lock guards it — folded by connection-handler threads,
+        # rebuilt by the sampler tick, read by top_snapshot; never under
+        # self.lock.
+        self._proc_live: Dict[str, dict] = {}
+        self._proc_lock = make_lock("node.proc_live")
+        self._tsdb_stop = threading.Event()
+        t = threading.Thread(target=self._tsdb_loop, name="tsdb-sampler",
+                             daemon=True)
+        t.start()
+        self._threads.append(t)
         self._dispatch_n = 0  # dispatch-event sampling counter
         # log plane: local capture files (head, local workers) are tailed
         # and each job's records stream to its subscribed drivers over
@@ -1547,6 +1607,46 @@ class Node:
             except ValueError as e:
                 # in-band error marker: a top-level "error" key means a
                 # transport failure to the client, not a bad argument
+                value = {"__state_error__": str(e)}
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": value})
+        elif mtype == "metrics_report":
+            # connection-handler thread: the registry and the TSDB take
+            # their own locks, the top cache _proc_lock; never self.lock
+            self.worker_metrics_registry.merge(msg["origin"], msg["metrics"])
+            self.tsdb.ingest(msg["origin"], self._history_rows(msg["metrics"]))
+            self._fold_resource_report(msg["origin"], msg["metrics"])
+        elif mtype == "list_metrics":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self.tsdb.list_metrics()})
+        elif mtype == "query_metric":
+            try:
+                value = self.tsdb.query(
+                    msg["name"], window_s=msg.get("window_s", 3600.0),
+                    step_s=msg.get("step_s", 0.0), tags=msg.get("tags"),
+                    agg=msg.get("agg"))
+            except ValueError as e:
+                value = {"__state_error__": str(e)}
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": value})
+        elif mtype == "memory_audit":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self._memory_audit(
+                                   limit=msg.get("limit", 200))})
+        elif mtype == "top_snapshot":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self._top_snapshot()})
+        elif mtype == "perf_summary":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self._perf_summary(
+                                   window_s=msg.get("window_s", 1800.0))})
+        elif mtype == "doctor_report":
+            # head-side diagnosis over head-local tables — the client
+            # never pulls the event/task rows over the wire
+            try:
+                value = self._doctor_report(
+                    msg.get("trend_window_s", 1800.0))
+            except Exception as e:
                 value = {"__state_error__": str(e)}
             self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
                                "value": value})
@@ -4067,7 +4167,7 @@ class Node:
             out, table_total = self.events.list_with_total(
                 limit, source=src, severity=sev)
             local = [
-                dict(r, origin="head") for r in events_mod.local_events()
+                dict(r, origin="head") for r in self._session_ring.since(0)
                 if (src is None or r.get("source") == src)
                 and (sev is None or r.get("severity") == sev)]
             out.extend(local)
@@ -4215,6 +4315,588 @@ class Node:
                              "death_cause": info.death_cause})
         return rows
 
+    # ------------------------------------------------------------------
+    # resource accounting over time (metrics TSDB + top/memory surfaces)
+    # ------------------------------------------------------------------
+    def _tsdb_loop(self) -> None:
+        """Head-side sampler on the shared deadline grid
+        (``metrics.grid_ticks``): every push interval, expire origins
+        that stopped pushing, refresh the runtime gauges, sample local
+        processes' /proc stats, and fold the head's own registry into
+        the TSDB.  The ticker's ``stalled`` flag skips expiry on a tick
+        right after a head stall (everyone's timestamps lag equally —
+        sweeping then would wipe live peers)."""
+        from ray_tpu_torch._private.resource_spec import ProcSampler
+        from ray_tpu_torch.util.metrics import grid_ticks, push_interval_s
+        from ray_tpu_torch.util.metrics import registry as head_registry
+
+        sampler = ProcSampler()
+        for stalled in grid_ticks(push_interval_s(), self._tsdb_stop.wait):
+            if self._shutdown:
+                continue
+            try:
+                if not stalled:
+                    expired = self.worker_metrics_registry.expire_origins(
+                        self._origin_expiry_s)
+                    for origin in expired:
+                        events_mod.emit(
+                            "node", "metrics origin expired",
+                            severity="DEBUG", entity_id=origin)
+                self._sample_local_procs(sampler)
+                self.refresh_runtime_gauges()
+                self.tsdb.ingest("head", self._history_rows(head_registry().snapshot()))
+                if not stalled:
+                    self.tsdb.expire_stale(self._tsdb_expiry_s)
+            except Exception:
+                logger.debug("tsdb sampler tick failed", exc_info=True)
+
+    def _sample_local_procs(self, sampler) -> None:
+        """/proc stats for the head process and every worker whose process
+        lives on this host (agent nodes sample their own workers and ship
+        over metrics_report).  Lands as tagged gauges in the head registry
+        — and therefore in the merged view and the TSDB — with dead workers'
+        label series retired via Metric.remove."""
+        from ray_tpu_torch._private.resource_spec import (
+            PROC_CPU_PCT,
+            PROC_OPEN_FDS,
+            PROC_RSS_MB,
+            _PROC_METRIC_HELP,
+            resource_metrics_snapshot,
+        )
+        from ray_tpu_torch.util.metrics import Gauge
+
+        entities = [({"entity": "head", "worker_id": "head",
+                      "node": self._head_node_id}, os.getpid())]
+        with self.lock:
+            for wid, w in self.workers.items():
+                if w.proc is not None and w.state != "dead":
+                    entities.append((
+                        {"entity": "actor" if w.is_actor_worker else "worker",
+                         "worker_id": wid.hex(), "node": w.node_id},
+                        w.proc.pid))
+        _, raw = resource_metrics_snapshot(sampler, entities)
+        gauges = {
+            name: Gauge(name, _PROC_METRIC_HELP[name])
+            for name in (PROC_RSS_MB, PROC_CPU_PCT, PROC_OPEN_FDS)
+        }
+        live_keys = set()
+        proc_live = {}
+        for tags, pid, stats in raw:
+            full = {**tags, "pid": str(pid)}
+            live_keys.add(tuple(sorted(full.items())))
+            gauges[PROC_RSS_MB].set(stats["rss_mb"], tags=full)
+            gauges[PROC_CPU_PCT].set(stats["cpu_pct"], tags=full)
+            if "open_fds" in stats:
+                gauges[PROC_OPEN_FDS].set(stats["open_fds"], tags=full)
+            proc_live[tags["worker_id"]] = dict(stats, node=tags["node"],
+                                                local=True)
+        # retire label series of processes that vanished (Metric.remove —
+        # without this the per-worker gauges grow with worker churn)
+        for g in gauges.values():
+            for labels in g.label_sets():
+                if tuple(sorted(labels.items())) not in live_keys:
+                    g.remove(labels)
+        # local rows replace wholesale; remote rows (shipped by agents)
+        # persist until their next report or until they go stale (a dead
+        # remote worker stops appearing in its agent's reports — prune by
+        # timestamp, or churn accumulates rows forever)
+        cutoff = time.time() - self._origin_expiry_s
+        with self._proc_lock:
+            self._proc_live = {
+                **{k: v for k, v in self._proc_live.items()
+                   if not v.get("local") and v.get("ts", 0.0) >= cutoff},
+                **proc_live,
+            }
+
+    def _history_rows(self, metrics: Dict[str, dict]) -> Dict[str, dict]:
+        """``metrics`` as the TSDB keeps it: a worker's ``/proc`` rows
+        enter the history only while the worker's own pusher is live, so
+        its series starts after its start-up.  A worker that an agent
+        starts cold imports torch for seconds under the sampler; at a
+        sub-second push those rising samples read as a leak to the
+        doctor's ``rss_growth`` rule (ROADMAP C5).  The live registry and
+        the top view keep every row."""
+        from ray_tpu_torch._private.resource_spec import _PROC_METRIC_HELP
+
+        reg = self.worker_metrics_registry
+        with reg.lock:
+            keep = set(reg.origin_seen) | {"head"}
+        out = dict(metrics)
+        for name in _PROC_METRIC_HELP:
+            m = metrics.get(name)
+            if m:
+                out[name] = dict(m, values={
+                    key: v for key, v in m.get("values", {}).items()
+                    if dict(key).get("worker_id", "head") in keep})
+        return out
+
+    def _fold_resource_report(self, origin: str, metrics: Dict[str, dict]) -> None:
+        """Keep the live top-view cache current from a node agent's (or
+        any remote sampler's) shipped per-process gauges."""
+        from ray_tpu_torch._private.resource_spec import (
+            PROC_CPU_PCT,
+            PROC_OPEN_FDS,
+            PROC_RSS_MB,
+        )
+
+        names = {PROC_RSS_MB: "rss_mb", PROC_CPU_PCT: "cpu_pct",
+                 PROC_OPEN_FDS: "open_fds"}
+        now = time.time()
+        with self._proc_lock:
+            for name, field in names.items():
+                m = metrics.get(name)
+                if not m:
+                    continue
+                for key, value in m.get("values", {}).items():
+                    tags = dict(key)
+                    wid = tags.get("worker_id") or (
+                        f"agent:{tags.get('node', origin)}"
+                        if tags.get("entity") == "agent" else None)
+                    if wid is None:
+                        continue
+                    row = self._proc_live.setdefault(
+                        wid, {"node": tags.get("node", origin)})
+                    row[field] = value
+                    row["local"] = False
+                    row["ts"] = now
+
+    def refresh_runtime_gauges(self) -> None:
+        """Refresh the head's runtime gauges (store/arena occupancy, task
+        states, queue depth, owner-pinned bytes...) — shared by the
+        TSDB sample loop and ``top``/``perf``, so the merged view and the
+        time series always agree (metric_defs.cc analog)."""
+        from ray_tpu_torch.util.metrics import Gauge
+
+        g = Gauge("ray_tpu_objects_in_store", "objects tracked by the registry")
+        stats = self.registry.stats()
+        g.set(stats["num_objects"])
+        Gauge("ray_tpu_object_store_bytes", "head-local shm bytes").set(
+            stats["bytes_used"])
+        Gauge("ray_tpu_objects_spilled", "objects spilled to disk").set(
+            stats.get("num_spilled", 0))
+        arena = getattr(self, "arena", None)
+        if arena is not None:
+            try:
+                astats = arena.stats()
+                Gauge("ray_tpu_arena_bytes_used",
+                      "native arena bytes allocated").set(astats["bytes_used"])
+                Gauge("ray_tpu_arena_capacity_bytes",
+                      "native arena capacity").set(astats["capacity"])
+            except Exception:
+                pass
+        with self.lock:
+            n_workers = len([w for w in self.workers.values()
+                             if w.state != "dead"])
+            n_nodes = len([ns for ns in self.nodes.values() if ns.alive])
+            n_pending = (len(self.pending_tasks)
+                         + sum(len(q) for q in self._starved.values()))
+        Gauge("ray_tpu_num_workers", "live workers").set(n_workers)
+        Gauge("ray_tpu_num_nodes", "alive nodes").set(n_nodes)
+        Gauge("ray_tpu_sched_queue_depth",
+              "tasks pending cluster-wide (not yet staged on a node)").set(
+            n_pending)
+        for src, n in self.events.counts().items():
+            Gauge("ray_tpu_events_recorded",
+                  "flight-recorder events held per source").set(
+                n, tags={"source": src})
+        with self.gcs.lock:
+            for state in ("PENDING", "RUNNING", "FINISHED", "FAILED"):
+                n = sum(1 for t in self.gcs.tasks.values() if t.state == state)
+                Gauge("ray_tpu_tasks", "tasks by state").set(
+                    n, tags={"state": state})
+        # object-store bytes pinned per owner, from the ownership table —
+        # the "who owns these 6 GiB" trend; stale owners' series retire
+        audit = self._memory_audit(limit=0)
+        g = Gauge("ray_tpu_owner_pinned_bytes",
+                  "sealed object-store bytes attributed per owner")
+        live = set()
+        for row in audit["by_owner"][:50]:
+            tags = {"owner": row["owner"], "kind": row["owner_kind"]}
+            live.add(tuple(sorted(tags.items())))
+            g.set(row["bytes"], tags=tags)
+        for labels in g.label_sets():
+            if tuple(sorted(labels.items())) not in live:
+                g.remove(labels)
+
+    def _memory_audit(self, limit: int = 200) -> dict:
+        """The ``ray memory`` analog: every sealed object's bytes
+        attributed to the worker/actor/driver that produced it, with pin
+        reasons, ages, and orphan flags (owner process no longer alive).
+        ``limit`` caps the per-object rows shipped; ``limit=0`` (the
+        every-tick gauge refresh and ``top``) takes the aggregate-only
+        registry pass — no per-object row dicts, no sort."""
+        with self.lock:
+            live_workers = {w.worker_id.hex() for w in self.workers.values()
+                            if w.state != "dead"}
+            live_actors = {a.info.actor_id.hex() for a in self.actors.values()
+                           if a.worker is not None and a.worker.state != "dead"}
+        with self.gcs.lock:
+            actor_names = {a.actor_id.hex(): a.class_name
+                           for a in self.gcs.actors.values()}
+            actor_ns = {a.actor_id.hex(): a.namespace
+                        for a in self.gcs.actors.values()}
+            ns_actors: Dict[str, int] = {}
+            for a in self.gcs.actors.values():
+                if a.state != "DEAD":
+                    ns_actors[a.namespace] = ns_actors.get(a.namespace, 0) + 1
+        with self.lock:
+            job_ns = {jid: rec["namespace"] for jid, rec in self._jobs.items()}
+
+        def owner_namespace(owner: str, kind: str) -> str:
+            """Namespace a sealed owner rolls up under: actors carry
+            theirs, driver owners are job ids, pooled workers are shared
+            infrastructure (their seals serve whichever tenant's task ran
+            last — attributing them to one would lie)."""
+            if kind == "actor":
+                return actor_ns.get(owner, "default")
+            if kind == "driver":
+                return job_ns.get(owner, "default")
+            return "(shared)"
+
+        def annotate(owner: str, kind: str):
+            """(display label, owner process still alive)."""
+            if kind == "actor":
+                return (f"{actor_names.get(owner, 'actor')}:{owner[:8]}",
+                        owner in live_actors)
+            if kind == "worker":
+                return f"worker:{owner[:8]}", owner in live_workers
+            # driver/head seals live exactly as long as the session
+            return owner, True
+
+        rows: List[dict] = []
+        num_objects = 0
+        if limit:
+            rows = self.registry.memory_audit()
+            num_objects = len(rows)
+            owner_aggs: Dict[tuple, dict] = {}
+            by_reason: Dict[str, int] = {}
+            for r in rows:
+                key = (r["owner"], r["owner_kind"])
+                agg = owner_aggs.setdefault(key, {"bytes": 0, "objects": 0})
+                agg["bytes"] += r["size"] or 0
+                agg["objects"] += 1
+                by_reason[r["pin_reason"]] = by_reason.get(
+                    r["pin_reason"], 0) + (r["size"] or 0)
+        else:
+            # aggregate-only path: O(owners) read of the incrementally-
+            # maintained summary (no table scan under the registry lock
+            # on the every-tick gauge refresh); the pin-reason breakdown
+            # needs per-object pins and only ships with the rows
+            owner_aggs = self.registry.owner_summary()
+            by_reason = {}
+            num_objects = sum(a["objects"] for a in owner_aggs.values())
+        total = attributed = orphan_bytes = 0
+        by_owner = []
+        for (owner, kind), agg in owner_aggs.items():
+            label, alive = annotate(owner, kind)
+            total += agg["bytes"]
+            if owner != "unknown":
+                attributed += agg["bytes"]
+            if not alive:
+                orphan_bytes += agg["bytes"]
+            by_owner.append({
+                "owner": owner, "owner_kind": kind, "owner_label": label,
+                "bytes": agg["bytes"], "objects": agg["objects"],
+                "orphan": not alive,
+            })
+        by_owner.sort(key=lambda a: -a["bytes"])
+        # per-namespace rollup: one row per tenant — pinned bytes, object
+        # and actor counts, owning jobs (one tenant's footprint reads off
+        # a single row of `ray_tpu_torch top` / `memory`)
+        ns_rows: Dict[str, dict] = {}
+        for o in by_owner:
+            nsn = owner_namespace(o["owner"], o["owner_kind"])
+            row = ns_rows.setdefault(nsn, {
+                "namespace": nsn, "bytes": 0, "objects": 0,
+                "actors": ns_actors.get(nsn, 0), "jobs": 0})
+            row["bytes"] += o["bytes"]
+            row["objects"] += o["objects"]
+            if o["owner_kind"] == "driver":
+                row["jobs"] += 1
+        for nsn, count in ns_actors.items():
+            ns_rows.setdefault(nsn, {
+                "namespace": nsn, "bytes": 0, "objects": 0,
+                "actors": count, "jobs": 0})
+        by_namespace = sorted(ns_rows.values(), key=lambda r: -r["bytes"])
+        rows = rows[:limit]  # only shipped rows need per-row annotation
+        for r in rows:
+            r["owner_label"], alive = annotate(r["owner"], r["owner_kind"])
+            r["orphan"] = not alive
+        return {
+            "ts": time.time(),
+            "total_bytes": total,
+            "attributed_bytes": attributed,
+            "attributed_frac": (attributed / total) if total else 1.0,
+            "orphan_bytes": orphan_bytes,
+            "num_objects": num_objects,
+            "by_owner": by_owner,
+            "by_namespace": by_namespace,
+            "by_pin_reason": by_reason,
+            "rows": rows,
+            "store": self.registry.stats(),
+        }
+
+    def _top_snapshot(self) -> dict:
+        """One frame of ``ray_tpu_torch top``: nodes with live host stats,
+        workers/actors with their sampled RSS/CPU/fds and pinned bytes,
+        plus store + task-state summaries."""
+        from ray_tpu_torch._private.resource_spec import host_stats
+
+        audit = self._memory_audit(limit=0)
+        pinned = {a["owner"]: a["bytes"] for a in audit["by_owner"]}
+        with self._proc_lock:
+            proc_live = dict(self._proc_live)
+        with self.lock:
+            nodes = [{
+                "node_id": ns.node_id, "alive": ns.alive,
+                "total": dict(ns.total), "available": dict(ns.available),
+                "utilization": round(ns.utilization(), 3),
+                "host_stats": ns.host_stats if ns.agent_conn is not None
+                else None,
+                # only head-local/emulated nodes genuinely share this
+                # host: filling a remote node's missing stats (agent yet
+                # to pong) with the head's /proc would mislabel them
+                "_local_host": ns.agent_conn is None,
+            } for ns in self.nodes.values()]
+            workers = []
+            for wid, w in self.workers.items():
+                if w.state == "dead":
+                    continue
+                hexid = wid.hex()
+                stats = proc_live.get(hexid, {})
+                workers.append({
+                    "worker_id": hexid, "node_id": w.node_id,
+                    "pid": w.proc.pid if w.proc else None,
+                    "state": w.state,
+                    "kind": "actor" if w.is_actor_worker else "worker",
+                    "actor_id": w.actor_id.hex() if w.actor_id else None,
+                    "rss_mb": stats.get("rss_mb"),
+                    "cpu_pct": stats.get("cpu_pct"),
+                    "open_fds": stats.get("open_fds"),
+                    "pinned_bytes": pinned.get(hexid)
+                    or (pinned.get(w.actor_id.hex()) if w.actor_id else 0)
+                    or 0,
+                })
+        with self.gcs.lock:
+            actor_names = {a.actor_id.hex(): a.class_name
+                           for a in self.gcs.actors.values()}
+            task_states: Dict[str, int] = {}
+            for t in self.gcs.tasks.values():
+                task_states[t.state] = task_states.get(t.state, 0) + 1
+        for w in workers:
+            if w["actor_id"]:
+                w["actor_class"] = actor_names.get(w["actor_id"])
+        head_stats = proc_live.get("head", {})
+        for n in nodes:
+            if n.pop("_local_host") and n["host_stats"] is None \
+                    and n["alive"]:
+                n["host_stats"] = host_stats()
+        return {
+            "ts": time.time(),
+            "nodes": nodes,
+            "workers": workers,
+            "head": head_stats,
+            "tasks": task_states,
+            "store": audit["store"],
+            "owners": audit["by_owner"][:20],
+            "namespaces": audit["by_namespace"][:20],
+            "total_pinned_bytes": audit["total_bytes"],
+            "orphan_bytes": audit["orphan_bytes"],
+            "tsdb": self.tsdb.stats(),
+            # device-memory watermark rows (util/perf.py gauges pushed
+            # by train workers / serve engines; host-RSS kind on CPU)
+            "hbm": self._hbm_rows(),
+        }
+
+    def _merged_metrics_snapshot(self) -> dict:
+        """Head registry + worker-pushed registries, one snapshot (what
+        perf/top aggregate over)."""
+        from ray_tpu_torch.util import metrics as metrics_mod
+
+        return metrics_mod.merge_snapshots(
+            metrics_mod.registry().snapshot(),
+            self.worker_metrics_registry.snapshot())
+
+    def _hbm_rows(self, merged: Optional[dict] = None) -> List[dict]:
+        """Device-memory gauge rows from the merged registry: one row
+        per (device, kind, origin) with in-use/limit/peak joined."""
+        if merged is None:
+            merged = self._merged_metrics_snapshot()
+        rows: Dict[tuple, dict] = {}
+        for name, field in (("ray_tpu_hbm_bytes_in_use", "bytes_in_use"),
+                            ("ray_tpu_hbm_bytes_limit", "bytes_limit"),
+                            ("ray_tpu_hbm_peak_bytes_in_use",
+                             "peak_bytes_in_use")):
+            m = merged.get(name)
+            if not m:
+                continue
+            for key, v in m.get("values", {}).items():
+                if not isinstance(v, (int, float)):
+                    continue
+                row = rows.setdefault(tuple(key), {"tags": dict(key)})
+                row[field] = v
+        return [rows[k] for k in sorted(rows)]
+
+    @staticmethod
+    def _merged_histogram_summary(merged: dict, name: str) -> Optional[dict]:
+        """Count/mean + bucket-estimated p50/p99 for one merged-registry
+        histogram, label series with identical bounds folded together
+        (percentiles from cumulative bucket edges — coarse but honest:
+        the estimate is an upper bound at bucket resolution, and a
+        percentile whose mass lands in the +inf overflow bucket reports
+        None rather than clamping to the last bound, which would be a
+        FALSE upper bound on exactly the tail this layer explains;
+        ``last_bound`` lets renderers say "> last_bound")."""
+        m = merged.get(name)
+        if not m or m.get("type") != "histogram":
+            return None
+        bounds: Optional[list] = None
+        agg: Optional[list] = None
+        total = 0
+        total_sum = 0.0
+        for v in m.get("values", {}).values():
+            if not isinstance(v, dict):
+                continue
+            b = list(v.get("buckets") or [])
+            vb = list(v.get("bounds") or [])
+            if bounds is None:
+                bounds, agg = vb, [0] * len(b)
+            if vb != bounds or len(b) != len(agg):
+                continue  # foreign bounds: skip rather than mis-fold
+            agg = [a + x for a, x in zip(agg, b)]
+            total += int(v.get("count") or 0)
+            total_sum += float(v.get("sum") or 0.0)
+        if not total or not bounds:
+            return None
+
+        def pct(q: float):
+            target = q * total
+            acc = 0
+            for i, c in enumerate(agg):
+                acc += c
+                if acc >= target:
+                    return bounds[i] if i < len(bounds) else None
+            return None
+
+        return {"count": total, "mean_s": round(total_sum / total, 6),
+                "p50_est_s": pct(0.5), "p99_est_s": pct(0.99),
+                "last_bound_s": bounds[-1]}
+
+    def _perf_summary(self, window_s: float = 1800.0) -> dict:
+        """Head-side aggregate behind ``ray_tpu_torch perf``:
+        the step-phase breakdown + compile table folded from the
+        ``perf`` event source (cluster table + the head's own ring), the
+        MFU trend from the TSDB, HBM watermarks and decode TTFT/ITL
+        histograms from the merged registry, and each serve engine's
+        latest prefill-interference meter state."""
+        rows = self._list_state("events", 100_000, {"source": "perf"})
+        steps = 0
+        wall = 0.0
+        tokens = 0
+        phase_totals: Dict[str, float] = {}
+        last_mfu: Dict[str, float] = {}
+        compiles: Dict[tuple, dict] = {}
+        interference: Dict[str, dict] = {}
+        for r in rows:
+            d = r.get("data") or {}
+            msg = r.get("message")
+            if msg == "step phases":
+                steps += 1
+                wall += float(d.get("wall_s") or r.get("span_dur") or 0.0)
+                tokens += int(d.get("tokens") or 0)
+                for k, v in (d.get("phases") or {}).items():
+                    phase_totals[k] = phase_totals.get(k, 0.0) + float(v)
+                if d.get("mfu") is not None:
+                    # origin-qualified: two gangs both have a rank0, and
+                    # bare entity ids would show one job's MFU as the
+                    # other's
+                    who = (f"{r.get('origin') or 'head'}:"
+                           f"{r.get('entity_id')}")
+                    last_mfu[who] = float(d["mfu"])
+            elif msg == "jit compile":
+                key = (str(r.get("origin") or "head"), str(d.get("fn", "?")))
+                e = compiles.setdefault(key, {
+                    "origin": key[0], "fn": key[1], "compiles": 0,
+                    "compile_s": 0.0, "n_sigs": 0, "hits": 0, "misses": 0})
+                e["compiles"] += 1
+                e["compile_s"] += float(r.get("span_dur") or 0.0)
+                # hits/misses/n_sigs ride every compile event cumulatively
+                e["n_sigs"] = max(e["n_sigs"], int(d.get("n_sigs") or 0))
+                e["hits"] = max(e["hits"], int(d.get("hits") or 0))
+                e["misses"] = max(e["misses"], int(d.get("misses") or 0))
+            elif msg == "prefill interference":
+                eid = f"{r.get('origin') or 'head'}:{r.get('entity_id')}"
+                prev = interference.get(eid)
+                if prev is None or float(r.get("ts") or 0.0) >= float(
+                        prev.get("ts") or 0.0):
+                    interference[eid] = r
+        merged = self._merged_metrics_snapshot()
+
+        def counter_by_origin_fn(name: str) -> Dict[tuple, float]:
+            out: Dict[tuple, float] = {}
+            for key, v in (merged.get(name) or {}).get("values",
+                                                       {}).items():
+                if isinstance(v, (int, float)):
+                    d = dict(key)
+                    out[(d.get("origin", "head"), d.get("fn", "?"))] = v
+            return out
+
+        # hit/miss counts ride compile EVENTS only at compile time — a
+        # steady-state fn that compiled once then served 100k hits would
+        # read hits≈0 forever off events alone.  The live registry
+        # counters keep counting, so they win where present.
+        live_hits = counter_by_origin_fn("ray_tpu_jit_cache_hits_total")
+        live_misses = counter_by_origin_fn("ray_tpu_jit_cache_misses_total")
+        for key, e in compiles.items():
+            if key in live_hits:
+                e["hits"] = int(live_hits[key])
+            if key in live_misses:
+                e["misses"] = int(live_misses[key])
+        try:
+            mfu_series = self.tsdb.query(
+                "ray_tpu_train_step_mfu", window_s=window_s).get("series", [])
+        except Exception:
+            mfu_series = []
+        phases_out = {
+            k: {"s": round(v, 6),
+                "frac": round(v / wall, 4) if wall > 0 else 0.0}
+            for k, v in sorted(phase_totals.items(), key=lambda kv: -kv[1])}
+        for e in compiles.values():
+            e["compile_s"] = round(e["compile_s"], 6)
+        return {
+            "ts": time.time(),
+            "window_s": window_s,
+            "steps": {"count": steps, "wall_s": round(wall, 6),
+                      "tokens": tokens, "phases": phases_out,
+                      "last_mfu": last_mfu},
+            "mfu_trend": mfu_series,
+            "compiles": sorted(compiles.values(),
+                               key=lambda e: -e["compile_s"]),
+            "hbm": self._hbm_rows(merged),
+            "decode": {
+                "ttft": self._merged_histogram_summary(
+                    merged, "ray_tpu_llm_ttft_s"),
+                "itl": self._merged_histogram_summary(
+                    merged, "ray_tpu_llm_itl_s"),
+                "interference": {eid: dict(r.get("data") or {})
+                                 for eid, r in sorted(interference.items())},
+            },
+        }
+
+    def _doctor_report(self, trend_window_s: float = 1800.0) -> List[dict]:
+        """Head-side doctor pass over head-local tables — what the
+        ``doctor_report`` RPC serves so `ray_tpu_torch doctor` never pulls
+        100k event/task rows to the client per invocation."""
+        from ray_tpu_torch.util import doctor as doctor_mod
+
+        try:
+            tasks, _total = self._list_state_page("tasks", 5000)
+        except Exception:
+            tasks = []
+        return doctor_mod.head_report(
+            self.events, self._session_ring, self.tsdb, tasks=tasks,
+            trend_window_s=trend_window_s)
+
     def _state_snapshot(self) -> dict:
         snap = self.gcs.snapshot()
         snap["object_store"] = self.registry.stats()
@@ -4232,6 +4914,7 @@ class Node:
     # ------------------------------------------------------------------
     def shutdown(self) -> None:
         self._shutdown = True
+        self._tsdb_stop.set()
         if self._log_monitor is not None:
             try:
                 self._log_monitor.stop()  # final drain into the store

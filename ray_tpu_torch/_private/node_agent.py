@@ -15,7 +15,10 @@ with the GCS and serves its node): the agent
   :class:`~ray_tpu_torch._private.object_transfer.ObjectServer`,
 - reports pre-registration worker deaths (the head cannot poll a remote
   process),
-- unlinks local segments when the head evicts them, and
+- unlinks local segments when the head evicts them,
+- samples RSS, CPU% and open fds of itself and its workers from
+  ``/proc`` every push interval and ships them as ``metrics_report``
+  gauges, and
 - gossips its resource view + liveness to peer agents through the
   :mod:`~ray_tpu_torch._private.syncer` P2P mesh, shipping the converged
   view back to the head each tick so the head is no longer the sole
@@ -149,6 +152,18 @@ class NodeAgent:
         self._monitor = threading.Thread(target=self._monitor_loop, daemon=True,
                                          name="agent-monitor")
         self._monitor.start()
+
+        # Per-entity resource sampler (reporter_agent analog): RSS / CPU% /
+        # open fds for every worker on THIS host plus the agent itself,
+        # shipped as tagged gauges over the metrics_report path so they
+        # land in the head's merged registry and its TSDB.  The head
+        # cannot read a remote host's /proc — this loop is the only
+        # source of per-worker stats for agent nodes.  The head samples
+        # only the workers it spawned itself, so a pid on a host the head
+        # and an agent share has one sampler: its spawner's.
+        t = threading.Thread(target=self._resource_loop, daemon=True,
+                             name="agent-resources")
+        t.start()
 
     # -- plumbing ---------------------------------------------------------
     def _send(self, msg: dict) -> None:
@@ -309,6 +324,39 @@ class NodeAgent:
             # ship whatever the file gained before the head retires the
             # stream (its kill_worker -> death path runs after this)
             self.log_monitor.unregister(f"worker-{worker_id}")
+
+    def _resource_loop(self) -> None:
+        """/proc sampling of agent + workers on the shared deadline grid
+        (``metrics.grid_ticks``) — spacing must stay uniform for the
+        head's TSDB."""
+        from ray_tpu_torch._private.resource_spec import (
+            ProcSampler,
+            resource_metrics_snapshot,
+        )
+        from ray_tpu_torch.util.metrics import grid_ticks, push_interval_s
+
+        sampler = ProcSampler()
+
+        def wait(timeout: float) -> bool:
+            time.sleep(timeout)
+            return self._shutdown
+
+        for _ in grid_ticks(push_interval_s(), wait):
+            entities = [({"entity": "agent", "node": self.node_id},
+                         os.getpid())]
+            with self._lock:
+                for wid, proc in self.procs.items():
+                    entities.append((
+                        {"entity": "worker", "worker_id": wid,
+                         "node": self.node_id}, proc.pid))
+            snap, _ = resource_metrics_snapshot(sampler, entities)
+            if not snap:
+                continue
+            try:
+                self._send({"type": "metrics_report", "origin": self.node_id,
+                            "metrics": snap})
+            except (OSError, ValueError):
+                return  # head gone; serve_forever is tearing down
 
     def _monitor_loop(self) -> None:
         """Report worker processes that die (the head polls local procs

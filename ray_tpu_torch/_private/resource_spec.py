@@ -11,6 +11,11 @@ Detection never creates a CUDA context in the head: it reads
 process), and only where that tool is missing falls back to
 ``torch.cuda.device_count()``, which counts through NVML or the driver
 without making a context.
+
+``host_stats`` and ``ProcSampler`` read ``/proc`` alone (no psutil): the
+node heartbeat's host figures, and the RSS, CPU% and open fds of each
+process the head or a node agent samples, as registry-shaped gauges
+(``resource_metrics_snapshot``) that ride the ``metrics_report`` path.
 """
 
 from __future__ import annotations
@@ -109,3 +114,108 @@ def host_stats() -> Dict[str, float]:
     except (OSError, ValueError):
         pass
     return stats
+
+
+# ---------------------------------------------------------------------------
+# per-process resource sampling (reporter_agent's per-worker stats analog)
+# ---------------------------------------------------------------------------
+
+# gauge names the sampler emits; the head's top view, the TSDB trend rules
+# (doctor RSS-growth), and the Grafana factory all key off these
+PROC_RSS_MB = "ray_tpu_proc_rss_mb"
+PROC_CPU_PCT = "ray_tpu_proc_cpu_percent"
+PROC_OPEN_FDS = "ray_tpu_proc_open_fds"
+
+_PROC_METRIC_HELP = {
+    PROC_RSS_MB: "resident set size per tracked process (MB)",
+    PROC_CPU_PCT: "CPU utilization per tracked process (%)",
+    PROC_OPEN_FDS: "open file descriptors per tracked process",
+}
+
+
+class ProcSampler:
+    """Reads RSS, CPU%, and open-fd counts for a set of pids from /proc.
+
+    CPU% needs a delta between consecutive samples (utime+stime ticks over
+    wall time), so one sampler instance persists across a sampling loop's
+    lifetime; pids that vanish between samples simply drop out.  /proc
+    only — no psutil on a 5 s always-on path."""
+
+    def __init__(self):
+        self._prev: Dict[int, Tuple[float, float]] = {}  # pid -> (ticks_s, t)
+        try:
+            self._hz = float(os.sysconf("SC_CLK_TCK")) or 100.0
+        except (ValueError, OSError, AttributeError):
+            self._hz = 100.0
+        self._page_kb = (os.sysconf("SC_PAGE_SIZE") // 1024
+                         if hasattr(os, "sysconf") else 4)
+
+    def sample(self, pid: int) -> Optional[Dict[str, float]]:
+        """One process's stats, or None when the pid is gone."""
+        import time as _time
+
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+        except OSError:
+            self._prev.pop(pid, None)
+            return None
+        # comm may contain spaces/parens: fields start after the LAST ')'
+        fields = stat[stat.rfind(")") + 2:].split()
+        # fields[11]=utime, fields[12]=stime (0-based after comm/state),
+        # fields[21]=rss pages
+        try:
+            cpu_s = (float(fields[11]) + float(fields[12])) / self._hz
+            rss_mb = float(fields[21]) * self._page_kb / 1024.0
+        except (IndexError, ValueError):
+            return None
+        now = _time.monotonic()
+        cpu_pct = 0.0
+        prev = self._prev.get(pid)
+        if prev is not None and now > prev[1]:
+            cpu_pct = max(0.0, (cpu_s - prev[0]) / (now - prev[1]) * 100.0)
+        self._prev[pid] = (cpu_s, now)
+        out = {"rss_mb": round(rss_mb, 2), "cpu_pct": round(cpu_pct, 2)}
+        try:
+            out["open_fds"] = float(len(os.listdir(f"/proc/{pid}/fd")))
+        except OSError:
+            pass
+        return out
+
+    def forget_missing(self, live_pids) -> None:
+        """Drop CPU baselines for pids no longer tracked."""
+        live = set(live_pids)
+        for pid in [p for p in self._prev if p not in live]:
+            del self._prev[p]
+
+
+def resource_metrics_snapshot(sampler: ProcSampler,
+                              entities: List[Tuple[Dict[str, str], int]],
+                              ) -> Tuple[Dict[str, dict], List[tuple]]:
+    """Sample ``entities`` ((tags, pid) pairs) into a registry-snapshot-
+    shaped dict, so the result rides the existing ``metrics_report`` path
+    and folds into the head's merged registry AND its TSDB unchanged.
+    Also returns the per-entity raw stats as (tags, pid, stats) for
+    callers that keep a live cache (the head's top view)."""
+    values_by_metric: Dict[str, Dict[tuple, float]] = {
+        PROC_RSS_MB: {}, PROC_CPU_PCT: {}, PROC_OPEN_FDS: {}}
+    raw: List[Tuple[Dict[str, str], int, Dict[str, float]]] = []
+    seen_pids = []
+    for tags, pid in entities:
+        stats = sampler.sample(pid)
+        if stats is None:
+            continue
+        seen_pids.append(pid)
+        key = tuple(sorted({**tags, "pid": str(pid)}.items()))
+        values_by_metric[PROC_RSS_MB][key] = stats["rss_mb"]
+        values_by_metric[PROC_CPU_PCT][key] = stats["cpu_pct"]
+        if "open_fds" in stats:
+            values_by_metric[PROC_OPEN_FDS][key] = stats["open_fds"]
+        raw.append((tags, pid, stats))
+    sampler.forget_missing(seen_pids)
+    snap = {
+        name: {"type": "gauge", "help": _PROC_METRIC_HELP[name],
+               "values": values}
+        for name, values in values_by_metric.items() if values
+    }
+    return snap, raw

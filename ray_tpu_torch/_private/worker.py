@@ -886,6 +886,18 @@ def main() -> None:
     except (OSError, EOFError, AuthenticationError):
         os._exit(0)
 
+    # app metrics recorded in this worker (the card-memory gauges of
+    # util/perf.py among them) flow to the head's merged registry and its
+    # TSDB; the push cadence follows RAY_TPU_TORCH_METRICS_PUSH_S so the
+    # head's sample grid, origin-expiry window, and this pusher agree.
+    # One pusher per process: it starts here, once, and stops on the exit
+    # path below with the events pusher.
+    from ray_tpu_torch.util.metrics import MetricsPusher
+
+    _metrics_pusher = MetricsPusher(
+        client.send, origin=worker_id.hex(),
+        closed_fn=lambda: client.closed).start()
+
     # flight-recorder events ship to the head's event table; the pusher
     # also rewrites this worker's crash-dump file each cycle, so a
     # SIGKILL'd worker leaves its last-flushed ring in the log dir
@@ -999,6 +1011,7 @@ def main() -> None:
         pool.shutdown(wait=False)
     for gp in group_pools.values():
         gp.shutdown(wait=False)
+    _metrics_pusher.stop()  # no send after the connection closes
     _events_pusher.stop()  # final ship + crash-dump before the hard exit
     client.close()
     os._exit(0)

@@ -12,6 +12,12 @@ rows to count locally.  ``list_traces``/``get_trace``/``summarize_traces``
 expose the request-trace plane (``util/tracing.py`` spans assembled by the
 head's TraceTable).
 
+``list_metrics``/``query_metric`` read the head's time-series store
+(``util/tsdb.py``, fed by every worker's and node agent's metrics push
+and the head's own sampler); ``memory_summary``, ``top_snapshot``,
+``perf_summary`` and ``doctor_report`` are the head-side aggregates
+behind ``python -m ray_tpu_torch memory``/``top``/``perf``/``doctor``.
+
 A table the head does not keep (slices, tenants, logs, incidents, SLOs:
 their stores are not ported) raises ``ValueError``.
 """
@@ -150,3 +156,75 @@ def get_trace(trace_id: str) -> Optional[dict]:
     unknown."""
     return _client().request(
         {"type": "get_trace", "trace_id": trace_id})["value"]
+
+
+# ---------------------------------------------------------------------------
+# resource accounting over time (head TSDB + ownership audit)
+# ---------------------------------------------------------------------------
+
+def list_metrics() -> List[dict]:
+    """Every metric with retained history in the head's TSDB: name, type,
+    number of label series, origins, freshest sample time."""
+    return _client().request({"type": "list_metrics"})["value"]
+
+
+def query_metric(name: str, window_s: float = 3600.0, step_s: float = 0.0,
+                 tags: Optional[Dict[str, str]] = None,
+                 agg: Optional[str] = None) -> dict:
+    """Aligned time series for one metric over the trailing window,
+    served from the head's staged-downsampling TSDB — the data behind
+    sparklines, trend doctor rules, and capacity questions a snapshot
+    can't answer.  ``step_s <= 0`` uses the sample interval; ``agg`` is
+    one of last/max/min/sum/avg/count (default: the metric's natural
+    aggregation)."""
+    msg = {"type": "query_metric", "name": name, "window_s": window_s,
+           "step_s": step_s}
+    if tags:
+        msg["tags"] = tags
+    if agg:
+        msg["agg"] = agg
+    value = _client().request(msg)["value"]
+    if isinstance(value, dict) and "__state_error__" in value:
+        raise ValueError(value["__state_error__"])
+    return value
+
+
+def memory_summary(limit: int = 200) -> dict:
+    """Object-ownership audit (``ray memory`` analog): sealed object-store
+    bytes attributed per owner (driver/worker/actor), pin-reason
+    breakdown, per-object rows sorted by size, and orphan flags for
+    objects whose owner process is gone."""
+    return _client().request(
+        {"type": "memory_audit", "limit": limit})["value"]
+
+
+def top_snapshot() -> dict:
+    """One frame of ``ray_tpu_torch top``: nodes with host stats, workers
+    with sampled RSS/CPU/fds and pinned bytes, task-state and store
+    summaries, and device-memory watermark rows (each GPU process's
+    ``torch.cuda`` allocator gauges, pushed by its metrics pusher)."""
+    return _client().request({"type": "top_snapshot"})["value"]
+
+
+def doctor_report(trend_window_s: float = 1800.0) -> List[dict]:
+    """Doctor findings computed HEAD-SIDE over the head's own event /
+    task / TSDB tables — the ``ray_tpu_torch doctor`` backend.  The client
+    receives only the findings, never the 100k-row tables they were
+    diagnosed from."""
+    value = _client().request(
+        {"type": "doctor_report",
+         "trend_window_s": trend_window_s})["value"]
+    if isinstance(value, dict) and "__state_error__" in value:
+        raise ValueError(value["__state_error__"])
+    return value
+
+
+def perf_summary(window_s: float = 1800.0) -> dict:
+    """Performance-observability aggregate (``ray_tpu_torch perf``
+    backend): the step-phase breakdown (phases sum exactly to profiled
+    step wall), per-rank live MFU + the TSDB MFU trend over the trailing
+    window, the compile-cache table per shape signature, device-memory
+    watermarks, and the decode attribution block (TTFT/ITL histograms,
+    per-engine prefill-interference meters)."""
+    return _client().request(
+        {"type": "perf_summary", "window_s": window_s})["value"]

@@ -423,4 +423,35 @@ def test_operator_plane_loads_neither_jax_nor_ray_tpu_and_starts_nothing():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
                          capture_output=True, text=True)
     assert "{start,up,down,stop,status,list,submit,job-logs,job-stop,timeline,events," \
-           "trace,serve-status}" in out.stdout
+           "trace,serve-status,doctor,top,memory,metrics,perf}" in out.stdout
+
+
+def test_util_libraries_and_accounting_load_neither_jax_nor_ray_tpu_and_start_nothing():
+    """The util libraries (``ActorPool``, ``queue``, ``multiprocessing``,
+    ``pubsub``), the metrics store, the doctor and the ``/proc`` sampler
+    import no JAX and nothing of ``ray_tpu``; importing them starts no
+    thread, no process and no runtime, and makes no CUDA context.  The
+    joblib backend raises ``ImportError`` where joblib is missing, as
+    the JAX package's does (the card's machine has none)."""
+    code = (
+        "import sys, threading, torch\n"
+        "import ray_tpu_torch.util, ray_tpu_torch.util.actor_pool, ray_tpu_torch.util.queue\n"
+        "import ray_tpu_torch.util.multiprocessing, ray_tpu_torch.util.pubsub\n"
+        "import ray_tpu_torch.util.tsdb, ray_tpu_torch.util.doctor, ray_tpu_torch.util.metrics\n"
+        "from ray_tpu_torch.util import ActorPool\n"
+        "from ray_tpu_torch._private.resource_spec import ProcSampler, host_stats\n"
+        "from ray_tpu_torch._private import worker\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert worker.global_worker.client is None\n"
+        "sys.modules['joblib'] = None\n"
+        "try:\n"
+        "    import ray_tpu_torch.util.joblib\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise AssertionError('the joblib backend imported without joblib')\n"
+        % (FORBIDDEN,))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -353,14 +353,30 @@ def test_down_kills_a_head_by_its_record_only_if_it_is_the_ports(private_tmp):
     os.remove(record)
 
 
-@pytest.mark.parametrize("name", ["logs", "lint", "doctor", "incidents", "slo", "debug", "top",
-                                  "slices", "memory", "metrics", "perf", "profile",
-                                  "serve-deploy"])
+@pytest.mark.parametrize("name", ["logs", "lint", "incidents", "slo", "debug",
+                                  "slices", "profile", "serve-deploy"])
 def test_unregistered_subcommands_exit_with_argparses_error(name, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main([name])
     assert e.value.code == 2
     assert f"invalid choice: '{name}'" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("name,flags", [("doctor", ["--json"]),
+                                        ("top", ["--interval", "--iterations", "--sort"]),
+                                        ("memory", ["--limit", "--json"]),
+                                        ("metrics", ["--window", "--step", "--agg"]),
+                                        ("perf", ["--window", "--json"])])
+def test_accounting_subcommands_take_the_jax_packages_flags(name, flags, capsys):
+    """``doctor``, ``top``, ``memory``, ``metrics`` and ``perf`` are
+    registered with the JAX package's flags (``doctor`` without its
+    ``--live``/``--static``, which read the incident store and raylint)."""
+    with pytest.raises(SystemExit) as e:
+        cli.main([name, "--help"])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert all(f in out for f in flags), out
+    assert "--live" not in out and "--static" not in out
 
 
 def test_list_takes_only_the_tables_the_head_keeps(capsys):
