@@ -225,9 +225,13 @@ the backward kernels):
     last value equals the actor's ``allocated_bytes.all.current``;
     ``top_snapshot()`` lists both actors' workers with RSS and CPU from
     the sampler and a card row each; ``memory_summary()`` gives the driver
-    at least the batches' bytes; ``doctor_report()`` has no trend finding;
+    at least the batches' bytes; ``doctor_report()`` has no trend finding
+    but ``gil_saturation`` on a scorer (its GIL lateness while it enqueued
+    BERT's kernels from Python, printed by origin with the head's lock
+    rows);
     ``python -m ray_tpu_torch metrics``, ``top --iterations 1``,
-    ``memory``, ``perf`` and ``doctor`` exit 0.  Prints the TSDB's series,
+    ``memory``, ``perf`` and ``doctor --json`` exit 0 (``doctor`` 1 with
+    only that finding).  Prints the TSDB's series,
     the bytes of each actor's push and the head's median fold time a
     report, and the median ms of one push's snapshot and pickle in each
     actor.  (6) The push's cost: the pool's rate over as many more maps as
@@ -259,7 +263,47 @@ the backward kernels):
     In 29-31 and 33 each replica's or stage's own launch counts (read in its
     process through the compiled-graph control lane) are set to 0 just
     before the traffic and read just after.
-34. ``operator_job_gpt2`` (after 33, with no head in this process): the
+34. ``watch_pipeline_gpt2`` (after 33): 33's two GPT-2 125M stages
+    (``WatchStage``: stage 1 writes a marker line to stderr a call) at
+    ``num_gpus=0.5``, pinned to one agent node of 4 CPUs and the card that
+    ``Cluster.add_node`` adds to a card-less head, 8 microbatches of 4 x
+    1025 ids, under the observability stores: the continuous profiler in
+    the head, the agent and both stages, the push at 0.5 s, the log plane,
+    the watchdog at a 1 s cadence with a command sink appending each
+    incident transition to a file.  Two runtimes: the profiler off
+    (``RAY_TPU_TORCH_CONT_PROFILE=0``), repeating the 8 microbatches for
+    12 s, then on, for 20 s.  Gates: 12 ``flash_fwd`` launches a
+    microbatch, all on the tensor cores (the stages' counts set to 0 just
+    before each run's repetitions and read just after); the first
+    repetition's mean NLL per microbatch within 2e-3 of the unsplit
+    forward; ``list_profiles`` holds the head, the agent and both stages,
+    and each shipped a burst in the 20 s; one traced request's
+    ``analyze`` phases sum to its wall within 1e-6 relative and its
+    critical path is not empty (the gap within 1e-6 relative plus half a
+    microsecond for each number ``analyze`` rounds; ``trace <id>`` renders
+    it), and its trace spans at most 1.5 times the request's own span; an
+    SLO on the
+    stages' ``ray_tpu_proc_rss_mb`` below their RSS (windows 2 s and 6 s)
+    burns and opens an incident whose bundle holds ``incident.json``,
+    ``events.json``, ``logs/``, ``tsdb/`` (with the metric's slice), the
+    trace trees, the collapsed profile and the memory audit; ``incidents``
+    lists it, ``incidents --ack`` acknowledges it, after ``remove_slo`` it
+    resolves within its resolve ticks, and the sink's file shows open, ack
+    and resolve in that order; no ``rss_growth`` incident opens after the
+    stages are ready; ``logs --actor`` returns every marker line
+    of stage 1, which, SIGKILL'd, keeps its last marker readable from the
+    head (``tail_log``) with its stream ``retired``; the node removed, no
+    ``"GPU"`` is left.  Prints each origin's class shares of its busy
+    samples over the run, its busy share and duty cycle, the top leaf
+    frames of stage 0's ``serialize`` and ``other`` samples beside its
+    ``torch.save`` share of the exec span (span less compute, 33's
+    method), the profile ledger's columns and ``sum_over_wall``, the
+    repetitions' wall with the profiler on and off (the two runtimes, and
+    three pairs of 2.5 s blocks in the second with the head's and the
+    stages' profilers stopped and restarted in turn), the trace's phases
+    and critical path, the other incidents with when they opened, the
+    watchdog's tick cost.
+35. ``operator_job_gpt2`` (after 34, with no head in this process): the
     operator plane.  ``autoscaler.commands.up`` with the local runner
     starts ``python -m ray_tpu_torch start --head`` (2 CPUs, no card) and
     one node agent (4 CPUs, ``--num-gpus 1``); ``python -m ray_tpu_torch
@@ -286,7 +330,7 @@ on the serving and training paths has to run the tensor-core design
 (their ``_tc`` launch counts equal their totals; the profiled steps find
 only the ``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
 summed over the serving, training, Tune, RL, Data, Serve, graph,
-util-pool, multi-node pipeline and operator-job runs, and per run), the card's name
+util-pool, multi-node pipeline, watched pipeline and operator-job runs, and per run), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": {...}}``.  Exits non-zero,
 printing no result, when there is no CUDA device or any phase fails.
@@ -298,6 +342,7 @@ import gc
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -560,11 +605,13 @@ TC_EDGE_CASES = [(2, 3, 97, 131, 64, True, torch.bfloat16), (2, 3, 97, 131, 128,
 # the Serve paths' own shapes, on the model's fused qkv layout: the
 # prefill stage of prefill_decode_graph (one request, bucket 128, bf16,
 # tensor cores), the f32 gate of serve_llm_deployment (an admission of
-# 16 slots at 128, f32, CUDA cores) and operator_job_gpt2's job (one
-# prefill of 8 slots at 128, bf16, tensor cores)
+# 16 slots at 128, f32, CUDA cores), operator_job_gpt2's job (one
+# prefill of 8 slots at 128, bf16, tensor cores) and a pipeline stage's
+# microbatch of 4 x 1024 (multinode_pipeline_gpt2, watch_pipeline_gpt2)
 SERVE_PATH_CASES = [(1, 12, 128, 128, 64, True, torch.bfloat16, "fused"),
                     (16, 12, 128, 128, 64, True, torch.float32, "fused"),
-                    (8, 12, 128, 128, 64, True, torch.bfloat16, "fused")]
+                    (8, 12, 128, 128, 64, True, torch.bfloat16, "fused"),
+                    (4, 12, 1024, 1024, 64, True, torch.bfloat16, "fused")]
 
 # BERT-base's attention (non-causal, bf16, D 64, q/k/v views of one fused
 # projection): serve_bert's 16 x 128 batch, and a 4 x 512 one at the
@@ -3224,7 +3271,8 @@ def phase_batch_predict_bert(rt, served):
 POOL_ACTORS, POOL_SHARE, POOL_PUSH_S, POOL_QUEUE, POOL_CPU_WORKERS = 2, 0.5, 0.5, 8, 4
 POOL_RATE_PUSHES = 20
 POOL_CHANNEL = "util_pool_bert"
-POOL_CLI = (["metrics"], ["top", "--iterations", "1"], ["memory"], ["perf"], ["doctor"])
+POOL_CLI = (["metrics"], ["top", "--iterations", "1"], ["memory"], ["perf"],
+            ["doctor", "--json"])
 
 
 class BertScorer:
@@ -3379,6 +3427,30 @@ def _wrap_folds(node):
     return folds, sizes
 
 
+def _gil_lateness(state, wids):
+    """Each origin's ``ray_tpu_gil_lateness_frac`` in the head's TSDB: its
+    role (a scorer in ``wids``, the head, or another worker), its
+    highest point and its last four, which the doctor's
+    ``gil_saturation`` reads."""
+    out = {}
+    for s in state.query_metric("ray_tpu_gil_lateness_frac", window_s=600)["series"]:
+        o, pts = s["tags"].get("origin"), [v for _, v in s["points"]]
+        if pts:
+            out[o] = {"role": "scorer" if o in wids else "head" if o == "head" else "other",
+                      "max": max(pts), "last4": pts[-4:], "points": len(pts)}
+    return out
+
+
+def _lock_rows(n=5):
+    """This process's (the head's) named locks with the most estimated
+    wait: ``lock_stats``' rows, the wait and hold scaled from the armed
+    windows, their largest single wait and hold whole."""
+    from ray_tpu_torch._private import locks
+
+    rows = sorted(locks.lock_stats().items(), key=lambda kv: -kv[1]["wait_s"])[:n]
+    return {k: {f: round(v, 6) for f, v in r.items()} for k, r in rows}
+
+
 def phase_util_pool_bert_accounting(served, predict_rates):
     """The util libraries and the resource-accounting plane on the card
     (see the module doc).  Returns the flash launches of every map and
@@ -3515,9 +3587,17 @@ def phase_util_pool_bert_accounting(served, predict_rates):
         check(driver >= batch_bytes, f"{phase}: the driver owns {driver} bytes, want at least "
                                      f"the batches' {batch_bytes}")
         event_rules = {r.__name__[len("_rule_"):] for r in doctor.RULES}
+        scorer_gil = _gil_lateness(state, wids)
+
+        def excused(f):
+            """``gil_saturation`` on a scorer: its own lateness while it
+            enqueued BERT's kernels from Python (``gil_lateness_by_origin``
+            prints it), the one finding a healthy pool shows."""
+            return (f["rule"] == "gil_saturation"
+                    and f["evidence"][0]["tags"].get("origin") in wids)
         findings = state.doctor_report()
-        trends = [f["rule"] for f in findings if f["rule"] not in event_rules]
-        check(not trends, f"{phase}: the doctor reports trend findings {findings}")
+        trends = [f for f in findings if f["rule"] not in event_rules and not excused(f)]
+        check(not trends, f"{phase}: the doctor reports trend findings {trends}")
         host, port = node.tcp_address
         env = {**os.environ, "RAY_TPU_TORCH_ADDRESS": f"tcp://{host}:{port}",
                "RAY_TPU_TORCH_AUTHKEY": node.authkey.hex()}
@@ -3526,8 +3606,11 @@ def phase_util_pool_bert_accounting(served, predict_rates):
                           stdout=sp.PIPE, stderr=sp.PIPE) for argv in POOL_CLI]
         outs = [p.communicate(timeout=120) for p in procs]
         cli_s = time.perf_counter() - t0
+        # `doctor` exits 1 on any finding: here only a scorer's GIL lateness
         bad = [(argv, p.returncode, out[-1500:], err[-800:])
-               for argv, p, (out, err) in zip(POOL_CLI, procs, outs) if p.returncode != 0]
+               for argv, p, (out, err) in zip(POOL_CLI, procs, outs) if p.returncode != 0
+               and not (argv[0] == "doctor" and p.returncode == 1
+                        and all(excused(f) for f in json.loads(out)))]
         check(not bad, f"{phase}: CLI commands failed: {bad}")
         tsdb_stats = node.tsdb.stats()
         fold_ms = sorted(folds)[len(folds) // 2] * 1e3 if folds else None
@@ -3578,7 +3661,8 @@ def phase_util_pool_bert_accounting(served, predict_rates):
          tsdb_series=tsdb_stats["num_series"], worker_push_bytes=worker_push_bytes,
          fold_ms_median=fold_ms, folds=len(folds), worker_push_ms_median=push_ms,
          driver_owned_bytes=driver, batch_bytes=batch_bytes,
-         doctor_findings=[f["rule"] for f in findings], top_reads=top_polls,
+         doctor_findings=[(f["rule"], f["summary"]) for f in findings],
+         gil_lateness_by_origin=scorer_gil, head_locks=_lock_rows(), top_reads=top_polls,
          top_first_read_misses=first_misses, origin_expiries=expiries, cli_s=cli_s,
          flash_launches_per_batch=bert_layers)
     return total
@@ -4417,6 +4501,446 @@ def phase_multinode_pipeline_gpt2():
     return launches
 
 
+# watch_pipeline_gpt2: multinode_pipeline_gpt2's two GPT-2 stages on one
+# agent node added to a card-less head, watched by the observability
+# stores: the continuous profiler in every process, the log store, the
+# trace analysis and the watchdog at a 1 s cadence
+WATCH_S, WATCH_OFF_S, WATCH_PUSH_S, WATCH_CADENCE_S = 20.0, 12.0, 0.5, 1.0
+# the profiler's cost in the gated runtime: pairs of blocks with the
+# head's and the stages' profilers off and on, in turn
+WATCH_PAIRS, WATCH_BLOCK_S = 3, 2.5
+# a request's trace spans at most this many times the request's own span
+WATCH_TRACE_FACTOR = 1.5
+WATCH_SLO_RSS_MB, WATCH_SLO_WINDOWS_S = 100.0, (2.0, 6.0)
+WATCH_MARKER = "watch-marker"
+WATCH_BUNDLE = ("incident.json", "events.json", "logs", "tsdb", "traces.json",
+                "profile_collapsed.txt", "memory.json")
+
+
+class WatchStage(GPT2Stage):
+    """A ``GPT2Stage`` whose last stage writes one marker line to stderr a
+    call (``watch-marker <n>``), as a stage's own logging would."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.calls = 0
+
+    def run(self, x):
+        out = super().run(x)
+        if self.last:
+            self.calls += 1
+            print(f"{WATCH_MARKER} {self.calls}", file=sys.stderr, flush=True)
+        return out
+
+
+def _profiler_switch(instance, on):
+    """Stop or restart this process's continuous profiler; whether it has
+    one."""
+    from ray_tpu_torch._private import sampling_profiler
+
+    prof = sampling_profiler.current()
+    if prof is not None:
+        if on:
+            prof.start()
+        else:
+            prof.stop()
+    return prof is not None
+
+
+def _stage_calls(instance):
+    return instance.calls
+
+
+def _stage_ident(instance):
+    import os
+
+    return os.environ["RAY_TPU_TORCH_WORKER_ID"], os.getpid()
+
+
+def _watch_wait(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        check(time.monotonic() < deadline, f"watch_pipeline_gpt2: timed out on {what}")
+        time.sleep(0.1)
+
+
+def _in_process_cli(*argv):
+    """``python -m ray_tpu_torch <argv>`` against this process's head:
+    its exit code and standard output."""
+    import contextlib
+    import io
+
+    from ray_tpu_torch.scripts import cli
+
+    buf, code = io.StringIO(), 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main(list(argv))
+        except SystemExit as e:
+            code = e.code or 0
+    return code, buf.getvalue()
+
+
+def _profile_counts(store, origins):
+    """Per origin: its folded stacks and duty ticks in the head's profile
+    store, all buckets merged."""
+    out = {}
+    for o in origins:
+        q = store.query(1e9, origin=o)
+        out[o] = (dict(q["folded"]), q["ticks"], q["busy_ticks"])
+    return out
+
+
+def _profile_delta(before, after):
+    """What each origin's profiler shipped between two reads: class
+    shares of its busy samples, the busy ticks over the ticks, and the
+    top leaf frames of its ``serialize``, ``lock_wait`` and ``other``
+    samples."""
+    from ray_tpu_torch.util.profile_store import BUSY_CLASSES, classify_stack
+
+    out = {}
+    for o, (folded, ticks, busy_ticks) in after.items():
+        f0, t0, b0 = before.get(o, ({}, 0.0, 0.0))
+        classes = {c: 0 for c in BUSY_CLASSES + ("idle",)}
+        leaves = {"serialize": {}, "lock_wait": {}, "other": {}}
+        for stack, n in folded.items():
+            n -= f0.get(stack, 0)
+            if n <= 0:
+                continue
+            cls = classify_stack(stack)
+            classes[cls] += n
+            if cls in leaves:
+                leaf = "|".join(stack.split("|")[-2:])
+                leaves[cls][leaf] = leaves[cls].get(leaf, 0) + n
+        busy = sum(n for c, n in classes.items() if c != "idle")
+        out[o] = {"samples": busy + classes["idle"], "busy_samples": busy,
+                  "ticks": ticks - t0, "busy_ticks": busy_ticks - b0,
+                  "util": (busy_ticks - b0) / max(ticks - t0, 1e-9),
+                  "class_share_of_busy": {c: n / max(busy, 1) for c, n in classes.items()
+                                          if c != "idle"},
+                  "top_leaves": {c: sorted(v.items(), key=lambda kv: -kv[1])[:6]
+                                 for c, v in leaves.items()}}
+    return out
+
+
+def _watch_run(cfg, mbs, device, watch_s, gated):
+    """One runtime: a ``Cluster`` whose head holds no card and one agent
+    node of 4 CPUs and the card, two ``WatchStage`` actors at
+    ``num_gpus=PIPE_STAGE_GPUS`` pinned to it, and a ``MicrobatchPipeline``
+    of ``mbs`` run again and again for ``watch_s`` seconds.  With
+    ``gated``, the stores' gates run on it too.  Returns the repetitions'
+    walls, the first one's outputs, the launches over the timed
+    repetitions and the measurements."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.experimental.state import api as state
+    from ray_tpu_torch.parallel.pipeline import MicrobatchPipeline
+    from ray_tpu_torch.util import incidents, tracing
+    from ray_tpu_torch.util.scheduling_strategies import NodeAffinitySchedulingStrategy
+    from ray_tpu_torch.util.trace_analysis import analyze
+
+    phase, half, row = "watch_pipeline_gpt2", cfg.n_layers // 2, {}
+    t0 = time.perf_counter()
+    cluster = Cluster(initialize_head=True, real_processes=True,
+                      head_node_args={"num_cpus": 2, "num_gpus": 0})
+    pipe = None
+    try:
+        head = global_worker.node
+        agent = cluster.add_node(num_cpus=4, num_gpus=1)
+        row["node_up_s"] = time.perf_counter() - t0
+        stage = rt.remote(WatchStage).options(
+            num_gpus=PIPE_STAGE_GPUS,
+            scheduling_strategy=NodeAffinitySchedulingStrategy(agent, soft=False))
+        pipe = MicrobatchPipeline(
+            [stage.bind(cfg, 0, half, device=device),
+             stage.bind(cfg, half, cfg.n_layers, device=device)],
+            n_microbatches=len(mbs), slot_bytes=PIPE_SLOT_BYTES)
+        idents = rt.get([a._submit_compiled_task(_stage_ident, (), name="ident")
+                         for a in pipe.actors], timeout=120)
+        wids = [w for w, _ in idents]
+        pipe.run(mbs[:1], timeout=600)  # the stages' first calls
+        row["stages_ready_s"] = time.perf_counter() - t0
+        ready_ts = time.time()
+        time.sleep(2 * WATCH_PUSH_S)  # the warm-up's profile bursts ship
+        origins = ["head", f"agent:{agent}", *wids]
+        before = _profile_counts(head.profile_store, origins)
+        actor_launches(rt, pipe.actors, reset=True)
+        seq0 = pipe._dag._seq
+        walls, outs0, t_run = [], None, time.perf_counter()
+        while time.perf_counter() - t_run < watch_s:
+            t1 = time.perf_counter()
+            outs = pipe.run(mbs, timeout=600)
+            walls.append(time.perf_counter() - t1)
+            outs0 = outs if outs0 is None else outs0
+        run_s = time.perf_counter() - t_run
+        launches = actor_launches(rt, pipe.actors)
+        row.update(reps=len(walls), run_s=run_s, rep_wall_ms=[w * 1e3 for w in walls],
+                   rep_wall_ms_p50=pct([w * 1e3 for w in walls], 0.5))
+        if not gated:
+            return walls, outs0, launches, row
+
+        # -- the profiler: every origin shipped; stage 0's serialize share
+        time.sleep(2 * WATCH_PUSH_S)
+        after = _profile_counts(head.profile_store, origins)
+        listed = {r["origin"] for r in state.list_profiles()}
+        check(set(origins) <= listed, f"{phase}: list_profiles holds {sorted(listed)}, want "
+                                      f"{origins}")
+        delta = _profile_delta(before, after)
+        silent = [o for o in origins if delta[o]["ticks"] <= 0]
+        check(not silent, f"{phase}: {silent} shipped no burst in the {run_s:.1f} s run")
+        check(delta[wids[0]]["busy_samples"] > 0, f"{phase}: no busy sample of stage 0 in the "
+                                                  f"run: {delta[wids[0]]}")
+        n_run = len(walls) * len(mbs)
+        spans = _pipe_spans(pipe._dag._gid, range(seq0, seq0 + n_run))
+        records = rt.get([a._submit_compiled_task(_stage_record, (), name="rec")
+                          for a in pipe.actors], timeout=60)
+        stage0_span = [spans[("run:0", q)] * 1e3 for q in range(seq0, seq0 + n_run)
+                       if ("run:0", q) in spans]
+        stage0_compute = records[0][1][1:1 + n_run]
+        duty = {}
+        for s in state.query_metric("ray_tpu_profiler_duty_frac", window_s=120)["series"]:
+            if s["points"]:
+                duty[s["tags"].get("origin")] = s["points"][-1][1]
+        ledger = state.profile_ledger(window_s=run_s, tasks=n_run)
+        row.update(profile_origins=sorted(listed), profile_by_origin=delta,
+                   profiler_duty_frac=duty,
+                   stage0_serialize_share_of_busy=delta[wids[0]]["class_share_of_busy"][
+                       "serialize"],
+                   stage0_exec_span_ms_p50=pct(stage0_span, 0.5),
+                   stage0_compute_ms_p50=pct(stage0_compute, 0.5),
+                   stage0_save_share_of_span=1 - sum(stage0_compute) / max(sum(stage0_span),
+                                                                           1e-9),
+                   stage0_spans=len(stage0_span),
+                   ledger_columns_us=ledger["columns"], ledger_sum_over_wall=ledger["sum_over_wall"],
+                   ledger_per_microbatch_wall_us=ledger["per_task_wall_us"])
+
+        # -- the profiler's cost: the head's and the stages' profilers off
+        # and on in turn, a block of repetitions each, order swapped a pair
+        def switch(on):
+            had = rt.get([a._submit_compiled_task(_profiler_switch, (on,), name="prof")
+                          for a in pipe.actors], timeout=60)
+            check(all(had) and _profiler_switch(None, on),
+                  f"{phase}: a stage or the head has no profiler to switch")
+        pairs = []
+        for k in range(WATCH_PAIRS):
+            pair = {}
+            for on in ((False, True) if k % 2 == 0 else (True, False)):
+                switch(on)
+                ws, tb = [], time.perf_counter()
+                while time.perf_counter() - tb < WATCH_BLOCK_S:
+                    t1 = time.perf_counter()
+                    pipe.run(mbs, timeout=600)
+                    ws.append((time.perf_counter() - t1) * 1e3)
+                pair["on" if on else "off"] = {"reps": len(ws), "rep_wall_ms_p50": pct(ws, 0.5)}
+            pair["on_over_off"] = pair["on"]["rep_wall_ms_p50"] / pair["off"]["rep_wall_ms_p50"]
+            pairs.append(pair)
+        switch(True)
+        ratios = [p["on_over_off"] for p in pairs]
+        row.update(profiler_pairs=pairs, profiler_pairs_on_over_off=ratios,
+                   profiler_pairs_spread=[min(ratios), max(ratios)])
+
+        # -- the trace of one pipeline request
+        t1 = time.perf_counter()
+        with tracing.trace("watch_pipeline_request") as ctx:
+            pipe.run(mbs[:1], timeout=600)
+        request_s = time.perf_counter() - t1
+        trace = _watch_wait(lambda: (lambda t: t if t and any(
+            s["name"].startswith("run:1") for s in t["spans"]) else None)(
+            state.get_trace(ctx["trace_id"])), 60, "the request's trace")
+        a = analyze(trace)
+        # analyze rounds the wall and each phase to 1 us: half a us each
+        # beside the 1e-6 relative
+        gap = abs(sum(a["phases"].values()) - a["wall_s"])
+        check(gap <= 1e-6 * a["wall_s"] + 5e-7 * (len(a["phases"]) + 1),
+              f"{phase}: the trace's phases {a['phases']} do not sum to its wall {a['wall_s']}")
+        check(a["critical_path"], f"{phase}: the trace's critical path is empty")
+        root = next(s for s in trace["spans"] if s["name"] == "watch_pipeline_request")
+        root_s = root["end"] - root["start"]
+        check(a["wall_s"] <= WATCH_TRACE_FACTOR * root_s,
+              f"{phase}: the request's span lasts {root_s * 1e3:.2f} ms, its trace spans "
+              f"{a['wall_s'] * 1e3:.2f} ms")
+        code, rendered = _in_process_cli("trace", ctx["trace_id"])
+        check(code == 0 and "critical path:" in rendered, f"{phase}: trace rendered {rendered}")
+        row.update(request_ms=request_s * 1e3, request_span_ms=root_s * 1e3,
+                   trace_wall_ms=a["wall_s"] * 1e3,
+                   trace_phase_sum_gap_s=gap, trace_phases_ms={
+            k: v * 1e3 for k, v in a["phases"].items()}, trace_spans=a["num_spans"],
+            trace_critical_path=[(s["name"], s["phase"]) for s in a["critical_path"]][:12],
+            trace_render=rendered.splitlines()[:30])
+
+        # -- the watchdog: an SLO on the stages' RSS burns, opens, resolves
+        top = state.top_snapshot()
+        rss = {w["worker_id"]: w["rss_mb"] for w in top["workers"] if w["worker_id"] in wids}
+        check(all(v is not None and v > WATCH_SLO_RSS_MB for v in rss.values()) and len(rss) == 2,
+              f"{phase}: the stages' RSS {rss} is not above the SLO's {WATCH_SLO_RSS_MB} MB")
+        wd = head.watchdog
+        iid = incidents.incident_id("slo:stage_rss", "stage_rss")
+        t1 = time.perf_counter()
+        wd.add_slo("stage_rss", "ray_tpu_proc_rss_mb", WATCH_SLO_RSS_MB, op="<=", agg="avg",
+                   tags={"node": agent, "entity": "worker"},
+                   fast_window_s=WATCH_SLO_WINDOWS_S[0], slow_window_s=WATCH_SLO_WINDOWS_S[1],
+                   severity="WARNING", description="stage RSS stays under the SLO")
+        opened = _watch_wait(lambda: next((i for i in state.list_incidents()
+                                           if i["id"] == iid and i["bundle_dir"]), None),
+                             30, "the SLO's incident and its bundle")
+        open_s = time.perf_counter() - t1
+        bundle = sorted(os.listdir(opened["bundle_dir"]))
+        missing = [f for f in WATCH_BUNDLE if f not in bundle]
+        check(not missing and any(f.startswith("trace-") for f in bundle)
+              and "ray_tpu_proc_rss_mb.json" in os.listdir(os.path.join(opened["bundle_dir"],
+                                                                         "tsdb")),
+              f"{phase}: the bundle holds {bundle}, lacks {missing}")
+        code, out = _in_process_cli("incidents", "--json")
+        check(code == 0 and iid in {r["id"] for r in json.loads(out)},
+              f"{phase}: `incidents` lacks {iid}")
+        code, out = _in_process_cli("incidents", "--ack", iid)
+        check(code == 0 and out.startswith(f"acked {iid}"), f"{phase}: ack printed {out}")
+        check(state.get_incident(iid)["state"] == "ack", f"{phase}: not acked")
+        check(wd.remove_slo("stage_rss"), f"{phase}: remove_slo found no SLO")
+        t1 = time.perf_counter()
+        _watch_wait(lambda: state.get_incident(iid)["state"] == "resolved",
+                    (wd.incidents.resolve_ticks + 3) * WATCH_CADENCE_S + 5, "the resolve")
+        resolve_s = time.perf_counter() - t1
+        sink = os.environ["RAY_TPU_TORCH_INCIDENT_CMD"].split(">>")[1].split(";")[0].strip()
+
+        def sunk():
+            with open(sink) as f:
+                got = [json.loads(ln) for ln in f if ln.strip()]
+            trs = [p["transition"] for p in got if p["incident"]["id"] == iid]
+            return trs if trs[-1:] == ["resolve"] else None
+        transitions = _watch_wait(sunk, 15, "the sink's resolve line")
+        check(transitions == ["open", "ack", "resolve"],
+              f"{phase}: the sink saw {transitions}, want open, ack, resolve")
+        # the stages hold their RSS once ready: no leak incident opens after
+        late = [(i["id"], h["transition"], h["ts"] - ready_ts) for i in state.list_incidents()
+                if i["id"].startswith("rss_growth") for h in i["history"]
+                if h["transition"] in ("open", "reopen") and h["ts"] > ready_ts]
+        check(not late, f"{phase}: rss_growth opened after the stages were ready: {late}")
+        row.update(stage_rss_mb=rss, slo_open_s=open_s, slo_resolve_s=resolve_s,
+                   bundle_files=bundle, bundle_log_files=len(os.listdir(
+                       os.path.join(opened["bundle_dir"], "logs"))),
+                   sink_transitions=transitions, watchdog=wd.stats(),
+                   other_incidents=[(i["id"], i["state"], [  # opened, s after ready
+                       round(h["ts"] - ready_ts, 3) for h in i["history"]
+                       if h["transition"] in ("open", "reopen")]) for i in state.list_incidents()
+                                    if i["id"] != iid])
+
+        # -- the logs: stage 1's markers, then its death tail
+        calls = rt.get(pipe.actors[1]._submit_compiled_task(_stage_calls, (), name="calls"),
+                       timeout=60)
+        actor1 = pipe.actors[1]._actor_id.hex()
+
+        def markers():
+            code, out = _in_process_cli("logs", "--actor", actor1, "--tail", "100000")
+            got = {int(ln.rsplit(" ", 1)[1]) for ln in out.splitlines()
+                   if f") {WATCH_MARKER} " in ln}
+            return got if code == 0 and got >= set(range(1, calls + 1)) else None
+        _watch_wait(markers, 30, f"stage 1's {calls} marker lines through `logs --actor`")
+        stream = f"worker-{wids[1]}"
+        os.kill(idents[1][1], signal.SIGKILL)
+        t1 = time.perf_counter()
+        _watch_wait(lambda: any(r["stream"] == stream and r["retired"]
+                                for r in state.list_logs()), 30, f"{stream} retired")
+        tail = state.tail_log(stream, n=5)
+        check(tail and tail[-1] == f"{WATCH_MARKER} {calls}",
+              f"{phase}: stage 1's tail after its death is {tail}, want its last marker")
+        row.update(markers=calls, retired_s=time.perf_counter() - t1, death_tail=tail)
+
+        # -- wind-down: the node goes, and its card with it
+        pipe.teardown()
+        for a in pipe.actors:
+            rt.kill(a)
+        pipe = None
+        cluster.remove_node(agent)
+        _watch_wait(lambda: not rt.cluster_resources().get("GPU", 0), 30,
+                    "no GPU left in the cluster")
+        return walls, outs0, launches, row
+    finally:
+        if pipe is not None:
+            pipe.teardown()
+            for a in pipe.actors:
+                rt.kill(a)
+        cluster.shutdown()
+
+
+def phase_watch_pipeline_gpt2(cfg=None, device=None):
+    """``multinode_pipeline_gpt2``'s stages under the observability stores
+    (see the module doc, 34).  Two runtimes in this call, each repeating
+    the 8 microbatches for ``WATCH_S`` seconds: the profiler off, then on
+    with every gate.  Returns the launches of both runs' timed
+    repetitions."""
+    import tempfile
+
+    from ray_tpu_torch.models import gpt2
+
+    cfg = cfg or gpt2.GPT2Config.gpt2_small()
+    rng = np.random.default_rng(0)
+    mbs = [rng.integers(0, min(50257, cfg.vocab_size), (PIPE_BATCH, cfg.max_seq_len + 1),
+                        np.int32) for _ in range(PIPE_MICROBATCHES)]
+    t0 = time.perf_counter()
+    sink_dir = tempfile.mkdtemp(prefix="watch_sink_")
+    sink = os.path.join(sink_dir, "transitions.jsonl")
+    env = {"RAY_TPU_TORCH_METRICS_PUSH_S": str(WATCH_PUSH_S),
+           "RAY_TPU_TORCH_WATCHDOG_S": str(WATCH_CADENCE_S),
+           "RAY_TPU_TORCH_LOG_SHIP_S": "0.2",
+           # stage 1's markers stay in the log store, not on this output
+           "RAY_TPU_TORCH_LOG_TO_DRIVER": "0",
+           "RAY_TPU_TORCH_INCIDENT_CMD": f"cat >> {sink}; echo >> {sink}"}
+    saved = {k: os.environ.get(k) for k in (*env, "RAY_TPU_TORCH_CONT_PROFILE")}
+    os.environ.update(env)
+    try:
+        os.environ["RAY_TPU_TORCH_CONT_PROFILE"] = "0"
+        off_walls, _, off_launches, off_row = _watch_run(cfg, mbs, device, WATCH_OFF_S,
+                                                         gated=False)
+        os.environ.pop("RAY_TPU_TORCH_CONT_PROFILE")
+        walls, outs, launches, row = _watch_run(cfg, mbs, device, WATCH_S, gated=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    n_mb = len(mbs)
+    check_tensor_cores("watch_pipeline_gpt2", launches, cfg.n_layers * n_mb * len(walls))
+    check_tensor_cores("watch_pipeline_gpt2", off_launches, cfg.n_layers * n_mb * len(off_walls))
+    # the unsplit forward on the same weights and tokens, in this process
+    dev = device or "cuda"
+    params = gpt2.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    with torch.inference_mode():
+        want = [token_nll(gpt2.apply(params, ids[:, :-1], cfg), ids[:, 1:]).cpu().numpy()
+                for ids in (torch.from_numpy(mb).to(dev).long() for mb in mbs)]
+    del params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    mean_diff = [abs(float(g.mean()) - float(w.mean())) for g, w in zip(outs, want)]
+    check(all(o.shape == (PIPE_BATCH, cfg.max_seq_len) and np.isfinite(o).all() for o in outs)
+          and max(mean_diff) <= PIPE_NLL_TOL,
+          f"watch_pipeline_gpt2: mean NLL differs from the unsplit forward by {mean_diff}")
+    with open(sink) as f:
+        sink_lines = sum(1 for ln in f if ln.strip())
+    emit("watch_pipeline_gpt2",
+         model=f"gpt2 125M bf16 (f32 master weights), 2 stages of {cfg.n_layers // 2} blocks at "
+               f"num_gpus={PIPE_STAGE_GPUS} on one agent node, {n_mb} microbatches of "
+               f"{PIPE_BATCH} x {cfg.max_seq_len + 1} ids",
+         push_s=WATCH_PUSH_S, watchdog_cadence_s=WATCH_CADENCE_S, **row,
+         profiler_off=off_row, rep_wall_ms_p50_profiler_on=row["rep_wall_ms_p50"],
+         rep_wall_ms_p50_profiler_off=off_row["rep_wall_ms_p50"],
+         profiler_on_over_off=row["rep_wall_ms_p50"] / off_row["rep_wall_ms_p50"],
+         mean_nll_diff=mean_diff, nll_tolerance=PIPE_NLL_TOL, sink_lines=sink_lines,
+         flash_launches=launches.get(attn.KERNEL, 0),
+         flash_launches_tensor_core=launches.get(attn.FWD_TC, 0),
+         flash_launches_profiler_off=off_launches.get(attn.KERNEL, 0),
+         phase_s=time.perf_counter() - t0)
+    total = dict(launches)
+    for k, n in off_launches.items():
+        total[k] = total.get(k, 0) + n
+    return total
+
+
 # operator_job_gpt2: 8 fixed prompts (numpy default_rng(0), 16-99 ids in
 # [1, 50000)) x 32 new greedy tokens through GPT-2 125M bf16 (seed 0) in a
 # submitted job's num_gpus=1 actor; every prompt is queued before the
@@ -4858,6 +5382,9 @@ def main() -> int:
     pipeline_launches = phase_multinode_pipeline_gpt2()
     gc.collect()
     torch.cuda.empty_cache()
+    watch_launches = phase_watch_pipeline_gpt2()
+    gc.collect()
+    torch.cuda.empty_cache()
     operator_launches = phase_operator_job_gpt2()
 
     runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama, "serve_bert": bert_launches,
@@ -4868,6 +5395,7 @@ def main() -> int:
             "serve_bert_http": bert_http_launches, "serve_llm_deployment": llm_launches,
             "prefill_decode_graph": graph_launches,
             "multinode_pipeline_gpt2": pipeline_launches,
+            "watch_pipeline_gpt2": watch_launches,
             "operator_job_gpt2": operator_launches,
             "util_pool_bert_accounting": pool_launches,
             "rl_parity": rl_parity_launches,

@@ -26,6 +26,12 @@ seams so they can be split later:
   registry and a time-series store, which ``top``, ``memory``, ``perf``
   and ``doctor`` read (``_memory_audit``, ``_top_snapshot``,
   ``_perf_summary``, ``_doctor_report``)
+- ``profile_store``, ``log_store``,      <-> the reporter agent's profiling,
+  ``watchdog``                           the log monitor's store and an
+  alerting loop: every process's continuous profiler ships folded stacks,
+  every node's log monitor ships its workers' lines, and the watchdog
+  folds doctor findings and SLO burns into incidents with bundles under
+  ``<session>/incidents/``
 
 Multiple ``NodeState``s in one head process emulate a multi-node cluster —
 the same trick as the reference's in-process multi-raylet test Cluster
@@ -831,11 +837,33 @@ class Node:
         t.start()
         self._threads.append(t)
         self._dispatch_n = 0  # dispatch-event sampling counter
-        # log plane: local capture files (head, local workers) are tailed
-        # and each job's records stream to its subscribed drivers over
-        # pubsub on "logs:<job>" channels; nothing is stored at the head
-        from ray_tpu_torch._private import log_plane as log_plane_mod
+        # continuous profiling plane: every process's ContinuousProfiler
+        # batch-ships folded stacks over its existing control connection
+        # (profile_report frames); they land here.  The head samples
+        # itself straight into the store — no loopback connection.
+        from ray_tpu_torch.util.profile_store import ProfileStore
 
+        self.profile_store = ProfileStore()
+        self._head_profiler = None
+        from ray_tpu_torch._private import sampling_profiler as _sp
+
+        self._profile_retire_s = self._tsdb_expiry_s
+        if _sp.continuous_enabled():
+            self._head_profiler = _sp.ContinuousProfiler(
+                "head", ingest_fn=self.profile_store.ingest,
+                closed_fn=lambda: self._shutdown).start()
+            # every process's profiler runs with the head's settings (the
+            # env is inherited)
+            self._profile_retire_s = max(self._tsdb_expiry_s,
+                                         2 * self._head_profiler.max_interval_s)
+        # cluster log plane: local capture files (head, local workers,
+        # job drivers) tail into the head's bounded store; node agents
+        # ship their workers' files as log_report frames into the same
+        # ingest.  Driver streaming rides pubsub on "logs:<job>" channels.
+        from ray_tpu_torch._private import log_plane as log_plane_mod
+        from ray_tpu_torch.util.log_store import LogStore
+
+        self.log_store = LogStore(emit_fn=events_mod.emit)
         self._log_monitor = None
         self._head_log_handler = None
         if log_plane_mod.enabled():
@@ -852,6 +880,18 @@ class Node:
                 "head", head_log, node=self._head_node_id,
                 pid=os.getpid(), src="I")
             self._log_monitor.start()
+        # watchdog plane: continuous incremental-doctor + SLO burn-rate
+        # evaluation folding into the incident lifecycle; post-mortem
+        # bundles land under <session>/incidents/<id>/
+        from ray_tpu_torch.util import watchdog as watchdog_mod
+
+        self.watchdog = None
+        try:
+            self.watchdog = watchdog_mod.Watchdog(self)
+            self.watchdog.start()
+        except Exception:
+            logger.warning("watchdog failed to start:\n%s",
+                           traceback.format_exc())
         # session discovery for `ray_tpu_torch.init(address="auto")` / the CLI
         self._write_session_file()
         # Prestart the plain worker pool up to the CPU count (WorkerPool
@@ -1353,6 +1393,11 @@ class Node:
             self.remove_node_state(nid)
 
     def _on_remote_worker_exited(self, msg: dict) -> None:
+        # the agent drained the worker's capture file before it sent this
+        # message, so the stream's tail is whole now; the death itself may
+        # have been handled first, on the worker's own connection closing,
+        # when the final lines had not yet arrived to retire
+        self.log_store.retire(f"worker-{msg['worker_id']}")
         wid = bytes.fromhex(msg["worker_id"])
         with self.lock:
             h = self.workers.get(wid)
@@ -1580,6 +1625,14 @@ class Node:
                     msg.get("metadata"))
             except ValueError as e:  # a duplicate job id
                 value = {"__state_error__": str(e)}
+            else:
+                if self._log_monitor is not None:
+                    # the job driver's log file joins the tail set, so its
+                    # lines reach the store/CLI like any worker's
+                    self._log_monitor.register(
+                        f"job-{value}",
+                        os.path.join(self.session_dir, "jobs", f"{value}.log"),
+                        node=self._head_node_id, job=value)
             self._reply(conn, {"type": "reply", "req_id": msg["req_id"], "value": value})
         elif mtype == "job_info":
             self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
@@ -1616,6 +1669,28 @@ class Node:
             self.worker_metrics_registry.merge(msg["origin"], msg["metrics"])
             self.tsdb.ingest(msg["origin"], self._history_rows(msg["metrics"]))
             self._fold_resource_report(msg["origin"], msg["metrics"])
+        elif mtype == "profile_report":
+            self.profile_store.ingest(msg["origin"], msg.get("buckets", []),
+                                      msg.get("meta"))
+        elif mtype == "list_profiles":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self.profile_store.stats()})
+        elif mtype == "get_profile":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self.profile_store.query(
+                                   msg.get("window_s", 300.0),
+                                   origin=msg.get("origin"))})
+        elif mtype == "profile_diff":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self.profile_store.diff(
+                                   msg.get("window_a", 600.0),
+                                   msg.get("window_b", 60.0),
+                                   origin=msg.get("origin"))})
+        elif mtype == "profile_ledger":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self._profile_ledger(
+                                   msg.get("window_s", 300.0),
+                                   tasks=msg.get("tasks"))})
         elif mtype == "list_metrics":
             self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
                                "value": self.tsdb.list_metrics()})
@@ -1640,9 +1715,41 @@ class Node:
             self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
                                "value": self._perf_summary(
                                    window_s=msg.get("window_s", 1800.0))})
+        elif mtype == "get_incident":
+            wd = self.watchdog
+            if wd is None:
+                value = {"__state_error__": "watchdog disabled"}
+            else:
+                value = wd.incidents.get(msg["incident_id"]) or {
+                    "__state_error__":
+                        f"no incident {msg['incident_id']!r}"}
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": value})
+        elif mtype == "ack_incident":
+            wd = self.watchdog
+            if wd is None:
+                value = {"__state_error__": "watchdog disabled"}
+            else:
+                value = wd.ack(msg["incident_id"]) or {
+                    "__state_error__":
+                        f"no open incident {msg['incident_id']!r}"}
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": value})
+        elif mtype == "debug_dump":
+            wd = self.watchdog
+            if wd is None:
+                value = {"__state_error__": "watchdog disabled"}
+            else:
+                try:
+                    value = {"path": wd.debug_dump(msg.get("label"))}
+                except Exception as e:
+                    value = {"__state_error__": str(e)}
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": value})
         elif mtype == "doctor_report":
-            # head-side diagnosis over head-local tables — the client
-            # never pulls the event/task rows over the wire
+            # head-side diagnosis: the same incremental path the watchdog
+            # tick runs, against head-local tables — the client never
+            # pulls the event/task rows over the wire
             try:
                 value = self._doctor_report(
                     msg.get("trend_window_s", 1800.0))
@@ -1659,6 +1766,14 @@ class Node:
         elif mtype == "log_report":
             self._ingest_log_report(msg["origin"], msg.get("records") or [],
                                     msg.get("streams"))
+        elif mtype == "get_log":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self._get_log(msg)})
+        elif mtype == "tail_log":
+            self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                               "value": self.log_store.tail_text(
+                                   msg["stream"], msg.get("n", 100),
+                                   bool(msg.get("errors")))})
         else:
             logger.warning("unknown message type %s", mtype)
         # write out any execute messages this message's handling queued
@@ -1849,8 +1964,8 @@ class Node:
             severity="WARNING" if (spec is not None or h.actor_id) else "INFO",
             entity_id=h.worker_id.hex(), node=h.node_id,
             running_task=(spec or {}).get("name"))
-        if self._log_monitor is not None and h.proc is not None:
-            self._log_monitor.unregister(f"worker-{h.worker_id.hex()}")
+        self._retire_worker_log(h, reason, busy=spec is not None
+                                or h.actor_id is not None)
         if h.actor_id is not None:
             self._on_actor_worker_death(h, reason)
         elif spec is not None or pipelined:
@@ -4060,27 +4175,26 @@ class Node:
     # introspection
     # ------------------------------------------------------------------
     # ------------------------------------------------------------------
-    # log plane (driver streaming)
-    # ------------------------------------------------------------------
-    # ------------------------------------------------------------------
     # log plane (head side)
     # ------------------------------------------------------------------
     def _ingest_log_report(self, origin: str, records, metas=None) -> None:
-        """One tailed batch of ``(ts, stream, src, job, task, actor, trace,
-        line)`` records: each job's slice fans out to that job's subscribed
-        drivers over pubsub."""
-        by_job: Dict[str, list] = {}
-        for rec in records:
-            if rec[3]:
-                by_job.setdefault(rec[3], []).append(rec)
+        """One shipped batch lands in the store; each job's slice then
+        fans out to that job's subscribed drivers over pubsub.  Dict
+        materialization (and actor-name resolution) happens only for
+        channels someone is actually listening on."""
+        by_job = self.log_store.ingest(origin, records, metas)
         for job, recs in by_job.items():
             channel = f"logs:{job}"
             with self.lock:
                 if not self.subscribers.get(channel):
                     continue
             out = []
-            for ts, stream, src, _job, task, actor, trace, line in recs:
-                meta = (metas or {}).get(stream) or {}
+            meta_cache: Dict[str, dict] = {}
+            for seq, ts, stream, src, task, actor, trace, line in recs:
+                meta = meta_cache.get(stream)
+                if meta is None:
+                    meta = self.log_store.stream_meta(stream)
+                    meta_cache[stream] = meta
                 name = None
                 if actor:
                     try:
@@ -4090,17 +4204,68 @@ class Node:
                             name = a.name or a.class_name
                     except ValueError:
                         pass
-                out.append({"ts": ts, "stream": stream, "src": src,
-                            "task": task, "actor": actor, "trace": trace,
-                            "line": line, "name": name,
-                            "pid": meta.get("pid"), "node": meta.get("node", origin)})
+                out.append({"seq": seq, "ts": ts, "stream": stream,
+                            "src": src, "task": task, "actor": actor,
+                            "trace": trace, "line": line, "name": name,
+                            "pid": meta.get("pid"),
+                            "node": meta.get("node")})
             self.publish(channel, {"records": out})
+
+    def _retire_worker_log(self, h, reason: str, busy: bool) -> None:
+        """A dead worker's capture file gets one final synchronous drain
+        (local workers only — agents drain remote files BEFORE reporting
+        the death, so the tail is already here), then its ring is
+        retired-but-kept: that is what makes a SIGKILL'd worker's last
+        stderr retrievable from the head after death.  If the tail ends
+        in error output nobody consumed, surface it as the crash
+        explanation (the doctor's worker_stderr_at_death rule)."""
+        stream = f"worker-{h.worker_id.hex()}"
+        if self._log_monitor is not None and h.proc is not None:
+            self._log_monitor.unregister(stream)
+        err_rows, _ = self.log_store.query(stream=stream, errors=True,
+                                           limit=12)
+        self.log_store.retire(stream)
+        if not err_rows:
+            return
+        has_tb = any(r["line"].startswith("Traceback (") for r in err_rows)
+        if not (has_tb or busy):
+            return  # idle reaping with routine stderr chatter is not a crash
+        events_mod.emit(
+            "log", f"worker died with uncollected stderr: {reason}",
+            severity="ERROR" if busy else "WARNING",
+            entity_id=h.worker_id.hex(), node=h.node_id,
+            tail=[r["line"] for r in err_rows][-8:])
+
+    def _get_log(self, msg: dict) -> dict:
+        """Record query for the state API / CLI.  ``job-<id>`` streams
+        fall back to the JobManager's complete on-disk file when the
+        store has nothing (log plane disabled, or the ring aged out) —
+        job driver logs and worker logs stay one surface either way."""
+        rows, cursor = self.log_store.query(
+            stream=msg.get("stream"), job=msg.get("job"),
+            task=msg.get("task"), actor=msg.get("actor"),
+            node=msg.get("node"), pid=msg.get("pid"),
+            trace=msg.get("trace"), grep=msg.get("grep"),
+            errors=bool(msg.get("errors")),
+            since_seq=msg.get("since_seq", 0),
+            limit=msg.get("limit", 1000))
+        stream = msg.get("stream")
+        if not rows and stream and stream.startswith("job-") \
+                and not msg.get("since_seq"):
+            text = self.job_manager.logs(stream[len("job-"):])
+            if text:
+                rows = [{"seq": 0, "ts": None, "stream": stream, "src": "o",
+                         "job": stream[len("job-"):], "task": "",
+                         "actor": "", "trace": "", "line": ln,
+                         "node": self._head_node_id, "pid": None}
+                        for ln in text.splitlines()[-msg.get("limit", 1000):]]
+        return {"records": rows, "cursor": cursor}
 
     # ------------------------------------------------------------------
     # introspection
     # ------------------------------------------------------------------
     # state tables whose stores the port does not carry yet
-    _CUT_TABLES = ("slices", "tenants", "logs", "incidents", "slos")
+    _CUT_TABLES = ("tenants",)
 
     def _list_state(self, what: str, limit: int = 1000,
                     filters: Optional[dict] = None) -> List[dict]:
@@ -4145,6 +4310,30 @@ class Node:
                     ns = self.nodes.get(r["node_id"])
                     r["available"] = dict(ns.available) if ns is not None and ns.alive else {}
             return node_rows, total
+        if what == "slices":
+            # failure-domain view: one row per slice, the unit the
+            # autoscaler provisions/replaces atomically
+            with self.lock:
+                by_slice: Dict[str, dict] = {}
+                for ns in self.nodes.values():
+                    if ns.slice_id is None:
+                        continue
+                    row = by_slice.setdefault(ns.slice_id, {
+                        "slice_id": ns.slice_id, "members": [],
+                        "alive_members": 0, "dead_members": 0,
+                        "draining": ns.slice_id in self._draining_slices,
+                    })
+                    row["members"].append(ns.node_id)
+                    row["alive_members" if ns.alive else "dead_members"] += 1
+                out = []
+                for sid in sorted(by_slice):
+                    row = by_slice[sid]
+                    row["members"].sort()
+                    row["degraded"] = (row["dead_members"] > 0
+                                       and row["alive_members"] > 0
+                                       and not row["draining"])
+                    out.append(row)
+            return out[:limit], len(out)
         if what == "objects":
             return (self.registry.list_objects(limit),
                     self.registry.stats()["num_objects"])
@@ -4176,6 +4365,23 @@ class Node:
         if what == "traces":
             self._fold_local_traces()
             return self.traces.list(limit), len(self.traces)
+        if what == "logs":
+            # one row per captured stream (worker/job/head files the
+            # monitors are tailing, retired death tails included)
+            rows = self.log_store.stats()
+            return rows[:limit], len(rows)
+        if what == "incidents":
+            # the watchdog's tracked incident set, open + resolved;
+            # the history deque rides along for `incidents --history`
+            if self.watchdog is None:
+                return [], 0
+            rows = self.watchdog.incidents.list(include_resolved=True)
+            return rows[:limit], len(rows)
+        if what == "slos":
+            if self.watchdog is None:
+                return [], 0
+            rows = self.watchdog.slos()
+            return rows[:limit], len(rows)
         if what in self._CUT_TABLES:
             raise ValueError(f"state table {what!r} is not kept by "
                              "ray_tpu_torch yet (its store is not ported)")
@@ -4249,9 +4455,7 @@ class Node:
 
     def _get_trace(self, trace_id: str) -> Optional[dict]:
         """One assembled trace: shipped/local recorder spans + task-table
-        spans, sorted by start time.  None for an unknown id.  ``logs``
-        stays empty: the head keeps no log store to join stamped lines
-        from."""
+        spans, sorted by start time.  None for an unknown id."""
         self._fold_local_traces()
         base = self.traces.get(trace_id)
         task_spans, task_dropped = self._task_spans(trace_id)
@@ -4259,10 +4463,14 @@ class Node:
             return None
         spans = (base["spans"] if base else []) + task_spans
         spans.sort(key=lambda s: s["start"])
+        # the trace's log records (stamped lines whose writer was inside
+        # one of these spans) join the tree — prints become evidence on
+        # the same timeline as the spans that produced them
+        log_rows, _ = self.log_store.query(trace=trace_id, limit=500)
         return {
             "trace_id": trace_id,
             "spans": spans,
-            "logs": [],
+            "logs": log_rows,
             "dropped_spans": (base["dropped_spans"] if base else 0)
             + task_dropped,
         }
@@ -4347,6 +4555,24 @@ class Node:
                 self.tsdb.ingest("head", self._history_rows(head_registry().snapshot()))
                 if not stalled:
                     self.tsdb.expire_stale(self._tsdb_expiry_s)
+                    # profile rings age on the TSDB's clock: staged decay
+                    # every tick, whole origins retired once their pushes
+                    # stop — on the history horizon, but never sooner than
+                    # two of a profiler's longest intervals: an idle process
+                    # backs off to a burst every max_interval_s, and at a
+                    # sub-second push the history horizon alone would drop
+                    # it between two of its bursts
+                    self.profile_store.prune()
+                    for origin in self.profile_store.retire_stale(
+                            self._profile_retire_s):
+                        events_mod.emit(
+                            "profile", "profile origin retired",
+                            severity="DEBUG", entity_id=origin)
+                    for name in self.log_store.retire_stale(
+                            self._tsdb_expiry_s):
+                        events_mod.emit(
+                            "log", "log stream retired",
+                            severity="DEBUG", entity_id=name)
             except Exception:
                 logger.debug("tsdb sampler tick failed", exc_info=True)
 
@@ -4517,6 +4743,59 @@ class Node:
         for labels in g.label_sets():
             if tuple(sorted(labels.items())) not in live:
                 g.remove(labels)
+        # cluster-wide share of busy samples inside serialization frames —
+        # the trend behind doctor's serialization_hot rule
+        try:
+            Gauge("ray_tpu_profile_serialization_frac",
+                  "fraction of sampled busy time spent serializing").set(
+                round(self.profile_store.serialization_frac(300.0), 4))
+        except Exception:
+            pass
+        # log-plane ship pressure: cumulative records absorbed + source-
+        # side suppression markers (the "are we dropping logs" rates)
+        try:
+            lc = self.log_store.counters()
+            Gauge("ray_tpu_log_records_total",
+                  "log records ingested by the head store").set(
+                lc["ingested_total"])
+            Gauge("ray_tpu_log_suppressed_total",
+                  "log records dropped by source-side suppression").set(
+                lc["suppressed_total"])
+        except Exception:
+            pass
+
+    def _profile_ledger(self, window_s: float,
+                        tasks: Optional[int] = None) -> dict:
+        """The per-task CPU cost ledger over the trailing window: the
+        store's duty-cycle class rates joined with the task lane.  Only
+        task-path processes enter the sum — the head (which also hosts
+        the in-process driver) and the workers; node agents profile too
+        but their cycles are not per-task cost.  ``tasks`` defaults to
+        the FINISHED delta the TSDB saw over the window (callers that
+        counted exactly pass their own)."""
+        with self.lock:
+            worker_origins = {w.worker_id.hex() for w in self.workers.values()}
+        roles = {"head": "head"}
+        for row in self.profile_store.stats():
+            if row["origin"] in worker_origins:
+                roles[row["origin"]] = "worker"
+        if tasks is None:
+            tasks = 0
+            try:
+                res = self.tsdb.query(
+                    "ray_tpu_tasks", window_s=window_s,
+                    tags={"state": "FINISHED"}, agg="max")
+                points = [v for s in res.get("series", [])
+                          for _, v in s.get("points", []) if v is not None]
+                if points:
+                    tasks = int(max(points) - min(points))
+            except Exception:
+                pass
+            if not tasks:
+                with self.gcs.lock:
+                    tasks = sum(1 for t in self.gcs.tasks.values()
+                                if t.state == "FINISHED")
+        return self.profile_store.cost_ledger(window_s, tasks, roles)
 
     def _memory_audit(self, limit: int = 200) -> dict:
         """The ``ray memory`` analog: every sealed object's bytes
@@ -4915,6 +5194,16 @@ class Node:
     def shutdown(self) -> None:
         self._shutdown = True
         self._tsdb_stop.set()
+        if self._head_profiler is not None:
+            try:
+                self._head_profiler.stop()
+            except Exception:
+                pass
+        if self.watchdog is not None:
+            try:
+                self.watchdog.stop()
+            except Exception:
+                pass
         if self._log_monitor is not None:
             try:
                 self._log_monitor.stop()  # final drain into the store

@@ -18,7 +18,8 @@ with the GCS and serves its node): the agent
 - unlinks local segments when the head evicts them,
 - samples RSS, CPU% and open fds of itself and its workers from
   ``/proc`` every push interval and ships them as ``metrics_report``
-  gauges, and
+  gauges, and its own stacks as ``profile_report`` frames (the
+  continuous profiler), and
 - gossips its resource view + liveness to peer agents through the
   :mod:`~ray_tpu_torch._private.syncer` P2P mesh, shipping the converged
   view back to the head each tick so the head is no longer the sole
@@ -130,6 +131,17 @@ class NodeAgent:
         self.events_pusher = EventsPusher(
             self._send, origin=self.node_id,
             closed_fn=lambda: self._shutdown).start()
+
+        # continuous flamegraphs for the agent process itself, shipped
+        # over the same head connection (workers on this host each run
+        # their own)
+        from ray_tpu_torch._private import sampling_profiler as _sp
+
+        self.cont_profiler = None
+        if _sp.continuous_enabled():
+            self.cont_profiler = _sp.ContinuousProfiler(
+                f"agent:{self.node_id}", send_fn=self._send,
+                closed_fn=lambda: self._shutdown).start()
 
         # log plane: tail this host's worker capture files (registered at
         # spawn) and batch-ship them to the head's log store over the
@@ -392,6 +404,11 @@ class NodeAgent:
             except Exception:
                 pass
         self.syncer.stop()
+        if self.cont_profiler is not None:
+            try:
+                self.cont_profiler.stop()
+            except Exception:
+                pass
         try:
             self.events_pusher.stop()
         except Exception:

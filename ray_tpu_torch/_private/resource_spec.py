@@ -186,7 +186,7 @@ class ProcSampler:
         """Drop CPU baselines for pids no longer tracked."""
         live = set(live_pids)
         for pid in [p for p in self._prev if p not in live]:
-            del self._prev[p]
+            del self._prev[pid]
 
 
 def resource_metrics_snapshot(sampler: ProcSampler,

@@ -912,6 +912,16 @@ def main() -> None:
         client.send, origin=worker_id.hex(), dump_path=_events_dump,
         closed_fn=lambda: client.closed).start()
 
+    # the always-on flamegraph plane: low-duty-cycle stack bursts ship to
+    # the head's ProfileStore over this same control connection
+    from ray_tpu_torch._private import sampling_profiler as _sp
+
+    _cont_profiler = None
+    if _sp.continuous_enabled():
+        _cont_profiler = _sp.ContinuousProfiler(
+            worker_id.hex(), send_fn=client.send,
+            closed_fn=lambda: client.closed).start()
+
     # Threaded/async actor support: with max_concurrency > 1 the head
     # pipelines up to N methods at us; a BoundedExecutor-analog pool runs
     # them concurrently (creation always runs inline, before any method).
@@ -1012,6 +1022,8 @@ def main() -> None:
     for gp in group_pools.values():
         gp.shutdown(wait=False)
     _metrics_pusher.stop()  # no send after the connection closes
+    if _cont_profiler is not None:
+        _cont_profiler.stop()  # final profile ship before the hard exit
     _events_pusher.stop()  # final ship + crash-dump before the hard exit
     client.close()
     os._exit(0)

@@ -1,4 +1,4 @@
-"""ray_tpu_torch.autoscaler — demand-driven cluster scaling.
+"""ray_tpu_torch.autoscaler — demand- and trend-driven cluster scaling.
 
 The port's copy of ``ray_tpu/autoscaler`` (analog of
 ``python/ray/autoscaler``): the ``StandardAutoscaler`` reconcile loop
@@ -7,6 +7,9 @@ The port's copy of ``ray_tpu/autoscaler`` (analog of
 are real node-agent subprocesses holding ``node_config["num_gpus"]``
 cards.  Demand counts ``"GPU"``: a pending actor or task that asks for a
 card the cluster lacks waits as demand until a node with one joins.
+``TrendAutoscaler`` adds TSDB-trend decisions (scale before the doctor
+flags an incident) and slice-atomic replacement of degraded slices
+(``policy.py``).
 """
 
 from ray_tpu_torch.autoscaler.autoscaler import (
@@ -16,8 +19,15 @@ from ray_tpu_torch.autoscaler.autoscaler import (
 )
 from ray_tpu_torch.autoscaler.local_node_provider import LocalNodeProvider
 from ray_tpu_torch.autoscaler.node_provider import NodeProvider
+from ray_tpu_torch.autoscaler.policy import (
+    Decision,
+    TrendAutoscaler,
+    TrendPolicy,
+    TrendPolicyConfig,
+)
 
 __all__ = [
     "AutoscalingConfig", "StandardAutoscaler", "Monitor", "NodeProvider",
     "LocalNodeProvider",
+    "TrendAutoscaler", "TrendPolicy", "TrendPolicyConfig", "Decision",
 ]

@@ -297,17 +297,19 @@ class _ActorGraph:
             # traced recv waits are clamped to the request's entry time: a
             # loop that sat idle for minutes BEFORE this request was
             # submitted must not charge that idle to the request's trace.
-            # t0 is the DRIVER's wall clock; a skewed consumer clock could
-            # push (t_end - t0) negative and wrongly suppress genuine
-            # waits, so the clamp only applies while it has positive
-            # headroom — beyond NTP-level skew the full wait is kept
-            # (idle billing is a smaller lie than erasing the wait).
+            # t0 is the DRIVER's wall clock; a consumer clock behind it by
+            # more than the wait would push (t_end - t0) negative and erase
+            # a genuine wait, so the clamp only applies while it is
+            # positive — then the full wait is kept (idle billing is a
+            # smaller lie than erasing the wait).  No skew headroom: on one
+            # clock it started idle waits up to that much before the
+            # request.
             req_t0 = None
             if node_ctx is not None and "t0" in node_ctx:
                 req_t0 = float(node_ctx["t0"])
             for eid, waited, t_end in waits:
                 if req_t0 is not None:
-                    headroom = t_end - req_t0 + 0.25
+                    headroom = t_end - req_t0
                     if headroom > 0:
                         waited = min(waited, headroom)
                 if waited >= _WAIT_SPAN_MIN_S:

@@ -18,8 +18,13 @@ and the head's own sampler); ``memory_summary``, ``top_snapshot``,
 ``perf_summary`` and ``doctor_report`` are the head-side aggregates
 behind ``python -m ray_tpu_torch memory``/``top``/``perf``/``doctor``.
 
-A table the head does not keep (slices, tenants, logs, incidents, SLOs:
-their stores are not ported) raises ``ValueError``.
+``list_logs``/``get_log``/``tail_log`` read the head's log store,
+``list_profiles``/``get_profile``/``profile_diff``/``profile_ledger`` its
+profile store, and ``list_incidents``/``list_slos``/``get_incident``/
+``ack_incident``/``debug_dump`` its watchdog.
+
+A table the head does not keep (tenants: the multi-tenant proxy is not
+ported) raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -73,6 +78,13 @@ def list_nodes(limit: int = 1000) -> List[dict]:
     """One row per node: its total ``resources`` and, while it is alive,
     its ``available`` ones (``"GPU"`` among both on a node with cards)."""
     return _list("nodes", limit)
+
+
+def list_slices(limit: int = 1000) -> List[dict]:
+    """One row per slice (failure domain): members, alive/dead
+    counts, draining flag, and whether it is currently degraded (dead
+    member, not draining — what doctor's ``slice_degraded`` watches)."""
+    return _list("slices", limit)
 
 
 def list_tasks(limit: int = 1000) -> List[dict]:
@@ -151,11 +163,54 @@ def list_traces(limit: int = 100) -> List[dict]:
 def get_trace(trace_id: str) -> Optional[dict]:
     """One assembled trace: recorder spans (router admission, channel
     waits, compiled-graph node executions, get waits...) merged with
-    task-table spans (queue + execution attribution), sorted by start.
-    ``logs`` is empty (the head keeps no log store).  None if the id is
-    unknown."""
+    task-table spans (queue + execution attribution), sorted by start,
+    plus ``logs`` — the trace's stamped log records joined onto the
+    span tree.  None if the id is unknown."""
     return _client().request(
         {"type": "get_trace", "trace_id": trace_id})["value"]
+
+
+# ---------------------------------------------------------------------------
+# log plane (head LogStore — `ray_tpu_torch logs` backend)
+# ---------------------------------------------------------------------------
+
+def list_logs(limit: int = 1000) -> List[dict]:
+    """One row per captured log stream in the head's LogStore (worker /
+    job-driver / head files the per-node monitors tail):
+    stream name, node, pid, retained lines/bytes, and whether the
+    stream's process already died (``retired`` — its death tail stays
+    queryable until the retirement horizon)."""
+    return _list("logs", limit)
+
+
+def get_log(stream: Optional[str] = None, job: Optional[str] = None,
+            task: Optional[str] = None, actor: Optional[str] = None,
+            node: Optional[str] = None, pid: Optional[int] = None,
+            trace: Optional[str] = None, grep: Optional[str] = None,
+            errors: bool = False, since_seq: int = 0,
+            limit: int = 1000) -> dict:
+    """Filtered log records from the head's store — the ``ray_tpu_torch logs``
+    backend.  Every filter matches the per-line context stamps (so
+    ``task=``/``actor=``/``trace=`` find a plain ``print()`` from inside
+    that execution).  Returns ``{"records", "cursor"}``; pass ``cursor``
+    back as ``since_seq`` to follow the stream incrementally.
+    ``stream="job-<id>"`` falls back to the job driver's complete
+    on-disk log when the ring has nothing."""
+    return _client().request(
+        {"type": "get_log", "stream": stream, "job": job, "task": task,
+         "actor": actor, "node": node, "pid": pid, "trace": trace,
+         "grep": grep, "errors": errors, "since_seq": since_seq,
+         "limit": limit})["value"]
+
+
+def tail_log(stream: str, n: int = 100, errors: bool = False) -> List[str]:
+    """The last ``n`` raw lines of one stream (``errors=True`` keeps only
+    stderr/traceback lines) — works for retired streams too, which is how
+    a SIGKILL'd worker's final stderr is read back after death."""
+    return _client().request(
+        {"type": "tail_log", "stream": stream, "n": n,
+         "errors": errors})["value"]
+
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +244,53 @@ def query_metric(name: str, window_s: float = 3600.0, step_s: float = 0.0,
     return value
 
 
+# ---------------------------------------------------------------------------
+# continuous profiling (head ProfileStore)
+# ---------------------------------------------------------------------------
+
+def list_profiles() -> List[dict]:
+    """One row per origin with retained continuous-profile history in
+    the head's ProfileStore: bucket counts (fine + decayed coarse),
+    bytes, total samples, GIL-pressure estimate, push age, and the
+    origin's current sampling cadence."""
+    return _client().request({"type": "list_profiles"})["value"]
+
+
+def get_profile(window_s: float = 300.0,
+                origin: Optional[str] = None) -> dict:
+    """Merged folded stacks over the trailing window (cluster-wide, or
+    one origin's) from the always-on profiler — ``folded`` maps
+    ``|``-joined root→leaf stacks to sample counts, plus the duty-cycle
+    denominators (``ticks``/``busy_ticks``) the cost ledger divides by."""
+    return _client().request(
+        {"type": "get_profile", "window_s": window_s,
+         "origin": origin})["value"]
+
+
+def profile_diff(window_a: float = 600.0, window_b: float = 60.0,
+                 origin: Optional[str] = None) -> dict:
+    """Differential profile: the trailing ``window_b`` seconds against
+    the ``window_a``-long baseline before it, counts scaled to the same
+    span.  ``collapsed`` holds flamegraph.pl ``difffolded`` lines
+    (``stack countA countB``); ``delta`` the per-stack change."""
+    return _client().request(
+        {"type": "profile_diff", "window_a": window_a,
+         "window_b": window_b, "origin": origin})["value"]
+
+
+def profile_ledger(window_s: float = 300.0,
+                   tasks: Optional[int] = None) -> dict:
+    """The per-task CPU cost ledger: sampled stacks joined with the task
+    lane into driver-submit / head-dispatch / worker-exec / serialize /
+    lock-wait / GIL-wait microsecond columns that sum to the measured
+    per-task wall (``tasks`` overrides the TSDB-derived task count when
+    the caller counted exactly)."""
+    msg = {"type": "profile_ledger", "window_s": window_s}
+    if tasks is not None:
+        msg["tasks"] = tasks
+    return _client().request(msg)["value"]
+
+
 def memory_summary(limit: int = 200) -> dict:
     """Object-ownership audit (``ray memory`` analog): sealed object-store
     bytes attributed per owner (driver/worker/actor), pin-reason
@@ -206,6 +308,46 @@ def top_snapshot() -> dict:
     return _client().request({"type": "top_snapshot"})["value"]
 
 
+# ---------------------------------------------------------------------------
+# watchdog plane (incidents, SLOs, head-side doctor, debug dumps)
+# ---------------------------------------------------------------------------
+
+def list_incidents(limit: int = 1000) -> List[dict]:
+    """The watchdog's tracked incident set — open, acked, and resolved
+    rows with stable ids keyed on (rule, entity), severity, re-open
+    counts, the transition history, and the post-mortem bundle path
+    captured at open.  Empty when the watchdog is disabled."""
+    return _list("incidents", limit)
+
+
+def list_slos(limit: int = 1000) -> List[dict]:
+    """Declared SLOs (defaults + ``slos.json`` + ``add_slo``) with the
+    latest multi-window burn-rate evaluation folded in: per-window
+    value/coverage/breach and the overall ``burning`` verdict."""
+    return _list("slos", limit)
+
+
+def get_incident(incident_id: str) -> dict:
+    """One incident's full record, including its evidence rows and
+    transition history; raises ValueError on an unknown id."""
+    value = _client().request(
+        {"type": "get_incident", "incident_id": incident_id})["value"]
+    if isinstance(value, dict) and "__state_error__" in value:
+        raise ValueError(value["__state_error__"])
+    return value
+
+
+def ack_incident(incident_id: str) -> dict:
+    """Acknowledge an open incident (open → ack): it stops alerting on
+    refresh but still auto-resolves once clear.  Returns the updated
+    record; raises ValueError if the id is unknown or not open."""
+    value = _client().request(
+        {"type": "ack_incident", "incident_id": incident_id})["value"]
+    if isinstance(value, dict) and "__state_error__" in value:
+        raise ValueError(value["__state_error__"])
+    return value
+
+
 def doctor_report(trend_window_s: float = 1800.0) -> List[dict]:
     """Doctor findings computed HEAD-SIDE over the head's own event /
     task / TSDB tables — the ``ray_tpu_torch doctor`` backend.  The client
@@ -217,6 +359,17 @@ def doctor_report(trend_window_s: float = 1800.0) -> List[dict]:
     if isinstance(value, dict) and "__state_error__" in value:
         raise ValueError(value["__state_error__"])
     return value
+
+
+def debug_dump(label: Optional[str] = None) -> str:
+    """One-shot whole-cluster post-mortem bundle written head-side under
+    ``<session>/incidents/`` (log tails, event excerpt, TSDB slices,
+    collapsed profile, memory audit); returns the bundle directory."""
+    value = _client().request(
+        {"type": "debug_dump", "label": label})["value"]
+    if isinstance(value, dict) and "__state_error__" in value:
+        raise ValueError(value["__state_error__"])
+    return value["path"]
 
 
 def perf_summary(window_s: float = 1800.0) -> dict:

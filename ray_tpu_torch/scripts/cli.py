@@ -9,18 +9,31 @@ Reference: ``python/ray/scripts/scripts.py`` (cluster lifecycle) and
     up CONFIG / down CONFIG                    launch / tear down a YAML cluster
     stop                                       stop the last started head
     status                                     cluster resources/state
-    list {actors,tasks,nodes,objects,workers,placement_groups,jobs,traces}
+    list {actors,tasks,nodes,objects,workers,placement_groups,jobs,traces,
+          slices,logs,incidents,slos}
     submit [--wait] -- <entrypoint...>         submit a job
     job-logs <job_id> / job-stop <job_id>
+    logs [STREAM] [--follow --errors --grep P] cluster log plane (tailed
+         [--job J --task T --actor A           worker/driver files, context-
+          --node N --pid P --tail N]           stamped, from the head store)
     timeline [--out FILE]                      chrome-trace of task events
     events [--source S --severity L --limit N] flight-recorder event table
-    trace [TRACE_ID] [--json]                  recent traces, or one trace
+    trace [TRACE_ID] [--json]                  span tree + critical path
     serve-status                               serve deployments + autoscaling
-    doctor [--json]                            pathology findings (exit 1 on any)
+    doctor [--json --live]                     pathology findings (exit 1 on any;
+                                               --live reads the watchdog's incident set)
+    incidents [--follow --history --ack ID]    watchdog incident lifecycle
+    slo                                        declared SLOs + burn-rate state
+    debug dump                                 write a whole-cluster post-mortem bundle
+    slices                                     failure domains: member health
     top [--interval S --iterations N --sort K] live nodes/workers resource view
     memory [--limit N --json]                  object-ownership audit
     metrics [NAME --window S --step S --agg A] TSDB directory, or one series
     perf [--window S --json]                   step phases, MFU, card memory
+    profile --live [--window S --origin O]     always-on flamegraph (folded stacks)
+    profile diff WINDOW_A WINDOW_B             differential folded stacks
+    profile ledger [--window S]                per-task CPU cost ledger
+    profile list                               origins with profile history
 
 Every command but ``start``, ``up``, ``down`` and ``stop`` talks to the
 cluster named by ``$RAY_TPU_TORCH_ADDRESS`` (``tcp://host:port``, with
@@ -194,12 +207,73 @@ def cmd_submit(args) -> None:
 
 
 def cmd_job_logs(args) -> None:
-    """The job driver's log, as the head's JobManager captured it."""
-    print(_job_client().get_job_logs(args.job_id), end="")
+    """Job driver logs from the head's log store — the same surface
+    ``ray_tpu_torch logs job-<id>`` reads (one log plane for job drivers
+    and workers; the head falls back to the complete on-disk job file
+    when the ring has aged out)."""
+    _connect()
+    from ray_tpu_torch.experimental.state import api as state
+
+    reply = state.get_log(stream=f"job-{args.job_id}", limit=100_000)
+    for r in reply["records"]:
+        print(r["line"])
 
 
 def cmd_job_stop(args) -> None:
     print("stopped" if _job_client().stop_job(args.job_id) else "not running")
+
+
+def cmd_logs(args) -> None:
+    """Cluster log plane (``ray logs`` analog): with no stream and no
+    filters, one row per captured stream in the head's store; otherwise
+    the matching records, each prefixed ``(stream pid=… node=…)``.
+    Every filter matches the per-line context stamps, so ``--task``/
+    ``--actor``/``--job`` find a plain ``print()`` from inside that
+    execution.  ``--follow`` keeps polling the head's cursor."""
+    _connect()
+    from ray_tpu_torch.experimental.state import api as state
+
+    filtered = any((args.stream, args.job, args.task, args.actor,
+                    args.node, args.pid, args.grep, args.errors))
+    if not filtered and not args.follow:
+        rows = state.list_logs(limit=args.limit)
+        if not rows:
+            print("(no log streams captured yet)")
+            return
+        print(f"{'STREAM':<28} {'NODE':<12} {'PID':>7} {'LINES':>7} "
+              f"{'BYTES':>9}  STATE")
+        for r in rows:
+            print(f"{r['stream']:<28} {str(r.get('node') or '-'):<12} "
+                  f"{str(r.get('pid') or '-'):>7} {r['lines']:>7} "
+                  f"{r['bytes']:>9}  "
+                  f"{'retired' if r.get('retired') else 'live'}")
+        return
+
+    def emit(records):
+        for r in records:
+            print(f"({r['stream']} pid={r.get('pid')}, "
+                  f"node={r.get('node')}) {r['line']}")
+
+    reply = state.get_log(
+        stream=args.stream, job=args.job, task=args.task, actor=args.actor,
+        node=args.node, pid=args.pid, grep=args.grep, errors=args.errors,
+        limit=args.tail)
+    emit(reply["records"])
+    if not args.follow:
+        return
+    cursor = reply["cursor"]
+    try:
+        while True:
+            time.sleep(args.interval)
+            reply = state.get_log(
+                stream=args.stream, job=args.job, task=args.task,
+                actor=args.actor, node=args.node, pid=args.pid,
+                grep=args.grep, errors=args.errors,
+                since_seq=cursor, limit=100_000)
+            emit(reply["records"])
+            cursor = reply["cursor"]
+    except KeyboardInterrupt:
+        pass
 
 
 def cmd_timeline(args) -> None:
@@ -227,9 +301,8 @@ def cmd_events(args) -> None:
 
 
 def cmd_trace(args) -> None:
-    """Request traces: without an id, list recent traces; with one and
-    ``--json``, the assembled spans.  The rendered span tree with its
-    critical path is not ported."""
+    """Request traces: without an id, list recent traces; with one, the
+    assembled span tree + per-phase critical-path attribution."""
     _connect()
     from ray_tpu_torch.experimental.state import api as state
 
@@ -246,14 +319,23 @@ def cmd_trace(args) -> None:
             print(f"{r['trace_id']}  {r['duration_s'] * 1e3:9.2f}ms  "
                   f"{r['num_spans']:4d} spans  {r['name']}")
         return
-    if not args.json:
-        raise SystemExit("ray_tpu_torch renders no span tree yet; "
-                         "use `trace TRACE_ID --json`")
     trace = state.get_trace(args.trace_id)
     if trace is None:
         raise SystemExit(f"unknown trace {args.trace_id!r} (see "
                          f"`ray_tpu_torch trace` for recent ids)")
-    print(json.dumps(trace, indent=2, default=repr))
+    from ray_tpu_torch.util.trace_analysis import analyze, render_trace
+
+    analysis = analyze(trace)
+    if args.json:
+        trace["analysis"] = analysis
+        print(json.dumps(trace, indent=2, default=repr))
+    else:
+        print(render_trace(trace, analysis))
+        logs = trace.get("logs") or []
+        if logs:
+            print(f"\nlogs ({len(logs)} records stamped with this trace):")
+            for r in logs:
+                print(f"  ({r['stream']}) {r['line']}")
 
 
 def cmd_serve_status(_args) -> None:
@@ -289,17 +371,138 @@ def cmd_serve_status(_args) -> None:
 def cmd_doctor(args) -> None:
     """Rule-based pathology analysis over the recorded event/task state
     and the head's TSDB trends; exits non-zero when findings exist so CI
-    can gate on it."""
+    can gate on it.  ``--live`` reports the watchdog's current open
+    incidents instead of re-diagnosing."""
     _connect()
     from ray_tpu_torch.util.doctor import render, run_doctor
 
-    findings = run_doctor()
+    if args.live:
+        # report from the watchdog's CURRENT incident set instead of
+        # re-diagnosing — what the continuous loop already concluded
+        from ray_tpu_torch.experimental.state import api as state
+
+        findings = [{
+            "severity": inc["severity"], "rule": inc["rule"],
+            "summary": f"[{inc['state']}] {inc['summary']}",
+            "remedy": inc.get("remedy", ""),
+            "count": inc.get("count", 1),
+            "evidence": [{"incident_id": inc["id"],
+                          "bundle_dir": inc.get("bundle_dir")}],
+        } for inc in state.list_incidents()
+            if inc["state"] in ("open", "ack")]
+    else:
+        findings = run_doctor()
     if args.json:
         print(json.dumps(findings, indent=2, default=repr))
     else:
         print(render(findings))
     if findings:
         sys.exit(1)
+
+
+def _render_incident_row(inc: dict) -> str:
+    age = time.time() - inc.get("opened_at", time.time())
+    flags = ""
+    if inc.get("escalated"):
+        flags += "!"
+    if inc.get("reopen_count"):
+        flags += f" x{inc['reopen_count'] + 1}"
+    return (f"{inc['state']:<9} {inc['severity']:<8} "
+            f"{int(age):>6}s {inc['id'][:48]:<50}{flags:<6} "
+            f"{inc['summary'][:90]}")
+
+
+def cmd_incidents(args) -> None:
+    """Watchdog incident lifecycle: the tracked set, one incident's
+    transition history, ack, or --follow transitions live."""
+    _connect()
+    from ray_tpu_torch.experimental.state import api as state
+
+    if args.ack:
+        inc = state.ack_incident(args.ack)
+        print(f"acked {inc['id']} ({inc['severity']}: "
+              f"{inc['summary'][:100]})")
+        return
+    if args.history:
+        inc = state.get_incident(args.history)
+        if args.json:
+            print(json.dumps(inc, indent=2, default=repr))
+            return
+        print(_render_incident_row(inc))
+        if inc.get("bundle_dir"):
+            print(f"  bundle: {inc['bundle_dir']}")
+        for h in inc.get("history", []):
+            ts = time.strftime("%H:%M:%S", time.localtime(h["ts"]))
+            print(f"  {ts} {h['transition']:<9} {h.get('summary', '')[:100]}")
+        return
+    seen: dict = {}
+
+    def _page():
+        rows = state.list_incidents(limit=args.limit)
+        rows.sort(key=lambda r: r.get("opened_at", 0.0))
+        return rows
+
+    rows = _page()
+    if args.json:
+        print(json.dumps(rows, indent=2, default=repr))
+        return
+    if not rows:
+        print("no incidents")
+    else:
+        print(f"{'STATE':<9} {'SEV':<8} {'AGE':>7} {'INCIDENT':<56} SUMMARY")
+        for inc in rows:
+            print(_render_incident_row(inc))
+            seen[inc["id"]] = (inc["state"], len(inc.get("history", [])))
+    if not args.follow:
+        return
+    try:
+        while True:
+            time.sleep(args.interval)
+            for inc in _page():
+                key = (inc["state"], len(inc.get("history", [])))
+                if seen.get(inc["id"]) != key:
+                    seen[inc["id"]] = key
+                    print(_render_incident_row(inc))
+    except KeyboardInterrupt:
+        pass
+
+
+def cmd_slo(args) -> None:
+    """Declared SLOs with their live multi-window burn-rate state."""
+    _connect()
+    from ray_tpu_torch.experimental.state import api as state
+
+    rows = state.list_slos()
+    if args.json:
+        print(json.dumps(rows, indent=2, default=repr))
+        return
+    print(f"{'SLO':<16} {'STATE':<8} {'OBJECTIVE':<44} "
+          f"{'FAST':>10} {'SLOW':>10}")
+    for s in rows:
+        obj = f"{s['metric']} {s.get('op', '<=')} {s['threshold']}"
+        if s.get("kind") == "ratio":
+            obj = f"{s['metric']} ratio <= {s['threshold']}"
+
+        def _w(w):
+            if not w or not w.get("evaluable"):
+                return "no-data"
+            return f"{w['value']}{'*' if w['breach'] else ''}"
+
+        state_s = "BURNING" if s.get("burning") else "ok"
+        print(f"{s['name']:<16} {state_s:<8} {obj:<44} "
+              f"{_w(s.get('fast')):>10} {_w(s.get('slow')):>10}")
+    if any(s.get("burning") for s in rows):
+        sys.exit(1)
+
+
+def cmd_debug(args) -> None:
+    """`debug dump`: one-shot whole-cluster post-mortem bundle."""
+    if args.what != "dump":
+        raise SystemExit(f"unknown debug subcommand {args.what!r}")
+    _connect()
+    from ray_tpu_torch.experimental.state import api as state
+
+    print(state.debug_dump(label=args.label))
 
 
 def _fmt_bytes(n) -> str:
@@ -419,6 +622,28 @@ def cmd_top(args) -> None:
             time.sleep(args.interval)
     except KeyboardInterrupt:
         pass
+
+
+def cmd_slices(args) -> None:
+    """Failure-domain view: one line per slice with member health,
+    draining state and the degraded flag doctor watches."""
+    _connect()
+    from ray_tpu_torch.experimental.state import api as state
+
+    rows = state.list_slices(limit=args.limit)
+    if args.json:
+        print(json.dumps(rows, indent=2, default=repr))
+        return
+    if not rows:
+        print("no slices (no node joined with a slice id)")
+        return
+    print(f"{'SLICE':<28} {'HOSTS':>5} {'ALIVE':>5} {'DEAD':>4} STATE")
+    for r in rows:
+        state_s = ("DEGRADED" if r["degraded"]
+                   else "draining" if r["draining"]
+                   else "healthy" if r["dead_members"] == 0 else "dead")
+        print(f"{r['slice_id']:<28} {len(r['members']):>5} "
+              f"{r['alive_members']:>5} {r['dead_members']:>4} {state_s}")
 
 
 def cmd_memory(args) -> None:
@@ -575,6 +800,74 @@ def cmd_perf(args) -> None:
     print("\n".join(out))
 
 
+def cmd_profile(args) -> None:
+    """The always-on profiling plane (the head's ProfileStore — no new
+    sampling, the history is already there).  ``--live`` prints the
+    merged folded stacks; ``profile diff A B`` emits differential folded
+    stacks between the trailing B seconds and the A-second baseline
+    before them; ``profile ledger`` prints the per-task CPU cost columns;
+    ``profile list`` the origins with retained history.  ``--format
+    collapsed`` (the default) is speedscope / flamegraph.pl ready.
+    On-demand dense sampling of one worker goes through the dashboard,
+    which the port does not carry."""
+    _connect()
+    mode = args.rest[0] if args.rest else None
+    if mode not in (None, "diff", "ledger", "list"):
+        raise SystemExit(f"unknown profile mode {mode!r} "
+                         "(expected: diff, ledger, list)")
+    if not (args.live or mode):
+        raise SystemExit("on-demand sampling needs the dashboard, which "
+                         "ray_tpu_torch does not carry; use `profile "
+                         "--live` (or diff, ledger, list)")
+    from ray_tpu_torch.experimental.state import api as state
+
+    if mode == "list":
+        rows = state.list_profiles()
+        print(json.dumps(rows, indent=2))
+        return
+    if mode == "ledger":
+        led = state.profile_ledger(window_s=args.window)
+        if args.format == "json":
+            print(json.dumps(led, indent=2))
+            return
+        wall = led["per_task_wall_us"]
+        print(f"per-task CPU ledger over the last {led['window_s']:.0f}s "
+              f"({led['tasks']} tasks, {wall:.1f}us wall/task):")
+        for col, us in led["columns"].items():
+            pct = 100.0 * us / wall if wall else 0.0
+            print(f"  {col:20s} {us:10.2f}us  {pct:5.1f}%")
+        print(f"  {'sum':20s} {led['sum_us']:10.2f}us  "
+              f"{led['sum_over_wall'] * 100:5.1f}%  (exactness check)")
+        print(f"  overlapped worker CPU (pipelined, not on the wall): "
+              f"{led['overlapped_worker_cpu_us']:.2f}us/task")
+        return
+    if mode == "diff":
+        if len(args.rest) != 3:
+            raise SystemExit(
+                "usage: ray_tpu_torch profile diff WINDOW_A WINDOW_B "
+                "(seconds; trailing B vs the A-long baseline before it)")
+        d = state.profile_diff(window_a=float(args.rest[1]),
+                               window_b=float(args.rest[2]),
+                               origin=args.origin)
+        body = (json.dumps(d, indent=2) if args.format == "json"
+                else d["collapsed"])
+    else:  # --live
+        q = state.get_profile(window_s=args.window, origin=args.origin)
+        if args.format == "json":
+            body = json.dumps(q, indent=2)
+        else:
+            body = "\n".join(
+                f"{stack.replace('|', ';')} {n}"
+                for stack, n in sorted(q["folded"].items(),
+                                       key=lambda kv: -kv[1]))
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(body + "\n")
+        print(f"wrote profile to {args.out}")
+    else:
+        print(body)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="ray_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -603,7 +896,8 @@ def main(argv=None) -> None:
     s = sub.add_parser("list", help="state API tables")
     s.add_argument("what", choices=["actors", "tasks", "nodes", "objects",
                                     "workers", "placement_groups", "jobs",
-                                    "traces"])
+                                    "traces", "slices", "logs",
+                                    "incidents", "slos"])
     s.add_argument("--limit", type=int, default=100)
     s.set_defaults(fn=cmd_list)
 
@@ -616,6 +910,30 @@ def main(argv=None) -> None:
     s = sub.add_parser("job-logs")
     s.add_argument("job_id")
     s.set_defaults(fn=cmd_job_logs)
+
+    s = sub.add_parser(
+        "logs",
+        help="cluster log plane: stream table, or task/actor/trace-"
+             "correlated records from every node")
+    s.add_argument("stream", nargs="?", default=None,
+                   help="one stream (e.g. worker-<id>, job-<id>, head)")
+    s.add_argument("--follow", "-f", action="store_true",
+                   help="keep polling the head's cursor (Ctrl-C to stop)")
+    s.add_argument("--errors", action="store_true",
+                   help="only stderr/traceback lines")
+    s.add_argument("--grep", default=None, help="substring filter")
+    s.add_argument("--job", default=None)
+    s.add_argument("--task", default=None, help="task id (hex)")
+    s.add_argument("--actor", default=None, help="actor id (hex)")
+    s.add_argument("--node", default=None)
+    s.add_argument("--pid", type=int, default=None)
+    s.add_argument("--tail", type=int, default=1000,
+                   help="max records in the initial page")
+    s.add_argument("--limit", type=int, default=1000,
+                   help="max stream rows in the no-filter table")
+    s.add_argument("--interval", type=float, default=1.0,
+                   help="--follow poll period (s)")
+    s.set_defaults(fn=cmd_logs)
 
     s = sub.add_parser("job-stop")
     s.add_argument("job_id")
@@ -640,7 +958,8 @@ def main(argv=None) -> None:
     s.set_defaults(fn=cmd_events)
 
     s = sub.add_parser(
-        "trace", help="request traces: list, or one trace's spans (--json)")
+        "trace",
+        help="request traces: list, or span tree + critical path for one")
     s.add_argument("trace_id", nargs="?", default=None)
     s.add_argument("--limit", type=int, default=20)
     s.add_argument("--json", action="store_true")
@@ -655,7 +974,42 @@ def main(argv=None) -> None:
         help="pathology analysis over recorded events/tasks and TSDB "
              "trends (exit 1 on findings)")
     s.add_argument("--json", action="store_true")
+    s.add_argument("--live", action="store_true",
+                   help="report the watchdog's current open incidents "
+                        "instead of re-diagnosing from scratch")
     s.set_defaults(fn=cmd_doctor)
+
+    s = sub.add_parser(
+        "incidents",
+        help="watchdog incident lifecycle: tracked set, history, ack, "
+             "or follow transitions live")
+    s.add_argument("--follow", "-f", action="store_true",
+                   help="keep polling and print state transitions")
+    s.add_argument("--ack", default=None, metavar="ID",
+                   help="acknowledge one open incident")
+    s.add_argument("--history", default=None, metavar="ID",
+                   help="one incident's full transition history")
+    s.add_argument("--json", action="store_true")
+    s.add_argument("--limit", type=int, default=200)
+    s.add_argument("--interval", type=float, default=2.0,
+                   help="--follow poll period (s)")
+    s.set_defaults(fn=cmd_incidents)
+
+    s = sub.add_parser(
+        "slo",
+        help="declared SLOs + multi-window burn-rate state (exit 1 "
+             "when any objective is burning)")
+    s.add_argument("--json", action="store_true")
+    s.set_defaults(fn=cmd_slo)
+
+    s = sub.add_parser(
+        "debug",
+        help="debug dump: write a whole-cluster post-mortem bundle "
+             "under <session>/incidents/")
+    s.add_argument("what", choices=["dump"])
+    s.add_argument("--label", default=None,
+                   help="bundle directory name (default dump-<ts>)")
+    s.set_defaults(fn=cmd_debug)
 
     s = sub.add_parser(
         "top", help="live cluster resource view (nodes, workers, pinned "
@@ -665,6 +1019,14 @@ def main(argv=None) -> None:
                    help="frames to render (0 = forever); 1 prints once")
     s.add_argument("--sort", choices=["cpu", "rss", "pinned"], default="cpu")
     s.set_defaults(fn=cmd_top)
+
+    s = sub.add_parser(
+        "slices",
+        help="slice failure domains: member health, draining, "
+             "degraded flags")
+    s.add_argument("--limit", type=int, default=100)
+    s.add_argument("--json", action="store_true")
+    s.set_defaults(fn=cmd_slices)
 
     s = sub.add_parser(
         "memory",
@@ -693,6 +1055,26 @@ def main(argv=None) -> None:
                    help="MFU-trend window seconds (TSDB query)")
     s.add_argument("--json", action="store_true")
     s.set_defaults(fn=cmd_perf)
+
+    s = sub.add_parser(
+        "profile",
+        help="the always-on profiling plane (--live / diff / ledger / "
+             "list)")
+    s.add_argument("rest", nargs="*",
+                   help="mode: diff WINDOW_A WINDOW_B | ledger | list "
+                        "(none: --live)")
+    s.add_argument("--live", action="store_true",
+                   help="merged folded stacks from the continuous "
+                        "profiler's history")
+    s.add_argument("--window", type=float, default=300.0,
+                   help="trailing window seconds for --live/ledger")
+    s.add_argument("--origin", default=None,
+                   help="one origin ('head', worker id hex, "
+                        "'agent:<node>'); default: all")
+    s.add_argument("--format", choices=["json", "collapsed"],
+                   default=None)
+    s.add_argument("--out", default=None, help="write to file")
+    s.set_defaults(fn=cmd_profile)
 
     args = p.parse_args(argv)
     args.fn(args)

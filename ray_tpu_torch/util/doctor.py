@@ -854,8 +854,7 @@ def _trend_rule_lock_contention(series_map):
         remedy = (
             "threads queue on this lock faster than its critical "
             "section drains: shrink what runs under it, shard the "
-            "guarded state, or hand the work to a single owner thread "
-            "(RAY_TPU_TORCH_LOCKPROF=1 captures every acquire for the trace)")
+            "guarded state, or hand the work to a single owner thread")
     return _finding(
         "lock_contention", "WARNING",
         f"lock {name}: threads waited {worst['wait_s']:.1f}s behind "

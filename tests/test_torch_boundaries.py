@@ -422,8 +422,37 @@ def test_operator_plane_loads_neither_jax_nor_ray_tpu_and_starts_nothing():
         "assert not torch.cuda.is_initialized()\n" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
                          capture_output=True, text=True)
-    assert "{start,up,down,stop,status,list,submit,job-logs,job-stop,timeline,events," \
-           "trace,serve-status,doctor,top,memory,metrics,perf}" in out.stdout
+    assert "{start,up,down,stop,status,list,submit,job-logs,logs,job-stop,timeline," \
+           "events,trace,serve-status,doctor,incidents,slo,debug,top,slices,memory," \
+           "metrics,perf,profile}" in out.stdout
+
+
+NEW_STORE_MODULES = ("ray_tpu_torch._private.sampling_profiler", "ray_tpu_torch.util.profile_store",
+                     "ray_tpu_torch.util.log_store", "ray_tpu_torch.util.trace_analysis",
+                     "ray_tpu_torch.util.incidents", "ray_tpu_torch.util.watchdog",
+                     "ray_tpu_torch.autoscaler.policy")
+
+
+def test_observability_stores_load_neither_jax_nor_ray_tpu_and_start_nothing():
+    """The sampling profiler, the profile, log and incident stores, the
+    trace analysis, the watchdog and the trend autoscaler (and the timed
+    locks under them) import no JAX and nothing of ``ray_tpu``; importing
+    them, and making a lock, starts no thread and makes no CUDA context.
+    Each has a counterpart of the same name in the JAX package."""
+    for mod in NEW_STORE_MODULES:
+        rel = mod.replace(".", "/") + ".py"
+        assert (ROOT / rel).is_file() and (ROOT / rel.replace("ray_tpu_torch/", "ray_tpu/", 1)
+                                           ).is_file(), rel
+    code = (
+        "import sys, threading, torch\n"
+        "import %s\n"
+        "from ray_tpu_torch._private.locks import make_lock\n"
+        "make_lock('a.b'), make_lock('c.d', rlock=True)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not torch.cuda.is_initialized()\n" % (", ".join(NEW_STORE_MODULES), FORBIDDEN))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
 def test_util_libraries_and_accounting_load_neither_jax_nor_ray_tpu_and_start_nothing():

@@ -173,8 +173,17 @@ def _drive(address, authkey):
         listed = _until(lambda: [r for r in json.loads(_in_process("trace", "--json"))
                                  if r["trace_id"] == ctx["trace_id"]], "the trace listing")
         assert listed[0]["name"] == "cli-request"
-        with pytest.raises(SystemExit, match="renders no span tree"):
-            _in_process("trace", ctx["trace_id"])
+        from ray_tpu.util.trace_analysis import analyze as jax_analyze
+        from ray_tpu.util.trace_analysis import render_trace as jax_render_trace
+
+        def rendered_alike():
+            # the driver's own spans reach the head on its next event push
+            trace = json.loads(_in_process("trace", ctx["trace_id"], "--json"))
+            rendered = _in_process("trace", ctx["trace_id"])
+            want = jax_render_trace(trace, jax_analyze(trace))
+            return rendered if rendered.startswith(want) else None
+        rendered = _until(rendered_alike, "the rendered trace to settle")
+        assert "critical path:" in rendered and "Pinger.ping" in rendered
 
         path = os.path.join(tempfile.gettempdir(), "cli_timeline.json")
         assert path in _in_process("timeline", "--out", path)
@@ -353,8 +362,7 @@ def test_down_kills_a_head_by_its_record_only_if_it_is_the_ports(private_tmp):
     os.remove(record)
 
 
-@pytest.mark.parametrize("name", ["logs", "lint", "incidents", "slo", "debug",
-                                  "slices", "profile", "serve-deploy"])
+@pytest.mark.parametrize("name", ["lint", "serve-deploy"])
 def test_unregistered_subcommands_exit_with_argparses_error(name, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main([name])
@@ -362,7 +370,7 @@ def test_unregistered_subcommands_exit_with_argparses_error(name, capsys):
     assert f"invalid choice: '{name}'" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("name,flags", [("doctor", ["--json"]),
+@pytest.mark.parametrize("name,flags", [("doctor", ["--json", "--live"]),
                                         ("top", ["--interval", "--iterations", "--sort"]),
                                         ("memory", ["--limit", "--json"]),
                                         ("metrics", ["--window", "--step", "--agg"]),
@@ -370,16 +378,157 @@ def test_unregistered_subcommands_exit_with_argparses_error(name, capsys):
 def test_accounting_subcommands_take_the_jax_packages_flags(name, flags, capsys):
     """``doctor``, ``top``, ``memory``, ``metrics`` and ``perf`` are
     registered with the JAX package's flags (``doctor`` without its
-    ``--live``/``--static``, which read the incident store and raylint)."""
+    ``--static``, which runs raylint)."""
     with pytest.raises(SystemExit) as e:
         cli.main([name, "--help"])
     assert e.value.code == 0
     out = capsys.readouterr().out
     assert all(f in out for f in flags), out
-    assert "--live" not in out and "--static" not in out
+    assert "--static" not in out
 
 
 def test_list_takes_only_the_tables_the_head_keeps(capsys):
     with pytest.raises(SystemExit):
         cli.main(["list", "tenants"])
     assert "invalid choice: 'tenants'" in capsys.readouterr().err
+
+
+# -- the store commands, held to the JAX package's CLI on the same head --------
+
+def _jax_parser_flags(name):
+    """The flags of one JAX subcommand, from its parser's help."""
+    from ray_tpu.scripts import cli as jax_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), pytest.raises(SystemExit):
+        jax_cli.main([name, "--help"])
+    return set(re.findall(r"(--[a-z][a-z-]*)", buf.getvalue())) - {"--help"}
+
+
+@pytest.mark.parametrize("name,cut", [("logs", set()), ("incidents", set()), ("slo", set()),
+                                      ("debug", set()), ("slices", set()),
+                                      ("profile", {"--duration", "--worker-id"})])
+def test_store_subcommands_take_the_jax_packages_flags(name, cut, capsys):
+    """``logs``, ``incidents``, ``slo``, ``debug``, ``slices`` and
+    ``profile`` take the JAX package's flags; ``profile`` lacks the two
+    of on-demand sampling, which needs the dashboard."""
+    with pytest.raises(SystemExit) as e:
+        cli.main([name, "--help"])
+    assert e.value.code == 0
+    ours = set(re.findall(r"(--[a-z][a-z-]*)", capsys.readouterr().out)) - {"--help"}
+    assert ours == _jax_parser_flags(name) - cut
+
+
+@pytest.fixture(scope="module")
+def store_head(private_tmp):
+    """An in-process port head whose stores hold only what the tests put
+    there: no continuous profiler, a watchdog that never ticks."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RAY_TPU_TORCH_CONT_PROFILE", "0")
+        mp.setenv("RAY_TPU_TORCH_WATCHDOG_S", "3600")
+        ray_tpu_torch.init(num_cpus=1)
+        try:
+            from ray_tpu_torch._private.worker import global_worker
+
+            node = global_worker.node
+            now = time.time()
+            node.profile_store.ingest("head", [{"ts": now, "ticks": 100.0, "busy_ticks": 60.0,
+                                                "folded": {"node.py:_handle": 40,
+                                                           "pickle.py:dumps": 20,
+                                                           "a.py:f|selectors.py:select": 40}}],
+                                      {"lateness_frac": 0.1, "interval_s": 2.0,
+                                       "period_s": 0.005}, now=now)
+            node.profile_store.ingest("w1", [{"ts": now - 120.0, "ticks": 50.0,
+                                              "busy_ticks": 50.0,
+                                              "folded": {"worker.py:_execute_task|u.py:g": 50}}],
+                                      {"interval_s": 2.0, "period_s": 0.005}, now=now)
+            node.log_store.ingest("node-x", [
+                (now, "worker-aa", "o", "job-0001", "t1", "", "", "alpha line"),
+                (now, "worker-aa", "e", "job-0001", "t2", "", "", "beta error"),
+                (now, "worker-bb", "W", "job-0002", "", "a9", "tr1", "gamma warning"),
+                (now, "job-x", "o", "x", "", "", "", "the job's own line")],
+                metas={"worker-aa": {"pid": 11}, "worker-bb": {"pid": 22}}, now=now)
+            node.log_store.retire("worker-bb")
+            node.watchdog.incidents.observe([
+                {"rule": "worker_stderr_at_death", "entity": "cluster", "severity": "ERROR",
+                 "summary": "1 worker(s) died", "remedy": "read its tail", "count": 1,
+                 "evidence": [{"entity_id": "aa"}]},
+                {"rule": "slo:p99", "entity": "p99", "severity": "WARNING",
+                 "summary": "SLO p99 burning", "remedy": "", "count": 2, "evidence": []}],
+                now=1000.0)
+            node.watchdog.incidents.ack("slo:p99--p99", now=1001.0)
+            node.add_node_state("s1-h0", {"CPU": 1.0}, slice_id="slice-1")
+            node.add_node_state("s1-h1", {"CPU": 1.0}, slice_id="slice-1")
+            with node.lock:
+                node.nodes["s1-h1"].alive = False
+            yield node
+        finally:
+            ray_tpu_torch.shutdown()
+
+
+def _jax_cli_over_the_port_head(monkeypatch):
+    """The JAX package's CLI, its state API reading the port head through
+    the port's client (the wire messages are the same)."""
+    from ray_tpu.experimental.state import api as jax_state
+    from ray_tpu.scripts import cli as jax_cli
+    from ray_tpu_torch.experimental.state import api as state
+
+    monkeypatch.setattr(jax_cli, "_connect", lambda: None)
+    monkeypatch.setattr(jax_state, "_client", state._client)
+    return jax_cli
+
+
+def _run(main, argv):
+    buf = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            main(list(argv))
+        except SystemExit as e:
+            code = e.code
+    return code, buf.getvalue()
+
+
+def _drop_ages(text):
+    """``profile list``'s rows with their push age (a clock reading) out."""
+    rows = json.loads(text)
+    return [{k: v for k, v in r.items() if k != "age_s"} for r in rows]
+
+
+@pytest.mark.parametrize("argv", [
+    ["logs"], ["logs", "worker-aa"], ["logs", "--errors"], ["logs", "--grep", "GAMMA"],
+    ["logs", "--job", "job-0001"], ["logs", "--actor", "a9"], ["logs", "--pid", "11"],
+    ["job-logs", "x"], ["list", "logs"], ["list", "incidents"], ["list", "slos"],
+    ["list", "slices"], ["incidents"], ["incidents", "--json"],
+    ["incidents", "--history", "worker_stderr_at_death--cluster"], ["slo"], ["slo", "--json"],
+    ["slices"], ["slices", "--json"], ["doctor", "--live", "--json"], ["profile", "list"],
+    ["profile", "--live"], ["profile", "--live", "--format", "json", "--origin", "w1"],
+    ["profile", "diff", "600", "60"], ["profile", "ledger"],
+    ["profile", "ledger", "--format", "json"]], ids=lambda a: "_".join(a).replace("-", ""))
+def test_store_commands_print_what_the_jax_cli_prints(store_head, monkeypatch, argv):
+    """Each command prints what the JAX package's prints, and exits with
+    its code, on the same head state."""
+    jax_cli = _jax_cli_over_the_port_head(monkeypatch)
+    for _ in range(3):  # a time-derived column may tick between the two reads
+        ours, ref = _run(cli.main, argv), _run(jax_cli.main, argv)
+        if argv[:2] == ["profile", "list"]:
+            ours, ref = (ours[0], _drop_ages(ours[1])), (ref[0], _drop_ages(ref[1]))
+        if ours == ref:
+            break
+    assert ours == ref
+    assert ours[1], argv
+
+
+def test_profile_without_a_mode_names_the_dashboard(store_head):
+    code, out = _run(cli.main, ["profile"])
+    assert code != 0 or "dashboard" in out
+    with pytest.raises(SystemExit, match="dashboard"):
+        cli.main(["profile"])
+
+
+def test_debug_dump_writes_under_the_session(store_head):
+    code, out = _run(cli.main, ["debug", "dump", "--label", "cli-dump"])
+    path = out.strip()
+    assert code == 0 and path == os.path.join(store_head.session_dir, "incidents", "cli-dump")
+    assert {"incident.json", "events.json", "memory.json", "logs", "tsdb"} <= set(
+        os.listdir(path))

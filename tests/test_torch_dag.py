@@ -336,6 +336,44 @@ def test_compiled_events_reach_the_heads_table(compiled_cluster):
         cg.teardown()
 
 
+def test_a_traced_request_after_idle_time_starts_at_the_request(compiled_cluster):
+    """A two-stage graph sits idle 0.6 s, then runs one traced request:
+    its stages' channel waits (a span where one lasts long enough) start
+    no earlier than the request entered the graph, so the trace's wall
+    stays within the request's own span (a 250 ms skew headroom, as in
+    the JAX package, let an idle stage's wait start that far before the
+    request: ROADMAP C11)."""
+    from ray_tpu_torch.experimental.state import api as state
+    from ray_tpu_torch.util import tracing
+    from ray_tpu_torch.util.trace_analysis import analyze
+
+    with InputNode() as inp:
+        dag = _Stage.bind(10).fwd.bind(_Stage.bind(1).fwd.bind(inp))
+    cg = dag.experimental_compile(max_inflight=2)
+    try:
+        assert cg.execute(0).get(timeout=60) == 11
+        time.sleep(0.6)
+        with tracing.trace("after-idle") as ctx:
+            assert cg.execute(1).get(timeout=60) == 12
+        deadline, trace = time.monotonic() + 30, None
+        while time.monotonic() < deadline:
+            trace = state.get_trace(ctx["trace_id"])
+            names = {s["name"] for s in (trace or {}).get("spans", ())}
+            if {"after-idle", "fwd:0", "fwd:1"} <= names:
+                break
+            time.sleep(0.2)
+        # a stage emits its wait before its exec span: both have arrived
+        spans = trace["spans"]
+        assert {"after-idle", "fwd:0", "fwd:1"} <= {s["name"] for s in spans}
+        root = next(s for s in spans if s["name"] == "after-idle")
+        early = [(s["name"], root["start"] - s["start"]) for s in spans
+                 if s["start"] < root["start"] - 0.01]
+        assert not early, early
+        assert analyze(trace)["wall_s"] <= root["end"] - root["start"] + 0.05
+    finally:
+        cg.teardown()
+
+
 def test_compiled_edges_are_shm_rings_under_the_ports_prefix(compiled_cluster):
     with InputNode() as inp:
         dag = _Stage.bind(10).fwd.bind(_Stage.bind(1).fwd.bind(inp))

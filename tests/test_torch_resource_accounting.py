@@ -341,6 +341,86 @@ def test_device_memory_gauges_of_card_share_actors_reach_top_and_the_tsdb(ra_clu
         rt.kill(a)
 
 
+def test_the_proc_sampler_forgets_a_vanished_pid():
+    """A pid that left the sampled set loses its CPU baseline, and the
+    tick that drops it does not raise (a raise there stopped every later
+    head sampler tick)."""
+    from ray_tpu_torch._private.resource_spec import ProcSampler, resource_metrics_snapshot
+
+    sampler = ProcSampler()
+    me = ({"entity": "head", "worker_id": "head", "node": "n"}, os.getpid())
+    gone = ({"entity": "worker", "worker_id": "w", "node": "n"}, os.getppid())
+    snap, raw = resource_metrics_snapshot(sampler, [me, gone])
+    assert len(raw) == 2 and set(sampler._prev) == {os.getpid(), os.getppid()}
+    snap, raw = resource_metrics_snapshot(sampler, [me])
+    assert [pid for _, pid, _ in raw] == [os.getpid()]
+    assert set(sampler._prev) == {os.getpid()}
+
+
+@rt.remote(num_gpus=0.5)
+class _PoolShare:
+    """One of a pool's half-card actors: each call publishes its device
+    memory, as a scoring actor on the card does."""
+
+    def score(self, x):
+        from ray_tpu_torch.util import perf
+
+        perf.publish_device_memory()
+        return x * 2
+
+    def wid(self):
+        return os.environ["RAY_TPU_TORCH_WORKER_ID"]
+
+
+C6_READS = 24
+
+
+def test_top_reads_right_after_a_pool_map_lack_no_field(ra_cluster):
+    """``top``'s first read once lacked a field of one of a pool's two
+    actors on the card.  Here a pool of two half-card actors at a 0.2 s
+    push maps, and ``top_snapshot()`` is read right after each of 24
+    maps; every read must hold both actors' RSS, CPU, worker row and
+    device-memory row.  A miss is reported with its field and the actor's
+    origin expiries.  Run after another test's actors died, this read
+    lacked both actors' RSS and CPU every time while the sampler's
+    ``forget_missing`` raised on a vanished pid (every tick after the
+    first worker death failed before it refreshed the head's rows)."""
+    from ray_tpu_torch.util import ActorPool
+
+    actors = [_PoolShare.remote() for _ in range(2)]
+    wids = rt.get([a.wid.remote() for a in actors], timeout=T)
+    pool = ActorPool(actors)
+    assert list(pool.map(lambda a, x: a.score.remote(x), range(8))) == [2 * i for i in range(8)]
+    time.sleep(2 * PUSH_S)
+
+    def misses():
+        top = state.top_snapshot()
+        rows = {w["worker_id"]: w for w in top["workers"]}
+        card_rows = {r["tags"].get("origin") for r in top["hbm"]}
+        out = {}
+        for w in wids:
+            lack = [f for f in ("rss_mb", "cpu_pct") if rows.get(w, {}).get(f) is None]
+            lack += [] if w in rows else ["worker_row"]
+            lack += [] if w in card_rows else ["card_row"]
+            if lack:
+                out[w] = lack
+        return out
+
+    record = []
+    for i in range(C6_READS):
+        got = list(pool.map(lambda a, x: a.score.remote(x), range(8)))
+        assert got == [2 * j for j in range(8)]
+        m = misses()
+        if m:
+            record.append((i, m))
+    expiries = {w: sum(1 for e in rt_events() if e["message"] == "metrics origin expired"
+                       and e.get("entity_id") == w) for w in wids}
+    for a in actors:
+        rt.kill(a)
+    assert not record, (f"{len(record)} of {C6_READS} reads lacked a field "
+                        f"(read, {{worker: fields}}): {record}; origin expiries {expiries}")
+
+
 @rt.remote
 class _Trainer:
     def run(self, steps):

@@ -249,7 +249,7 @@ def test_a_trace_shows_in_list_traces_and_get_trace(scenario):
     assert state.get_trace("no-such-trace") is None
 
 
-@pytest.mark.parametrize("what", ["slices", "tenants", "logs", "incidents", "slos"])
+@pytest.mark.parametrize("what", ["tenants"])
 def test_the_tables_that_are_cut_give_a_state_error(scenario, what):
     reply = global_worker.client.request({"type": "list_state", "what": what})
     assert "not kept by ray_tpu_torch" in reply["value"]["__state_error__"]
@@ -257,3 +257,58 @@ def test_the_tables_that_are_cut_give_a_state_error(scenario, what):
         state.list_state_page(what)
     with pytest.raises(ValueError, match="unknown summary table"):
         state.summarize_state(what)
+
+
+def _jax_state_over_the_port_head(monkeypatch):
+    """The JAX package's state API reading the port head through the
+    port's client (the wire messages are the same)."""
+    from ray_tpu.experimental.state import api as jax_state
+    from ray_tpu_torch.experimental.state import api as state_api
+
+    monkeypatch.setattr(jax_state, "_client", state_api._client)
+    return jax_state
+
+
+@pytest.mark.parametrize("call", [
+    ("list_slices",), ("list_logs",), ("list_incidents",), ("list_slos",),
+    ("get_log",), ("get_log", {"errors": True}), ("get_log", {"grep": "ZZ-NEEDLE"}),
+    ("tail_log", "__a_worker__"), ("list_profiles",), ("get_profile", {"window_s": 600.0}),
+    ("profile_diff", {"window_a": 600.0, "window_b": 60.0})],
+    ids=lambda c: "-".join([c[0]] + [k for k in (c[1] if len(c) > 1 and isinstance(c[1], dict)
+                                                 else {})]))
+def test_the_store_reads_answer_as_the_jax_state_api_does(scenario, monkeypatch, call):
+    """Each read of the stores the head now keeps (slices, logs,
+    incidents, SLOs, profiles) answers rows, and the same rows as the
+    JAX package's state API reading the same head."""
+    from ray_tpu_torch.experimental.state import api as state
+
+    jax_state = _jax_state_over_the_port_head(monkeypatch)
+    name, *rest = call
+    args, kwargs = [], {}
+    for r in rest:
+        if isinstance(r, dict):
+            kwargs = r
+        elif r == "__a_worker__":
+            args = [next(row["stream"] for row in state.list_logs()
+                         if row["stream"].startswith("worker-"))]
+    if name == "get_log":
+        @ray_tpu_torch.remote
+        def speak():
+            import sys
+
+            print("ZZ-NEEDLE out")
+            print("ZZ-NEEDLE err", file=sys.stderr)
+
+        ray_tpu_torch.get(speak.remote(), timeout=T)
+        _until(lambda: len(state.get_log(grep="ZZ-NEEDLE")["records"]) >= 2, "the needle")
+    for _ in range(3):  # a store may take a record between the two reads
+        ours = getattr(state, name)(*args, **kwargs)
+        ref = getattr(jax_state, name)(*args, **kwargs)
+        if name == "list_profiles":
+            ours, ref = ([{k: v for k, v in r.items() if k != "age_s"} for r in x]
+                         for x in (ours, ref))
+        if ours == ref:
+            break
+    assert ours == ref
+    if name in ("list_logs", "list_slos", "get_log", "tail_log", "list_profiles"):
+        assert ours
