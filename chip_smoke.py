@@ -289,8 +289,9 @@ the backward kernels):
     trace trees, the collapsed profile and the memory audit; ``incidents``
     lists it, ``incidents --ack`` acknowledges it, after ``remove_slo`` it
     resolves within its resolve ticks, and the sink's file shows open, ack
-    and resolve in that order; no ``rss_growth`` incident opens after the
-    stages are ready; ``logs --actor`` returns every marker line
+    and resolve in that order; no ``rss_growth`` and no
+    ``log_error_burst`` incident opens at any point, the stages' start-up
+    included; ``logs --actor`` returns every marker line
     of stage 1, which, SIGKILL'd, keeps its last marker readable from the
     head (``tail_log``) with its stream ``retired``; the node removed, no
     ``"GPU"`` is left.  Prints each origin's class shares of its busy
@@ -302,7 +303,10 @@ the backward kernels):
     three pairs of 2.5 s blocks in the second with the head's and the
     stages' profilers stopped and restarted in turn), the trace's phases
     and critical path, the other incidents with when they opened, the
-    watchdog's tick cost.
+    watchdog's tick cost, and each stage's RSS from its constructor's end
+    through the run: its growth to its peak and the seconds until it came
+    within the ``rss_growth`` rule's 64 MB of it (the head's warm-up,
+    ``Node.WORKER_WARMUP_S``, stands against this reading).
 35. ``operator_job_gpt2`` (after 34, with no head in this process): the
     operator plane.  ``autoscaler.commands.up`` with the local runner
     starts ``python -m ray_tpu_torch start --head`` (2 CPUs, no card) and
@@ -324,13 +328,41 @@ the backward kernels):
     registration, submit to RUNNING and to SUCCEEDED, ``job-stop`` to the
     grant freed, ``down`` to every process gone, and the card's name and
     power limit.
+36. ``durable_job_gpt2`` (after 35): runtime envs, GCS persistence, the
+    usage report and workflows, GPT-2 125M bf16 (seed 0) on a head in this
+    process started with ``_gcs_persistence_path``.  (a) A job submitted
+    with a ``working_dir`` (its driver, its args and a 50 MB file its
+    ``excludes`` leave out) and one ``py_modules`` package: its
+    ``num_gpus=1`` actor, in the same packages, generates 35's 8 x 32
+    greedy tokens; SUCCEEDED, the streams equal an engine's here, 12
+    ``flash_fwd`` launches all on the tensor cores, the driver's and the
+    actor's cwd the extracted package without the excluded file, the same
+    tree submitted again adds no ``pkg`` entry to the KV, no live pin left
+    once the jobs end.  (b) A ``num_gpus=1`` task with a ``pip`` env (a
+    wheel built offline with ``--no-index``) imports it and torch from its
+    venv and runs one forward of 2 x 64 ids: its logits equal this
+    process's within 1e-3; a second (CPU) task hits the venv's cache.  (c) A
+    workflow (``wf_generate``, ``wf_score`` on the card, ``wf_finalize``
+    failing once) ends FAILED; a second head over the same SQLite file
+    replays the job's KV key, every actor DEAD ("head restarted" for one
+    still alive at the shutdown), the finished tasks FINISHED;
+    ``workflow.resume`` runs only the last step and equals an
+    uninterrupted run of the same DAG on that head.  (d) Each head's
+    ``usage_report.json`` lists ``workflow`` and counts at least the tasks
+    the phase submitted to it, counted here (the second head's past the
+    tasks it replayed; the replayed usage flags are cleared at its start,
+    so its ``workflow`` is its own record).  Prints the upload's bytes and seconds, submit to SUCCEEDED,
+    the venv's build and cache hit, the replay's seconds, the resume's
+    wall against the first run's, the launches, the phase's wall, and the
+    card's name and power limit.
 
 Every bf16 launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 on the serving and training paths has to run the tensor-core design
 (their ``_tc`` launch counts equal their totals; the profiled steps find
 only the ``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
 summed over the serving, training, Tune, RL, Data, Serve, graph,
-util-pool, multi-node pipeline, watched pipeline and operator-job runs, and per run), the card's name
+util-pool, multi-node pipeline, watched pipeline, operator-job and durable-job
+runs, and per run), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": {...}}``.  Exits non-zero,
 printing no result, when there is no CUDA device or any phase fails.
@@ -4557,6 +4589,33 @@ def _stage_ident(instance):
     return os.environ["RAY_TPU_TORCH_WORKER_ID"], os.getpid()
 
 
+def _rss_trace(pids, stop, trace):
+    """Append ``(s, [VmRSS MB of each of pids])`` to ``trace`` every 0.1 s
+    until ``stop`` is set."""
+    t0 = time.monotonic()
+    while not stop.is_set():
+        row = []
+        for pid in pids:
+            with open(f"/proc/{pid}/status") as f:
+                row.append(next(int(ln.split()[1]) for ln in f if ln.startswith("VmRSS:")) / 1024)
+        trace.append((time.monotonic() - t0, row))
+        stop.wait(0.1)
+
+
+def _rss_settle(trace, i, within_mb):
+    """Process ``i`` of an ``_rss_trace``: its RSS at the start, its growth
+    to its peak, the seconds from the start until it came within
+    ``within_mb`` of that peak, and its growth over the start at each
+    whole second."""
+    peak = max(r[i] for _, r in trace)
+    by_s = {}
+    for t, r in trace:
+        by_s.setdefault(int(t), r[i] - trace[0][1][i])
+    return {"rss_at_start_mb": trace[0][1][i], "growth_to_peak_mb": peak - trace[0][1][i],
+            "s_to_within_floor_of_peak": next(t for t, r in trace if r[i] >= peak - within_mb),
+            "growth_mb_by_s": list(by_s.values())}
+
+
 def _watch_wait(cond, timeout, what):
     deadline = time.monotonic() + timeout
     while True:
@@ -4641,6 +4700,7 @@ def _watch_run(cfg, mbs, device, watch_s, gated):
     from ray_tpu_torch.parallel.pipeline import MicrobatchPipeline
     from ray_tpu_torch.util import incidents, tracing
     from ray_tpu_torch.util.scheduling_strategies import NodeAffinitySchedulingStrategy
+    from ray_tpu_torch.util.doctor import RSS_GROWTH_MIN_MB
     from ray_tpu_torch.util.trace_analysis import analyze
 
     phase, half, row = "watch_pipeline_gpt2", cfg.n_layers // 2, {}
@@ -4662,6 +4722,12 @@ def _watch_run(cfg, mbs, device, watch_s, gated):
         idents = rt.get([a._submit_compiled_task(_stage_ident, (), name="ident")
                          for a in pipe.actors], timeout=120)
         wids = [w for w, _ in idents]
+        # the stages' RSS from their constructors' end (the start of the
+        # head's warm-up, Node.WORKER_WARMUP_S) through the timed run
+        rss_stop, rss = threading.Event(), []
+        rss_thread = threading.Thread(target=_rss_trace, args=([p for _, p in idents],
+                                                              rss_stop, rss), daemon=True)
+        rss_thread.start()
         pipe.run(mbs[:1], timeout=600)  # the stages' first calls
         row["stages_ready_s"] = time.perf_counter() - t0
         ready_ts = time.time()
@@ -4677,9 +4743,16 @@ def _watch_run(cfg, mbs, device, watch_s, gated):
             walls.append(time.perf_counter() - t1)
             outs0 = outs if outs0 is None else outs0
         run_s = time.perf_counter() - t_run
+        rss_stop.set()
+        rss_thread.join()
         launches = actor_launches(rt, pipe.actors)
+        # the doctor's rss_growth needs RSS_GROWTH_MIN_MB of growth: a
+        # stage within that of its peak no longer reads as a leak
         row.update(reps=len(walls), run_s=run_s, rep_wall_ms=[w * 1e3 for w in walls],
-                   rep_wall_ms_p50=pct([w * 1e3 for w in walls], 0.5))
+                   rep_wall_ms_p50=pct([w * 1e3 for w in walls], 0.5),
+                   stage_rss_after_constructor=[_rss_settle(rss, i, RSS_GROWTH_MIN_MB)
+                                                for i in range(len(idents))],
+                   stage_rss_trace_s=rss[-1][0])
         if not gated:
             return walls, outs0, launches, row
 
@@ -4815,11 +4888,16 @@ def _watch_run(cfg, mbs, device, watch_s, gated):
         transitions = _watch_wait(sunk, 15, "the sink's resolve line")
         check(transitions == ["open", "ack", "resolve"],
               f"{phase}: the sink saw {transitions}, want open, ack, resolve")
-        # the stages hold their RSS once ready: no leak incident opens after
-        late = [(i["id"], h["transition"], h["ts"] - ready_ts) for i in state.list_incidents()
-                if i["id"].startswith("rss_growth") for h in i["history"]
-                if h["transition"] in ("open", "reopen") and h["ts"] > ready_ts]
-        check(not late, f"{phase}: rss_growth opened after the stages were ready: {late}")
+        # a healthy pipeline opens no leak and no error burst at any point,
+        # its stages' start-up included: a worker's RSS history starts at
+        # its constructor's end (C12), and stage 1's stderr markers carry
+        # no error marker (C13)
+        unhealthy = [(i["id"], h["transition"], round(h["ts"] - ready_ts, 3))
+                     for i in state.list_incidents()
+                     if i["id"].startswith(("rss_growth", "log_error_burst"))
+                     for h in i["history"] if h["transition"] in ("open", "reopen")]
+        check(not unhealthy, f"{phase}: incidents opened (s after the stages were ready): "
+                             f"{unhealthy}")
         row.update(stage_rss_mb=rss, slo_open_s=open_s, slo_resolve_s=resolve_s,
                    bundle_files=bundle, bundle_log_files=len(os.listdir(
                        os.path.join(opened["bundle_dir"], "logs"))),
@@ -5264,6 +5342,502 @@ def phase_operator_job_gpt2():
     return launches
 
 
+# durable_job_gpt2: operator_job_gpt2's prompts and engine; a working_dir
+# with a 50 MB file its excludes leave out; the pip task's forward of 2 x
+# 64 ids (numpy default_rng(1), [1, 50000)); seconds for each job
+DJ_EXCLUDED_MB, DJ_PIP_SHAPE, DJ_JOB_S = 50, (2, 64), 600
+# the pip task's logits against this process's, the workflow's NLLs
+# against the uninterrupted run's
+DJ_LOGITS_TOL, DJ_NLL_TOL = 1e-3, 1e-4
+DJ_NS = "durable_job_gpt2"  # the KV namespace the job writes its streams to
+
+# The job's driver, ``python3 driver.py`` in its extracted working_dir: it
+# imports its py_modules helper, joins through RAY_TPU_TORCH_ADDRESS, and
+# starts a num_gpus=1 actor in the same two packages (their gcs:// URIs in
+# DJ_ACTOR_ENV), which builds GPT-2 125M's engine on its card, zeroes its
+# launch counts, generates, reads them; the driver writes the streams to
+# the head's KV and prints one DURABLE_RESULT line.
+DURABLE_DRIVER = r'''
+import json, os, time
+
+import dj_helper
+import ray_tpu_torch as rt
+from ray_tpu_torch._private.worker import global_worker
+
+args = dj_helper.load_args("args.json")
+rt.init()
+
+
+@rt.remote(num_gpus=1)
+class Generator:
+    def run(self, prompts, new_tokens, engine):
+        import dj_helper  # from the actor's own py_modules package
+        import torch
+        from ray_tpu_torch.ops import _build
+        from ray_tpu_torch.ops import attention as attn
+        from ray_tpu_torch.serve.llm import GenerationEngine, make_config
+
+        eng = GenerationEngine(make_config("gpt2", "125m"), seed=0, device="cuda",
+                               **dict(engine, prefill_buckets=tuple(engine["prefill_buckets"])))
+        futs = [eng.submit(p, new_tokens) for p in prompts]
+        _build.reset_launches()
+        eng.start()
+        try:
+            streams = [f.result(timeout=600) for f in futs]
+        finally:
+            eng.stop()
+        launches = dict(_build.launches)
+        return {"streams": streams, "cwd": os.getcwd(), "files": dj_helper.listing("."),
+                "pid": os.getpid(), "flash_fwd": launches.get(attn.KERNEL, 0),
+                "flash_fwd_tc": launches.get(attn.FWD_TC, 0)}
+
+
+actor = Generator.options(runtime_env=json.loads(os.environ["DJ_ACTOR_ENV"])).remote()
+out = rt.get(actor.run.remote(args["prompts"], args["new_tokens"], args["engine"]), timeout=600)
+global_worker.client.kv_put(args["kv_ns"], b"streams", json.dumps(out["streams"]).encode())
+print("DURABLE_RESULT " + json.dumps(dict(out, driver_cwd=os.getcwd(),
+                                          driver_files=dj_helper.listing("."))), flush=True)
+'''
+
+DJ_HELPER = '''import json
+import os
+
+
+def load_args(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def listing(path):
+    """The package's files, less the cache's .ready and .pin-<pid> marks."""
+    return sorted(f for f in os.listdir(path) if not f.startswith("."))
+'''
+
+
+def _dj_gpt2():
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve.llm import make_config
+
+    cfg = make_config("gpt2", "125m")
+    return cfg, gpt2.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+
+
+def _gpt2_logits(tokens):
+    """GPT-2 125M bf16 (seed 0) logits of ``tokens`` on the card, f32 on
+    the host, with the flash launches (all, on the tensor cores) they
+    took."""
+    from ray_tpu_torch.models import gpt2
+
+    cfg, params = _dj_gpt2()
+    build.reset_launches()
+    with torch.inference_mode():
+        logits = gpt2.apply(params, torch.as_tensor(tokens, device="cuda"), cfg).cpu()
+    return logits, {attn.KERNEL: build.launches.get(attn.KERNEL, 0),
+                    attn.FWD_TC: build.launches.get(attn.FWD_TC, 0)}
+
+
+def wf_generate(prompts):
+    """Workflow step 1: the greedy streams of ``OP_ENGINE`` on the card."""
+    from ray_tpu_torch.serve.llm import GenerationEngine, make_config
+
+    eng = GenerationEngine(make_config("gpt2", "125m"), seed=0, device="cuda", **OP_ENGINE)
+    futs = [eng.submit(p, OP_NEW_TOKENS) for p in prompts]
+    build.reset_launches()
+    eng.start()
+    try:
+        streams = [f.result(timeout=600) for f in futs]
+    finally:
+        eng.stop()
+    return {"streams": streams, "flash_fwd": build.launches.get(attn.KERNEL, 0),
+            "flash_fwd_tc": build.launches.get(attn.FWD_TC, 0)}
+
+
+def wf_score(generated, prompts):
+    """Workflow step 2: each stream's mean next-token NLL under GPT-2 125M
+    (seed 0), its prompt as context."""
+    from ray_tpu_torch.models import gpt2
+
+    cfg, params = _dj_gpt2()
+    build.reset_launches()
+    nll = []
+    with torch.inference_mode():
+        for p, s in zip(prompts, generated["streams"]):
+            ids = torch.tensor([p + s], device="cuda")
+            per_token = token_nll(gpt2.apply(params, ids[:, :-1], cfg), ids[:, 1:])
+            nll.append(per_token[0, len(p) - 1:].mean().item())
+    return {"nll": nll, "flash_fwd": build.launches.get(attn.KERNEL, 0),
+            "flash_fwd_tc": build.launches.get(attn.FWD_TC, 0)}
+
+
+def wf_finalize(generated, scored, marker):
+    """Workflow step 3: fails on its first attempt only (it removes
+    ``marker`` and raises), then returns the streams and their NLLs."""
+    if os.path.exists(marker):
+        os.unlink(marker)
+        raise RuntimeError("transient failure of the last step")
+    return {"streams": generated["streams"], "nll": scored["nll"]}
+
+
+def _pkg_entries(node):
+    from ray_tpu_torch._private.runtime_env_packaging import PKG_KV_NAMESPACE
+
+    return sorted(k for k in node.gcs.kv_keys(PKG_KV_NAMESPACE) if not k.endswith(b".meta"))
+
+
+def _offline_wheel(root):
+    """A tiny wheel built offline, as ``tests/test_torch_runtime_env.py``
+    builds it: the package ``rtpt_smoke_pkg`` is in no base environment."""
+    src, wheels = os.path.join(root, "pkg_src"), os.path.join(root, "wheels")
+    os.makedirs(os.path.join(src, "rtpt_smoke_pkg"))
+    with open(os.path.join(src, "rtpt_smoke_pkg", "__init__.py"), "w") as f:
+        f.write("MAGIC = 42\n")
+    with open(os.path.join(src, "pyproject.toml"), "w") as f:
+        f.write('[build-system]\nrequires = ["setuptools"]\n'
+                'build-backend = "setuptools.build_meta"\n'
+                '[project]\nname = "rtpt-smoke-pkg"\nversion = "1.0"\n')
+    subprocess.run([sys.executable, "-m", "pip", "wheel", "--no-deps", "--no-index",
+                    "--no-build-isolation", "-w", wheels, src],
+                   check=True, capture_output=True, timeout=300)
+    return {"pip": {"packages": ["rtpt-smoke-pkg"],
+                    "pip_install_options": ["--no-index", "--find-links", wheels]}}
+
+
+def _pip_probe():
+    """What a pip env's worker imports: the wheel's package from its venv,
+    and torch through the head's ``PYTHONPATH``."""
+    import rtpt_smoke_pkg
+
+    return {"magic": rtpt_smoke_pkg.MAGIC, "prefix": sys.prefix, "torch": torch.__version__}
+
+
+def _pip_forward(tokens):
+    """The pip env's card task: ``_pip_probe``, and GPT-2 125M's forward
+    on its card."""
+    logits, launches = _gpt2_logits(tokens)
+    return dict(_pip_probe(), logits=logits, launches=launches)
+
+
+def _dj_wait(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"durable_job_gpt2: timed out waiting for {what}")
+        time.sleep(0.1)
+
+
+def _tasks_named(state, *names):
+    return {n: dict(state.summarize_tasks().get(n, {})) for n in names}
+
+
+def phase_durable_job_gpt2():
+    """Runtime envs, GCS persistence, the usage report and durable
+    workflows on the card, GPT-2 125M bf16 (seed 0) at full width.  A head
+    in this process started with ``_gcs_persistence_path`` (a SQLite
+    file):
+    (a) ``JobSubmissionClient`` submits ``DURABLE_DRIVER`` with a
+    ``working_dir`` (the driver, its args, a ``DJ_EXCLUDED_MB`` MB file the
+    ``excludes`` leave out) and one ``py_modules`` package (``dj_helper``);
+    its ``num_gpus=1`` actor, in the same packages, generates
+    ``OP_NEW_TOKENS`` greedy tokens for each of ``OP_PROMPTS`` prompts.
+    Gates: SUCCEEDED; the streams equal an engine's of the same settings
+    here; 12 ``flash_fwd`` launches, all on the tensor cores; the driver's
+    and the actor's cwd is the extracted package under the head's cache,
+    without the excluded file; submitting the same tree again adds no
+    ``pkg`` entry to the KV; no live pin is left on either package once
+    the jobs end.
+    (b) a ``num_gpus=1`` task with ``runtime_env={"pip": ...}`` (a wheel
+    built offline) imports that package and torch from its venv and runs
+    one forward: its logits equal this process's within
+    ``DJ_LOGITS_TOL``; a second pip task (on the CPU, in another env of
+    the same spec) hits the venv's cache.
+    (c) a workflow of three steps, ``wf_generate`` and ``wf_score``
+    (``num_gpus=1``) and ``wf_finalize`` (fails once, through a marker
+    file), ends FAILED; the head shuts down (its usage report written)
+    and a second head starts over the same SQLite file.  Gates: the job's
+    KV key is back, every first-head actor is DEAD (a live one "head
+    restarted"), its finished tasks FINISHED; ``workflow.resume`` runs
+    only the last step (no new ``wf_generate``/``wf_score`` task in the
+    state API) and its output equals an uninterrupted ``workflow.run`` of
+    the same DAG on this head, whose streams equal (a)'s reference.
+    (d) each head's ``usage_report.json`` lists ``workflow`` and counts at
+    least the tasks the phase submitted to it (the second head's past the
+    tasks it replayed; the replayed usage flags, ``workflow`` among them,
+    are cleared at its start, so its features are its own).  Prints the upload bytes and seconds, submit
+    to SUCCEEDED, the venv's build and cache hit, the replay's seconds,
+    the resume's wall against the first run's, the launch counts.
+    Returns the launches of every card process of the phase."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch._private import runtime_env_packaging as pkg
+    from ray_tpu_torch._private import runtime_env_setup as renv
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.experimental import state
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+    from ray_tpu_torch.serve.llm import GenerationEngine, make_config
+    from ray_tpu_torch.workflow.api import WorkflowStorage
+
+    phase = "durable_job_gpt2"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 50000, rng.integers(16, 100)).tolist() for _ in range(OP_PROMPTS)]
+    pip_tokens = np.random.default_rng(1).integers(1, 50000, DJ_PIP_SHAPE).tolist()
+    cfg = make_config("gpt2", "125m")
+    ref = GenerationEngine(cfg, seed=0, device="cuda", **OP_ENGINE)
+    futs = [ref.submit(p, OP_NEW_TOKENS) for p in prompts]
+    ref.start()
+    try:
+        want = [f.result(timeout=600) for f in futs]
+    finally:
+        ref.stop()
+    del ref
+    want_logits, _ = _gpt2_logits(pip_tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {attn.KERNEL: 0, attn.FWD_TC: 0}
+
+    def count(row):
+        launches[attn.KERNEL] += row["flash_fwd"]
+        launches[attn.FWD_TC] += row["flash_fwd_tc"]
+
+    row = {}
+    with tempfile.TemporaryDirectory(prefix="durable_job_") as tmp:
+        db = os.path.join(tmp, "gcs.db")
+        os.environ["RAY_TPU_TORCH_WORKFLOW_STORAGE"] = os.path.join(tmp, "workflows")
+        wd, mods = os.path.join(tmp, "job"), os.path.join(tmp, "modules", "dj_helper")
+        os.makedirs(wd)
+        os.makedirs(mods)
+        with open(os.path.join(wd, "driver.py"), "w") as f:
+            f.write(DURABLE_DRIVER)
+        with open(os.path.join(wd, "args.json"), "w") as f:
+            json.dump({"prompts": prompts, "new_tokens": OP_NEW_TOKENS, "engine": OP_ENGINE,
+                       "kv_ns": DJ_NS}, f)
+        with open(os.path.join(wd, "weights.bin"), "wb") as f:
+            f.write(os.urandom(DJ_EXCLUDED_MB << 20))
+        with open(os.path.join(mods, "__init__.py"), "w") as f:
+            f.write(DJ_HELPER)
+        job_env = {"working_dir": wd, "py_modules": [mods], "excludes": ["weights.bin"]}
+        marker = os.path.join(tmp, "fail-once")
+        try:
+            # -- (a) a job with shipped code, on a persisting head
+            rt.init(num_cpus=4, _gcs_persistence_path=db)
+            node = global_worker.node
+            head1_dir = node.session_dir
+            client = JobSubmissionClient()
+            t0 = time.perf_counter()
+            uris = pkg.prepare_runtime_env(job_env, global_worker.client)
+            upload_s = time.perf_counter() - t0
+            actor_env = {k: uris[k] for k in ("working_dir", "py_modules", "excludes")}
+            t0 = time.perf_counter()
+            job = client.submit_job(
+                entrypoint=f"{sys.executable} driver.py",
+                runtime_env=dict(job_env, env_vars={"DJ_ACTOR_ENV": json.dumps(actor_env)}),
+                metadata={"phase": phase})
+            status = client.wait_until_finish(job, timeout=DJ_JOB_S, poll_s=0.1)
+            job_s = time.perf_counter() - t0
+            result = _job_line(client, job, "DURABLE_RESULT")
+            check(status == "SUCCEEDED" and result is not None,
+                  f"{phase}: job {status}; its log:\n{client.get_job_logs(job)[-4000:]}")
+            check(result["streams"] == want,
+                  f"{phase}: the job's greedy streams differ from the in-process engine's")
+            count(result)
+            check(result["flash_fwd"] == cfg.n_layers, f"{phase}: the job's actor launched "
+                  f"flash_fwd {result['flash_fwd']} times, want {cfg.n_layers}")
+            wd_dir = os.path.join(pkg.default_base_dir(),
+                                  uris["working_dir"][len(pkg.PKG_URI_PREFIX):-len(".zip")])
+            mod_dir = os.path.join(pkg.default_base_dir(),
+                                   uris["py_modules"][0][len(pkg.PKG_URI_PREFIX):-len(".zip")])
+            shipped = ["args.json", "driver.py"]
+            check(result["cwd"] == result["driver_cwd"] == wd_dir
+                  and result["files"] == result["driver_files"] == shipped,
+                  f"{phase}: the actor ran in {result['cwd']} holding {result['files']}, the "
+                  f"driver in {result['driver_cwd']}; want {wd_dir} holding {shipped}")
+            # the uploads' puts are in the head's KV: the job's driver ran in both
+            entries = _pkg_entries(node)
+            upload_bytes = {k.decode(): len(node.gcs.kv_get(pkg.PKG_KV_NAMESPACE, k))
+                            for k in entries}
+            check(len(entries) == 2, f"{phase}: the KV holds packages {entries}, want 2")
+            again = client.submit_job(entrypoint="true", runtime_env=job_env)
+            check(client.wait_until_finish(again, timeout=60, poll_s=0.1) == "SUCCEEDED",
+                  f"{phase}: the resubmitted tree's job failed: {client.get_job_logs(again)}")
+            check(_pkg_entries(node) == entries,
+                  f"{phase}: resubmitting the tree left packages {_pkg_entries(node)}")
+            t0 = time.perf_counter()
+            _dj_wait(lambda: not any(pkg._is_pinned(d) for d in (wd_dir, mod_dir)), 60,
+                     "the jobs' pins to drop")
+            pins_s = time.perf_counter() - t0
+            left = [f for d in (wd_dir, mod_dir) for f in os.listdir(d) if f.startswith(".pin-")]
+            check(not left, f"{phase}: pins left after the jobs ended: {left}")
+            row.update(upload_bytes=upload_bytes, upload_s=upload_s, submit_to_succeeded_s=job_s,
+                       package_dir=wd_dir, package_files=result["files"],
+                       excluded_mb=DJ_EXCLUDED_MB, pins_dropped_s=pins_s)
+
+            # -- (b) a pip env's task on the card
+            t0 = time.perf_counter()
+            pip_env = _offline_wheel(tmp)
+            wheel_s = time.perf_counter() - t0
+            env_dir = os.path.join(renv.default_base_dir(), f"pip-{renv.pip_env_key(pip_env['pip'])}")
+            pip_task = rt.remote(num_gpus=1, runtime_env=pip_env)(_pip_forward)
+            t0 = time.perf_counter()
+            first = rt.get(pip_task.remote(pip_tokens), timeout=DJ_JOB_S)
+            first_s = time.perf_counter() - t0
+            build_s = (os.path.getmtime(os.path.join(env_dir, ".ready"))
+                       - os.path.getmtime(os.path.join(env_dir, "pyvenv.cfg")))
+            # the same pip spec in another env (so another worker): the
+            # venv's cache serves it
+            hit = rt.remote(num_cpus=1, runtime_env=dict(pip_env, env_vars={"DJ_HIT": "1"}))(
+                _pip_probe)
+            ready_mtime = os.path.getmtime(os.path.join(env_dir, ".ready"))
+            t0 = time.perf_counter()
+            second = rt.get(hit.remote(), timeout=DJ_JOB_S)
+            hit_s = time.perf_counter() - t0
+            for out in (first, second):
+                check(out["magic"] == 42 and out["prefix"] == env_dir,
+                      f"{phase}: the pip task ran in {out['prefix']} (magic {out['magic']}), "
+                      f"want {env_dir}")
+            err = (first["logits"] - want_logits).abs().max().item()
+            count({"flash_fwd": first["launches"][attn.KERNEL],
+                   "flash_fwd_tc": first["launches"][attn.FWD_TC]})
+            check(first["launches"][attn.KERNEL] == cfg.n_layers,
+                  f"{phase}: the pip task launched flash_fwd {first['launches']}")
+            check(err <= DJ_LOGITS_TOL,
+                  f"{phase}: the pip task's logits differ by {err} > {DJ_LOGITS_TOL}")
+            check(os.path.getmtime(os.path.join(env_dir, ".ready")) == ready_mtime,
+                  f"{phase}: the second pip task rebuilt the venv")
+            row.update(wheel_build_s=wheel_s, pip_first_task_s=first_s, venv_build_s=build_s,
+                       pip_cache_hit_task_s=hit_s, pip_logits_max_abs_err=err,
+                       pip_logits_bitwise_equal=bool(torch.equal(first["logits"], want_logits)),
+                       pip_torch=first["torch"], venv=env_dir)
+
+            # -- (c) a workflow that fails on its last step, then a head restart
+            steps = {f.__name__: rt.remote(num_gpus=1)(f) for f in (wf_generate, wf_score)}
+            steps["wf_finalize"] = rt.remote(num_cpus=1)(wf_finalize)
+            gen_node = steps["wf_generate"].bind(prompts)
+            dag = steps["wf_finalize"].bind(gen_node, steps["wf_score"].bind(gen_node, prompts),
+                                            marker)
+            with open(marker, "w") as f:
+                f.write("arm")
+
+            @rt.remote(num_cpus=0)
+            class Keeper:
+                def ping(self):
+                    return os.getpid()
+
+            keeper = Keeper.remote()
+            rt.get(keeper.ping.remote(), timeout=60)
+            t0 = time.perf_counter()
+            try:
+                workflow.run(dag, workflow_id="durable-gpt2")
+                failed = None
+            except Exception as e:  # noqa: BLE001 — the step's designed failure
+                failed = str(e).strip().splitlines()[-1]
+            first_run_s = time.perf_counter() - t0
+            check(failed is not None and workflow.get_status("durable-gpt2") == "FAILED",
+                  f"{phase}: the first run ended {workflow.get_status('durable-gpt2')} ({failed})")
+            with node.gcs.lock:
+                finished = {t.task_id: t.name for t in node.gcs.tasks.values()
+                            if t.state == "FINISHED"}
+            # the tasks the phase submitted to the first head: the job's
+            # actor's run, the two pip tasks, the keeper's ping, the three
+            # steps of the first run
+            head1_tasks = 1 + 2 + 1 + 3
+            rt.shutdown()
+            with open(os.path.join(head1_dir, "usage_report.json")) as f:
+                usage1 = json.load(f)
+
+            t0 = time.perf_counter()
+            rt.init(num_cpus=4, _gcs_persistence_path=db)
+            init_s = time.perf_counter() - t0
+            node = global_worker.node
+            head2_dir = node.session_dir
+            check(node.gcs.kv_get(DJ_NS, b"streams") == json.dumps(want).encode(),
+                  f"{phase}: the job's KV key did not come back")
+            # the replay brings the first head's tasks and its workers'
+            # usage flags back, so the second head's report would hold
+            # them too: its tasks are counted past the replayed ones, and
+            # the replayed flags go, so its features are its own
+            replayed_tasks = len(node.gcs.tasks)
+            replayed_usage = sorted(k.decode() for k in node.gcs.kv_keys("usage"))
+            check("workflow" in replayed_usage,
+                  f"{phase}: the replayed usage flags {replayed_usage} lack workflow")
+            for k in list(node.gcs.kv_keys("usage")):
+                node.gcs.kv_del("usage", k)
+            actors = list(node.gcs.actors.values())
+            check(actors and all(a.state == "DEAD" for a in actors)
+                  and [a.death_cause for a in actors if a.class_name == "Keeper"]
+                  == ["head restarted"],
+                  f"{phase}: replayed actors {[(a.class_name, a.state, a.death_cause) for a in actors]}")
+            replayed = {tid: t.state for tid, t in node.gcs.tasks.items() if tid in finished}
+            check(replayed == {tid: "FINISHED" for tid in finished},
+                  f"{phase}: {len(replayed)} of {len(finished)} finished tasks replayed, states "
+                  f"{sorted(set(replayed.values()))}")
+            before = _tasks_named(state, "wf_generate", "wf_score", "wf_finalize")
+            t0 = time.perf_counter()
+            resumed = workflow.resume("durable-gpt2")
+            resume_s = time.perf_counter() - t0
+            after = _tasks_named(state, "wf_generate", "wf_score", "wf_finalize")
+            check(after["wf_generate"] == before["wf_generate"]
+                  and after["wf_score"] == before["wf_score"]
+                  and after["wf_finalize"].get("FINISHED", 0)
+                  == before["wf_finalize"].get("FINISHED", 0) + 1,
+                  f"{phase}: tasks before the resume {before}, after {after}")
+            check(workflow.get_status("durable-gpt2") == "SUCCEEDED",
+                  f"{phase}: the resumed workflow is {workflow.get_status('durable-gpt2')}")
+            t0 = time.perf_counter()
+            whole = workflow.run(dag, workflow_id="durable-gpt2-whole")
+            whole_s = time.perf_counter() - t0
+            check(resumed["streams"] == whole["streams"] == want,
+                  f"{phase}: the resumed streams differ from the uninterrupted run's or (a)'s")
+            nll_err = max(abs(a - b) for a, b in zip(resumed["nll"], whole["nll"]))
+            check(nll_err <= DJ_NLL_TOL,
+                  f"{phase}: the resumed NLLs differ from the uninterrupted run's by {nll_err}")
+            # each card step ran once a workflow; its checkpoint holds the
+            # launches counted in its worker
+            for wid in ("durable-gpt2", "durable-gpt2-whole"):
+                store = WorkflowStorage(wid)
+                for sid in sorted(store.load_step_metas()):
+                    if sid.endswith(("-wf_generate", "-wf_score")):
+                        out = store.load_step(sid)
+                        want_n = cfg.n_layers * (1 if sid.endswith("generate") else OP_PROMPTS)
+                        check(out["flash_fwd"] == want_n, f"{phase}: step {sid} of {wid} "
+                              f"launched flash_fwd {out['flash_fwd']} times, want {want_n}")
+                        count(out)
+            # the tasks the phase submitted to the second head: the
+            # resumed last step, the uninterrupted run's three
+            head2_tasks = 1 + 3
+            replay_s = node.gcs_replay_s
+            rt.shutdown()
+            with open(os.path.join(head2_dir, "usage_report.json")) as f:
+                usage2 = json.load(f)
+            for name, rep, before_s, ran in (("first", usage1, 0, head1_tasks),
+                                             ("second", usage2, replayed_tasks, head2_tasks)):
+                check("workflow" in rep["features_used"]
+                      and rep["counters"]["tasks_total"] - before_s >= ran,
+                      f"{phase}: the {name} head's usage report {rep}, want workflow and "
+                      f"tasks_total >= {before_s} replayed + {ran} submitted")
+            row.update(replay_s=replay_s, second_head_init_s=init_s, first_run_s=first_run_s,
+                       first_run_error=failed, resume_s=resume_s,
+                       uninterrupted_run_s=whole_s, resume_over_first_run=resume_s / first_run_s,
+                       nll=resumed["nll"], nll_max_abs_err=nll_err,
+                       replayed_actors=len(actors), replayed_finished_tasks=len(replayed),
+                       replayed_tasks=replayed_tasks, replayed_usage_features=replayed_usage,
+                       tasks_before_resume=before, tasks_after_resume=after,
+                       usage_first_head={k: usage1[k] for k in ("features_used", "counters")},
+                       usage_second_head={k: usage2[k] for k in ("features_used", "counters")})
+        finally:
+            os.environ.pop("RAY_TPU_TORCH_WORKFLOW_STORAGE", None)
+            if rt.is_initialized():
+                rt.shutdown()
+    check(launches[attn.KERNEL] == launches[attn.FWD_TC],
+          f"{phase}: {launches[attn.FWD_TC]} of {launches[attn.KERNEL]} flash_fwd launches "
+          f"on the tensor cores")
+    emit(phase, model="gpt2 125m bf16, seed 0", prompts=OP_PROMPTS, new_tokens=OP_NEW_TOKENS,
+         **row, flash_launches=launches[attn.KERNEL],
+         flash_launches_tensor_core=launches[attn.FWD_TC],
+         phase_s=time.perf_counter() - t_phase, card=nvidia_smi())
+    return launches
+
+
 def _pids_of(*needles):
     out = []
     for d in os.listdir("/proc"):
@@ -5386,6 +5960,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     operator_launches = phase_operator_job_gpt2()
+    gc.collect()
+    torch.cuda.empty_cache()
+    durable_launches = phase_durable_job_gpt2()
 
     runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama, "serve_bert": bert_launches,
             "train_gpt2": train_launches, "train_llama": llama_launches,
@@ -5397,6 +5974,7 @@ def main() -> int:
             "multinode_pipeline_gpt2": pipeline_launches,
             "watch_pipeline_gpt2": watch_launches,
             "operator_job_gpt2": operator_launches,
+            "durable_job_gpt2": durable_launches,
             "util_pool_bert_accounting": pool_launches,
             "rl_parity": rl_parity_launches,
             "rl_ppo_atari": rl_launches, "rl_ppo_atari_runtime": rl_runtime_launches,

@@ -51,8 +51,6 @@ hand for Hopper live under ``ops/csrc`` and are built with ``nvcc`` at
 first use (``ops/_build.py``).
 """
 
-from ray_tpu_torch._device import resolve_device
-
 # the core API, loaded from ``_api.py`` on first use
 _API = ("init", "shutdown", "is_initialized", "remote", "put", "get", "wait",
         "kill", "cancel", "get_actor", "get_runtime_context",
@@ -64,6 +62,12 @@ __all__ = ["resolve_device", *_API]
 
 
 def __getattr__(name):
+    if name == "resolve_device":
+        # on first use, like the rest: a process that imports only the
+        # runtime's light modules (a pip env's bootstrap shim) loads no torch
+        from ray_tpu_torch._device import resolve_device
+
+        return resolve_device
     if name in _API:
         from ray_tpu_torch import _api
 

@@ -38,6 +38,7 @@ def init(
     ignore_reinit_error: bool = True,
     namespace: Optional[str] = None,
     _authkey: Optional[bytes] = None,
+    _gcs_persistence_path: Optional[str] = None,
     **_kwargs,
 ) -> None:
     """Start (or join) a cluster and connect as the driver.
@@ -54,6 +55,12 @@ def init(
 
     ``namespace`` scopes named-actor registration and lookup in both
     modes.
+
+    ``_gcs_persistence_path`` (a head started here) keeps the head's
+    tables in that SQLite file, flushed every 2 s and at shutdown; a head
+    started over an existing file replays it first: its KV back, the old
+    head's actors DEAD ("head restarted"), its unfinished tasks FAILED,
+    its placement groups REMOVED (``_private/gcs.py`` ``replay``).
 
     ``num_gpus`` defaults to the cards this process can see
     (``_private/resource_spec.py`` ``autodetect_gpus``: ``nvidia-smi -L``
@@ -109,7 +116,8 @@ def init(
                 except Exception:
                     pass
         else:
-            node = Node(num_cpus=num_cpus, num_gpus=num_gpus, resources=resources)
+            node = Node(num_cpus=num_cpus, num_gpus=num_gpus, resources=resources,
+                        gcs_persistence_path=_gcs_persistence_path)
             client = CoreClient(node.address, node.authkey)
         ident = client.register_client(namespace=namespace)
         global_worker.mode = "driver"
@@ -176,6 +184,8 @@ def shutdown() -> None:
         global_worker.namespace = None
         global_worker.function_cache.clear()
         global_worker.registered_fn_ids.clear()
+        # uploaded packages live in this head's KV (or its store's)
+        global_worker._prepared_envs.clear()
 
 
 def remote(*args, **kwargs):

@@ -9,8 +9,10 @@ pickled functions there, ``python/ray/_private/function_manager.py:56``),
 and placement-group records (``gcs_placement_group_manager.h:221``).
 
 Storage is the ``InMemoryStoreClient`` analog
-(``src/ray/gcs/store_client/in_memory_store_client.h:31``); the JAX
-package's SQLite persistence (``gcs_storage.py``) is not in the port.
+(``src/ray/gcs/store_client/in_memory_store_client.h:31``); with a
+persistent ``StoreClient`` (``gcs_storage.SqliteStoreClient``) the head
+flushes these tables through it and a later head replays them
+(``flush``/``replay`` below).
 """
 
 from __future__ import annotations
@@ -125,3 +127,62 @@ class GcsTables:
                 "tasks": list(self.tasks.values()),
                 "placement_groups": list(self.placement_groups.values()),
             }
+
+    # ---- persistence (GcsTableStorage over a StoreClient) ----
+    def flush(self, store) -> None:
+        """Write the control-plane tables through to the store.  Called
+        periodically + at shutdown; metadata rates are low, so wholesale
+        dumps are simpler than per-mutation write-through and equally
+        durable at the flush period granularity."""
+        from ray_tpu_torch._private import gcs_storage as gs
+
+        with self.lock:
+            kv = {ns: dict(t) for ns, t in self.kv.items()}
+            actors = [self._actor_record(a) for a in self.actors.values()]
+            tasks = list(self.tasks.values())
+            pgs = list(self.placement_groups.values())
+        # whole-table replacement so kv_del'd entries don't resurrect on
+        # replay, in one transaction per table (one fsync, not per key)
+        store.replace_table("kv", [
+            (ns.encode() + b"\x00" + k, v)
+            for ns, t in kv.items() for k, v in t.items()
+        ])
+        store.replace_table("tables", [
+            (b"actors", gs.dumps(actors)),
+            (b"tasks", gs.dumps(tasks)),
+            (b"placement_groups", gs.dumps(pgs)),
+        ])
+
+    @staticmethod
+    def _actor_record(a: "ActorInfo") -> "ActorInfo":
+        """Copy without the creation spec (arg blobs aren't replayable —
+        their object refs died with the session)."""
+        import dataclasses
+
+        return dataclasses.replace(a, creation_spec=None)
+
+    def replay(self, store) -> None:
+        """GcsInitData analog: restore KV + historical records from a prior
+        head's store.  Prior actors/tasks are history, not live entities —
+        their processes died with the old head."""
+        from ray_tpu_torch._private import gcs_storage as gs
+
+        with self.lock:
+            for key, value in store.items("kv"):
+                ns, _, k = key.partition(b"\x00")
+                self.kv.setdefault(ns.decode(), {})[k] = value
+            blob = store.get("tables", b"actors")
+            for a in gs.loads(blob) if blob else []:
+                if a.state != "DEAD":
+                    a.state = "DEAD"
+                    a.death_cause = "head restarted"
+                self.actors[a.actor_id] = a
+            blob = store.get("tables", b"tasks")
+            for t in gs.loads(blob) if blob else []:
+                if t.state in ("PENDING", "RUNNING"):
+                    t.state = "FAILED"
+                self.tasks[t.task_id] = t
+            blob = store.get("tables", b"placement_groups")
+            for pg in gs.loads(blob) if blob else []:
+                pg.state = "REMOVED"
+                self.placement_groups[pg.pg_id] = pg

@@ -6,10 +6,14 @@ command runs as a driver subprocess with the cluster address in its env,
 stdout/stderr captured to a per-job log file under the session directory,
 and a monitor thread tracking terminal status.
 
-``runtime_env`` takes ``env_vars``.  ``working_dir`` and ``py_modules``
-need code packages shipped through the head's KV, which the port does
-not carry yet: such a job ends FAILED before it launches, and its log
-says why.
+``runtime_env`` takes ``env_vars``, ``working_dir`` and ``py_modules``.
+A submitter uploads local code first (``job_submission``), so the head
+sees ``gcs://pkg-…`` URIs: it extracts each from its own KV into the
+node-local package cache, runs the driver with the working_dir package
+as its cwd and the py_modules packages on its ``PYTHONPATH``, moves its
+pins to the driver's pid while the job runs, and drops them when the job
+ends.  A package that cannot be materialised fails the job before it
+launches, its log naming the cause.
 """
 
 from __future__ import annotations
@@ -21,9 +25,6 @@ import threading
 import time
 from dataclasses import asdict, dataclass, field
 from typing import Dict, List, Optional
-
-# runtime_env keys that need code packages (not in the port)
-_PACKAGE_KEYS = ("working_dir", "py_modules")
 
 
 @dataclass
@@ -43,6 +44,8 @@ class JobManager:
         self.node = node
         self.jobs: Dict[str, JobInfo] = {}
         self.procs: Dict[str, subprocess.Popen] = {}
+        # job_id -> the package dirs its driver runs in (pinned to its pid)
+        self.packages: Dict[str, List[str]] = {}
         self.lock = threading.Lock()
         self.log_dir = os.path.join(node.session_dir, "jobs")
         os.makedirs(self.log_dir, exist_ok=True)
@@ -75,15 +78,42 @@ class JobManager:
                 raise ValueError(f"job {job_id} already exists")
             self.jobs[job_id] = placeholder
         env = dict(os.environ)
+        cwd = None
+        module_paths: list = []
+        materialized: list = []  # package dirs pinned by THIS process
         if runtime_env:
-            cut = [k for k in _PACKAGE_KEYS if runtime_env.get(k)]
-            if cut:
+            from ray_tpu_torch._private.runtime_env_packaging import (
+                PKG_KV_NAMESPACE, ensure_package_local, is_package_uri,
+            )
+
+            def materialize(uri: str) -> str:
+                # a remote submitter uploaded local code as content-
+                # addressed packages; extract from the head's own KV
+                d = ensure_package_local(
+                    lambda u: self.node.gcs.kv_get(
+                        PKG_KV_NAMESPACE, u.encode()), uri,
+                    pin_suffix=job_id)
+                materialized.append(d)
+                return d
+
+            try:
+                env.update(runtime_env.get("env_vars") or {})
+                cwd = runtime_env.get("working_dir")
+                if is_package_uri(cwd):
+                    cwd = materialize(cwd)
+                # py_modules go on the DRIVER's PYTHONPATH (the reference
+                # installs them through the agent before the driver starts)
+                for m in runtime_env.get("py_modules") or []:
+                    module_paths.append(materialize(m) if is_package_uri(m)
+                                        else m)
+            except Exception as e:  # noqa: BLE001 — a bad/missing package
+                # fails THIS job with a readable log, never the reader
+                # loop (that would close the submitter's connection and
+                # leak the reserved job id)
+                self._unpin(materialized, job_id)
                 return self._fail_pre_launch(
                     job_id, entrypoint, log_path,
-                    f"runtime_env {'/'.join(cut)} is not supported by "
-                    f"ray_tpu_torch yet (code packages are not ported); "
-                    f"only env_vars is")
-            env.update(runtime_env.get("env_vars") or {})
+                    f"runtime_env package setup failed: {e}")
         host, port = self.node.tcp_address
         env["RAY_TPU_TORCH_ADDRESS"] = f"tcp://{host}:{port}"
         env["RAY_TPU_TORCH_AUTHKEY"] = self.node.authkey.hex()
@@ -91,7 +121,7 @@ class JobManager:
         # the entrypoint driver must resolve this framework regardless of
         # its cwd (the reference ships the working dir via runtime_env)
         pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        parts = [pkg_root]
+        parts = module_paths + [pkg_root]
         if env.get("PYTHONPATH"):
             parts.append(env["PYTHONPATH"])
         env["PYTHONPATH"] = os.pathsep.join(parts)
@@ -100,25 +130,46 @@ class JobManager:
         log_f = open(log_path, "wb")
         try:
             proc = subprocess.Popen(
-                entrypoint, shell=True, env=env,
+                entrypoint, shell=True, env=env, cwd=cwd,
                 stdout=log_f, stderr=subprocess.STDOUT,
                 start_new_session=True,  # stop_job kills the whole group
             )
         except OSError as e:
+            self._unpin(materialized, job_id)
             return self._fail_pre_launch(job_id, entrypoint, log_path,
                                          f"failed to launch: {e}")
         finally:
             log_f.close()
+        # the packages now belong to the job process: transfer the head's
+        # pins so the cache can evict them once the job exits (a
+        # long-lived head must not pin every job's code forever)
+        if materialized:
+            from ray_tpu_torch._private.runtime_env_packaging import repin
+
+            for d in materialized:
+                repin(d, proc.pid, suffix=job_id)
         info.status = "RUNNING"
         with self.lock:
             self.jobs[job_id] = info
             self.procs[job_id] = proc
+            self.packages[job_id] = materialized
         threading.Thread(target=self._monitor, args=(job_id, proc),
                          daemon=True, name=f"job-monitor-{job_id}").start()
         return job_id
 
+    @staticmethod
+    def _unpin(dirs: List[str], job_id: str, pid: Optional[int] = None) -> None:
+        from ray_tpu_torch._private.runtime_env_packaging import unpin
+
+        for d in dirs:
+            unpin(d, pid=pid, suffix=None if pid else job_id)
+
     def _monitor(self, job_id: str, proc: subprocess.Popen) -> None:
         rc = proc.wait()
+        with self.lock:
+            dirs = self.packages.pop(job_id, [])
+        # the driver is gone: its packages become evictable at once
+        self._unpin(dirs, job_id, pid=proc.pid)
         with self.lock:
             info = self.jobs.get(job_id)
             self.procs.pop(job_id, None)

@@ -41,6 +41,7 @@ the same trick as the reference's in-process multi-raylet test Cluster
 from __future__ import annotations
 
 import json
+import math
 import os
 import pickle
 import signal
@@ -135,14 +136,36 @@ def _runtime_env_key(runtime_env: Optional[dict]) -> Optional[str]:
     return json.dumps(runtime_env, sort_keys=True)
 
 
-def _apply_runtime_env(env: Dict[str, str], runtime_env: Optional[dict]) -> None:
-    """Fold a runtime_env's ``env_vars`` into a worker's spawn env (the
-    port's runtime takes no pip, conda, working_dir or py_modules)."""
-    if runtime_env:
-        env.update(runtime_env.get("env_vars") or {})
+def _apply_runtime_env(env: Dict[str, str], runtime_env: Optional[dict]) -> Optional[str]:
+    """Fold env_vars into a worker's spawn env; returns the cwd override.
+
+    Package URIs (``gcs://pkg-…`` working_dir / py_modules, uploaded by
+    the driver) can't chdir at spawn — the worker materializes them
+    itself from ``RAY_TPU_TORCH_RUNTIME_ENV`` right before it registers
+    (``runtime_env_packaging.apply_packages_in_worker``), which works
+    identically for head-local and agent-spawned remote workers."""
+    if not runtime_env:
+        return None
+    from ray_tpu_torch._private.runtime_env_packaging import is_package_uri
+
+    env.update(runtime_env.get("env_vars") or {})
+    wd = runtime_env.get("working_dir")
+    if is_package_uri(wd) or runtime_env.get("py_modules"):
+        env["RAY_TPU_TORCH_RUNTIME_ENV"] = json.dumps({
+            "working_dir": wd if is_package_uri(wd) else None,
+            "py_modules": runtime_env.get("py_modules"),
+        })
+    return wd if wd is not None and not is_package_uri(wd) else None
 
 
-WORKER_ARGV = [sys.executable, "-m", "ray_tpu_torch._private.worker"]
+def _worker_argv(runtime_env: Optional[dict]) -> List[str]:
+    """A worker's command, the same on the head and on a node agent: a
+    pip or conda env boots through ``runtime_env_setup``'s shim, which
+    execs that env's interpreter into ``ray_tpu_torch._private.worker``."""
+    from ray_tpu_torch._private.runtime_env_setup import worker_argv
+
+    return worker_argv((runtime_env or {}).get("pip"),
+                       (runtime_env or {}).get("conda"))
 
 
 def _set_child_subreaper() -> bool:
@@ -564,6 +587,7 @@ class Node:
         num_gpus: Optional[int] = None,
         resources: Optional[Dict[str, float]] = None,
         session_dir: Optional[str] = None,
+        gcs_persistence_path: Optional[str] = None,
     ):
         from ray_tpu_torch._private.resource_spec import autodetect_resources
 
@@ -592,6 +616,10 @@ class Node:
         if swept:
             logger.info("swept %d orphaned shm segments from dead sessions", swept)
         shm_mod.write_session_marker(self.session_id, os.getpid())
+
+        from ray_tpu_torch._private import usage as _usage
+
+        _usage.reset()  # per-session scope for the usage report
 
         self.lock = make_lock("node.registry", rlock=True)
         self.cond = threading.Condition(self.lock)
@@ -640,6 +668,26 @@ class Node:
         except Exception:
             logger.warning("native arena unavailable:\n%s", traceback.format_exc())
         self.gcs = GcsTables()
+
+        # GCS fault tolerance: with a persistent store, replay the prior
+        # head's metadata (GcsInitData analog) and flush periodically
+        self.gcs_store = None
+        self.gcs_replay_s: Optional[float] = None
+        # the flush loop's pass and shutdown's last flush and close take it
+        # in turn: a pass never runs on a closed store
+        self._gcs_flush_lock = threading.Lock()
+        if gcs_persistence_path:
+            from ray_tpu_torch._private.gcs_storage import SqliteStoreClient
+
+            existed = os.path.exists(gcs_persistence_path)
+            self.gcs_store = SqliteStoreClient(gcs_persistence_path)
+            if existed:
+                t0 = time.perf_counter()
+                self.gcs.replay(self.gcs_store)
+                self.gcs_replay_s = time.perf_counter() - t0
+                logger.info("replayed GCS state from %s (%d kv namespaces, "
+                            "%d historical actors)", gcs_persistence_path,
+                            len(self.gcs.kv), len(self.gcs.actors))
 
         self.nodes: Dict[str, NodeState] = {}
         # slices being terminated ON PURPOSE (slice-atomic replacement /
@@ -831,6 +879,11 @@ class Node:
         # self.lock.
         self._proc_live: Dict[str, dict] = {}
         self._proc_lock = make_lock("node.proc_live")
+        # worker_id hex -> when its /proc rows start to enter the TSDB's
+        # history (_history_rows): WORKER_WARMUP_S after its first plain
+        # task or its actor's constructor finished, or WORKER_START_BOUND_S
+        # after it registered, whichever comes first
+        self._history_from: Dict[str, float] = {}
         self._tsdb_stop = threading.Event()
         t = threading.Thread(target=self._tsdb_loop, name="tsdb-sampler",
                              daemon=True)
@@ -1798,7 +1851,7 @@ class Node:
         OSError when the process cannot spawn (e.g. working_dir vanished)."""
         env = dict(os.environ)
         env.update(ns.env)
-        _apply_runtime_env(env, runtime_env)
+        cwd = _apply_runtime_env(env, runtime_env)
         env["RAY_TPU_TORCH_ADDRESS"] = self.address
         env["RAY_TPU_TORCH_AUTHKEY"] = self.authkey.hex()
         env["RAY_TPU_TORCH_NODE_ID"] = ns.node_id
@@ -1809,14 +1862,18 @@ class Node:
         if extra_env:
             env.update(extra_env)
         env["PYTHONPATH"] = _worker_pythonpath(env.get("PYTHONPATH", ""))
-        # workers fork from the warm template (~20ms vs a ~2s cold
-        # CPython boot); a forkserver failure takes the classic Popen path
-        if self._forkserver is not None:
-            proc = self._forkserver.spawn(env, None)
+        # plain workers fork from the warm template (~20ms vs a ~2s cold
+        # CPython boot); pip/conda runtime_envs need their env's
+        # interpreter, so they (and any forkserver failure) take the
+        # classic Popen path
+        if self._forkserver is not None and not (
+                (runtime_env or {}).get("pip")
+                or (runtime_env or {}).get("conda")):
+            proc = self._forkserver.spawn(env, cwd)
             if proc is not None:
                 self._register_worker_log(worker_id, ns.node_id, proc)
                 return proc
-        proc = subprocess.Popen(WORKER_ARGV, env=env)
+        proc = subprocess.Popen(_worker_argv(runtime_env), env=env, cwd=cwd)
         self._register_worker_log(worker_id, ns.node_id, proc)
         return proc
 
@@ -1861,7 +1918,7 @@ class Node:
         User env_vars first; harness vars after so they always win (the
         agent merges over its own os.environ and fixes node identity)."""
         env: Dict[str, str] = {}
-        _apply_runtime_env(env, runtime_env)
+        cwd = _apply_runtime_env(env, runtime_env)
         env["RAY_TPU_TORCH_ADDRESS"] = f"tcp://{self.tcp_address[0]}:{self.tcp_address[1]}"
         env["RAY_TPU_TORCH_AUTHKEY"] = self.authkey.hex()
         env["RAY_TPU_TORCH_WORKER_ID"] = worker_id.hex()
@@ -1873,7 +1930,7 @@ class Node:
             self.session_dir, "logs", f"worker-{worker_id.hex()}.log")
         if extra_env:
             env.update(extra_env)
-        return env, None
+        return env, cwd
 
     def _spawn_worker(self, ns: NodeState, runtime_env: Optional[dict] = None) -> None:
         """Fork/exec a language worker (WorkerPool::StartWorkerProcess analog).
@@ -1915,6 +1972,7 @@ class Node:
             h.conn = conn
             h.send_lock = self._conn_lock(conn)
             h.state = "idle"
+            self._history_from[worker_id.hex()] = time.time() + self.WORKER_START_BOUND_S
             ns = self.nodes.get(h.node_id)
             if ns is not None:
                 # Dedicated actor workers never join the general idle pool
@@ -1934,6 +1992,8 @@ class Node:
 
     def _on_worker_death(self, h: WorkerHandle, reason: str) -> None:
         from ray_tpu_torch.exceptions import RayActorError, WorkerCrashedError
+
+        self._history_from.pop(h.worker_id.hex(), None)
 
         with self.lock:
             if h.state == "dead":
@@ -2469,6 +2529,15 @@ class Node:
             time.sleep(2.0)
             self._prune_task_history()
             self._dump_head_events()
+            if self.gcs_store is None:
+                continue
+            with self._gcs_flush_lock:
+                if self._shutdown:
+                    break  # shutdown flushes last, then closes the store
+                try:
+                    self.gcs.flush(self.gcs_store)
+                except Exception:
+                    logger.warning("gcs flush failed:\n%s", traceback.format_exc())
 
     def _dump_head_events(self) -> None:
         """Append the head's new events to its crash-dump trail — a
@@ -3192,6 +3261,12 @@ class Node:
             # actor's dispatch window.  No head lock.
             self._on_actor_task_done(w, msg, tid)
             return
+        # its first task or constructor is over: the worker's start-up
+        # (torch's import, a CUDA context, a model's build) is behind it.
+        # A later task's end keeps the earlier time (min).
+        wid = w.worker_id.hex()
+        self._history_from[wid] = min(self._history_from.get(wid, math.inf),
+                                      time.time() + self.WORKER_WARMUP_S)
         with self.lock:
             rt = self.running.pop(tid, None)
             full_spec = w.current_task  # has pinned_refs (spec_ref doesn't)
@@ -4634,19 +4709,33 @@ class Node:
                 **proc_live,
             }
 
+    # seconds after a worker's first task or constructor before its /proc
+    # rows enter the history: its first calls still load the CUDA
+    # libraries' kernels lazily (a GPT-2 stage's host RSS grows by ~0.5 GB
+    # in its first forward on an H100)
+    WORKER_WARMUP_S = 10.0
+    # seconds after a worker registers by which its rows enter the history
+    # even while its first task still runs: a first task that runs long
+    # (a training or ETL loop) gets a trend series all the same
+    WORKER_START_BOUND_S = 60.0
+
     def _history_rows(self, metrics: Dict[str, dict]) -> Dict[str, dict]:
         """``metrics`` as the TSDB keeps it: a worker's ``/proc`` rows
-        enter the history only while the worker's own pusher is live, so
-        its series starts after its start-up.  A worker that an agent
-        starts cold imports torch for seconds under the sampler; at a
-        sub-second push those rising samples read as a leak to the
-        doctor's ``rss_growth`` rule (ROADMAP C5).  The live registry and
-        the top view keep every row."""
+        enter the history only ``WORKER_WARMUP_S`` after its first plain
+        task or its actor's constructor has finished, or
+        ``WORKER_START_BOUND_S`` after it registered if that comes first,
+        so its series starts after its start-up.  A worker imports torch,
+        makes its CUDA context and builds its model before then, and
+        loads the CUDA libraries' kernels in its first calls, its RSS
+        climbing by hundreds of MB to GBs; at a sub-second push those
+        samples read as a leak to the doctor's ``rss_growth`` rule
+        (ROADMAP C5: an agent's cold start; C12: a pipeline stage's
+        constructor and first forward).  The live registry and the top
+        view keep every row."""
         from ray_tpu_torch._private.resource_spec import _PROC_METRIC_HELP
 
-        reg = self.worker_metrics_registry
-        with reg.lock:
-            keep = set(reg.origin_seen) | {"head"}
+        now = time.time()
+        keep = {w for w, t in self._history_from.copy().items() if t <= now} | {"head"}
         out = dict(metrics)
         for name in _PROC_METRIC_HELP:
             m = metrics.get(name)
@@ -5278,6 +5367,13 @@ class Node:
         from ray_tpu_torch._private import object_transfer
 
         object_transfer.reset()
+        if self.gcs_store is not None:
+            with self._gcs_flush_lock:
+                try:
+                    self.gcs.flush(self.gcs_store)
+                    self.gcs_store.close()
+                except Exception:
+                    pass
         self.registry.shutdown()
         if self.arena is not None:
             from ray_tpu_torch._private import object_store as ostore_mod
@@ -5288,4 +5384,14 @@ class Node:
             except Exception:
                 pass
         from ray_tpu_torch._private import shm as shm_mod
+        from ray_tpu_torch._private import usage
+
+        with self.gcs.lock:
+            usage.record_set("tasks_total", len(self.gcs.tasks))
+            usage.record_set("actors_total", len(self.gcs.actors))
+            usage.record_set("nodes_total", len(self.gcs.nodes))
+        # fold in features recorded by worker/driver processes via KV
+        for key in self.gcs.kv_keys("usage"):
+            usage.record_feature(key.decode(errors="replace"))
+        usage.write_report(self.session_dir)
         shm_mod.remove_session_marker(self.session_id)

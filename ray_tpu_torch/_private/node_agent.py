@@ -291,13 +291,16 @@ class NodeAgent:
 
     # -- worker management ------------------------------------------------
     def _spawn_worker(self, msg: dict) -> None:
-        """Start a worker as the head starts its own (``node.WORKER_ARGV``,
-        ``_worker_pythonpath``), in this node's namespace.  The head's
+        """Start a worker as the head starts its own (``worker_argv``,
+        ``_worker_pythonpath``), in this node's namespace: a pip or conda
+        env boots through the same shim, under the same ``PYTHONPATH``,
+        so its worker imports torch as the head's does.  The head's
         overrides carry an actor's grant as ``CUDA_VISIBLE_DEVICES``; a
         worker given none sees no card (a pooled worker sets each task's
         grant itself before the task runs)."""
         from ray_tpu_torch._private import shm as shm_mod
-        from ray_tpu_torch._private.node import WORKER_ARGV, _worker_pythonpath
+        from ray_tpu_torch._private.node import _worker_pythonpath
+        from ray_tpu_torch._private.runtime_env_setup import worker_argv
 
         overrides = msg.get("env_overrides") or {}
         env = dict(os.environ)
@@ -312,7 +315,8 @@ class NodeAgent:
         env["PYTHONPATH"] = _worker_pythonpath(env.get("PYTHONPATH", ""))
         wid = msg["worker_id"]
         try:
-            proc = subprocess.Popen(WORKER_ARGV, env=env, cwd=msg.get("cwd"))
+            proc = subprocess.Popen(worker_argv(msg.get("pip"), msg.get("conda")),
+                                    env=env, cwd=msg.get("cwd"))
         except OSError as e:
             self._send({"type": "worker_exited", "worker_id": wid,
                         "returncode": -1, "error": str(e)})

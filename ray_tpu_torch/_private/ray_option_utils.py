@@ -7,6 +7,7 @@ max_retries/max_restarts/num_returns/resources/...).
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 TASK_OPTIONS = {
@@ -19,10 +20,17 @@ ACTOR_OPTIONS = {
     "max_concurrency", "namespace", "concurrency_groups",
 }
 
-# The port's runtime applies ``env_vars`` at spawn and takes no other
-# runtime_env key: the JAX package's pip, conda, working_dir and
-# py_modules environments are left out of the port's runtime core.
-SUPPORTED_RUNTIME_ENV_KEYS = {"env_vars"}
+# env_vars/working_dir apply at spawn; pip/conda build hash-keyed cached
+# envs in the worker's bootstrap (``runtime_env_setup.py``; reference
+# ``python/ray/_private/runtime_env/{pip,conda}.py``); working_dir and
+# py_modules local paths are zipped into content-addressed ``gcs://``
+# packages shipped through the cluster KV
+# (``runtime_env_packaging.py``; reference ``runtime_env/packaging.py``).
+# ``container`` (podman rootless containers) is rejected loudly instead
+# of silently dropped — the card hosts run no container runtime.
+SUPPORTED_RUNTIME_ENV_KEYS = {
+    "env_vars", "working_dir", "pip", "conda", "py_modules", "excludes",
+}
 
 
 def validate_runtime_env(runtime_env: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
@@ -32,15 +40,81 @@ def validate_runtime_env(runtime_env: Optional[Dict[str, Any]]) -> Optional[Dict
         raise TypeError(f"runtime_env must be a dict, got {type(runtime_env)}")
     unsupported = set(runtime_env) - SUPPORTED_RUNTIME_ENV_KEYS
     if unsupported:
+        hint = (" ('container' needs a container runtime, absent from the "
+                "card hosts — use 'pip'/'conda' + 'py_modules' instead)"
+                if "container" in unsupported else "")
         raise ValueError(
-            f"Unsupported runtime_env keys {sorted(unsupported)}; the port's "
-            f"runtime supports {sorted(SUPPORTED_RUNTIME_ENV_KEYS)}")
+            f"Unsupported runtime_env keys {sorted(unsupported)}; this build "
+            f"supports {sorted(SUPPORTED_RUNTIME_ENV_KEYS)}{hint}"
+        )
     env_vars = runtime_env.get("env_vars")
     if env_vars is not None:
         if not isinstance(env_vars, dict) or not all(
             isinstance(k, str) and isinstance(v, str) for k, v in env_vars.items()
         ):
             raise TypeError("runtime_env['env_vars'] must be a Dict[str, str]")
+    working_dir = runtime_env.get("working_dir")
+    if working_dir is not None:
+        ok = isinstance(working_dir, str) and (
+            working_dir.startswith("gcs://")  # already-packaged URI
+            or os.path.isdir(working_dir)
+            or (working_dir.endswith(".zip") and os.path.isfile(working_dir)))
+        if not ok:
+            raise ValueError(
+                f"runtime_env['working_dir'] must be an existing local "
+                f"directory, a .zip file, or a gcs:// package URI, "
+                f"got {working_dir!r}"
+            )
+    py_modules = runtime_env.get("py_modules")
+    if py_modules is not None:
+        if not isinstance(py_modules, list):
+            raise TypeError("runtime_env['py_modules'] must be a list of "
+                            "local dirs / .zip files / gcs:// URIs")
+        for m in py_modules:
+            ok = isinstance(m, str) and (
+                m.startswith("gcs://") or os.path.isdir(m)
+                or (m.endswith(".zip") and os.path.isfile(m)))
+            if not ok:
+                raise ValueError(
+                    f"runtime_env['py_modules'] entry {m!r} is not an "
+                    f"existing local directory, .zip file, or gcs:// URI")
+    excludes = runtime_env.get("excludes")
+    if excludes is not None and not (
+            isinstance(excludes, list)
+            and all(isinstance(e, str) for e in excludes)):
+        raise TypeError("runtime_env['excludes'] must be List[str] of "
+                        "glob patterns")
+    conda = runtime_env.get("conda")
+    if conda is not None:
+        if runtime_env.get("pip"):
+            raise ValueError(
+                "runtime_env cannot specify both 'pip' and 'conda' "
+                "(build one env: put pip packages under the conda spec)")
+        if not isinstance(conda, (str, dict)):
+            raise TypeError(
+                "runtime_env['conda'] must be an env NAME (str) or an "
+                "environment.yml dict")
+    pip = runtime_env.get("pip")
+    if pip is not None:
+        # list of requirements, or {"packages": [...], "pip_install_options":
+        # [...]} (reference python/ray/_private/runtime_env/pip.py surface)
+        if isinstance(pip, dict):
+            unknown = set(pip) - {"packages", "pip_install_options"}
+            if unknown:
+                raise ValueError(
+                    f"unsupported runtime_env['pip'] keys {sorted(unknown)}; "
+                    f"supported: ['packages', 'pip_install_options']")
+            pkgs = pip.get("packages")
+            opts_ = pip.get("pip_install_options", [])
+            if not isinstance(pkgs, list) or not all(isinstance(p, str) for p in pkgs):
+                raise TypeError("runtime_env['pip']['packages'] must be List[str]")
+            if not isinstance(opts_, list) or not all(isinstance(o, str) for o in opts_):
+                raise TypeError(
+                    "runtime_env['pip']['pip_install_options'] must be List[str]")
+        elif not (isinstance(pip, list) and all(isinstance(p, str) for p in pip)):
+            raise TypeError(
+                "runtime_env['pip'] must be a List[str] of requirements or a "
+                "dict with 'packages'")
     return runtime_env
 
 

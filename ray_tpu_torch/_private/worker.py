@@ -72,6 +72,9 @@ class Worker:
         self.worker_id: bytes = b""
         self.function_cache: Dict[bytes, Any] = {}
         self.registered_fn_ids: set = set()
+        # runtime_env package uploads are once per unique env per driver
+        # session (content addressing dedups across drivers at the KV)
+        self._prepared_envs: Dict[str, dict] = {}
         self._current_task_id: Optional[bytes] = None
         self._current_actor_id: Optional[bytes] = None
         self.actor_instance: Any = None
@@ -337,10 +340,20 @@ class Worker:
         namespace: Optional[str] = None,
     ) -> Tuple[dict, List[ObjectRef]]:
         cfg = get_config()
-        if runtime_env and set(runtime_env) - {"env_vars"}:
-            raise ValueError(
-                "the port's runtime takes only runtime_env={'env_vars': ...}; "
-                f"got {sorted(runtime_env)}")
+        if runtime_env and (runtime_env.get("working_dir")
+                            or runtime_env.get("py_modules")):
+            import json as _json
+
+            from ray_tpu_torch._private.runtime_env_packaging import (
+                prepare_runtime_env,
+            )
+
+            ck = _json.dumps(runtime_env, sort_keys=True)
+            prepared = self._prepared_envs.get(ck)
+            if prepared is None:
+                prepared = prepare_runtime_env(runtime_env, self.client)
+                self._prepared_envs[ck] = prepared
+            runtime_env = prepared
         dep_ids: List[bytes] = []
 
         def _convert(v):
@@ -880,6 +893,22 @@ def main() -> None:
         # (authkey mismatch): exit quietly — a traceback on the inherited
         # stderr reads like a live-session failure
         os._exit(0)
+
+    # materialize package URIs (working_dir chdir / py_modules sys.path)
+    # BEFORE registering: a persistently failing package then dies
+    # pre-registration, which is what the spawn-failure circuit breaker
+    # counts — registering first would reset the breaker every respawn
+    # and loop forever (the same pre-registration invariant the pip
+    # bootstrap shim keeps by exiting 77 before exec)
+    try:
+        from ray_tpu_torch._private.runtime_env_packaging import (
+            apply_packages_in_worker,
+        )
+
+        apply_packages_in_worker(client)
+    except Exception as e:  # noqa: BLE001
+        print(f"runtime_env package setup failed: {e}", file=sys.stderr)
+        os._exit(77)
 
     try:
         client.register_worker()

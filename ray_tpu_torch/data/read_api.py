@@ -38,6 +38,8 @@ def read_datasource(datasource: Datasource, *, parallelism: int = DEFAULT_BLOCKS
                     **read_args) -> Dataset:
     """One remote task per ReadTask; returns a lazy Dataset over the
     resulting blocks."""
+    from ray_tpu_torch._private.usage import record_feature
+    record_feature("data")
     tasks = datasource.prepare_read(parallelism, **read_args)
     runner = ray_tpu_torch.remote(num_cpus=1)(lambda t: t())
     refs = [runner.remote(t) for t in tasks]

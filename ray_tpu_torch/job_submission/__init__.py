@@ -51,9 +51,21 @@ class JobSubmissionClient:
                    job_id: Optional[str] = None,
                    metadata: Optional[Dict[str, str]] = None) -> str:
         """Start ``entrypoint`` as a driver on the head's host.
-        ``runtime_env`` takes ``env_vars``; a job that names
-        ``working_dir`` or ``py_modules`` ends FAILED (code packages are
-        not ported).  A ``job_id`` already in use raises ``ValueError``."""
+        ``runtime_env`` takes ``env_vars``, ``working_dir`` and
+        ``py_modules``: local directories are zipped and uploaded to the
+        head's KV first (once per content), and the driver runs in the
+        extracted working_dir with the py_modules on its ``PYTHONPATH``.
+        A ``job_id`` already in use raises ``ValueError``."""
+        if runtime_env and (runtime_env.get("working_dir")
+                            or runtime_env.get("py_modules")):
+            # ship local code as content-addressed packages so the job
+            # driver runs inside it on the HEAD host (reference
+            # sdk.py upload_working_dir_if_needed)
+            from ray_tpu_torch._private.runtime_env_packaging import (
+                prepare_runtime_env,
+            )
+
+            runtime_env = prepare_runtime_env(runtime_env, self._client)
         value = self._client.request({
             "type": "submit_job", "entrypoint": entrypoint,
             "runtime_env": runtime_env, "job_id": job_id, "metadata": metadata,

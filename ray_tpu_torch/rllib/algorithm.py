@@ -185,6 +185,8 @@ class Algorithm(Trainable):
 
     # -- Trainable hooks -----------------------------------------------
     def setup(self, config: Dict[str, Any]) -> None:
+        from ray_tpu_torch._private.usage import record_feature
+        record_feature("rllib")
         merged = dict(self._default_config)
         merged.update({k: v for k, v in config.items() if k != "_algo_class"})
         self.config = merged

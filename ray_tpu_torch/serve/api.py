@@ -317,6 +317,8 @@ def run(
 ) -> DeploymentHandle:
     """Deploy an application and wait until healthy (``api.py:455``).
     Returns a handle to the root deployment."""
+    from ray_tpu_torch._private.usage import record_feature
+    record_feature("serve")
     import ray_tpu_torch
 
     if isinstance(target, Deployment):

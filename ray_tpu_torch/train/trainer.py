@@ -96,6 +96,9 @@ class DataParallelTrainer(BaseTrainer):
         return path
 
     def fit(self) -> Result:
+        from ray_tpu_torch._private.usage import record_feature
+
+        record_feature("train")
         failure_cfg = self.run_config.failure_config or FailureConfig()
         ckpt_cfg = self.run_config.checkpoint_config or CheckpointConfig()
         storage = self._storage_dir()

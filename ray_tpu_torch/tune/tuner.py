@@ -6,8 +6,7 @@ from their latest checkpoints (``TrialRunner`` restore behavior).
 
 The port's own copy of ``ray_tpu/tune/tuner.py``.  It keeps its results
 under ``ray_tpu_torch_results`` in the temporary directory (the port's
-Train does too), and leaves out the JAX package's usage record
-(``record_feature("tune")``), as every slice of the port does.
+Train does too).
 """
 
 from __future__ import annotations
@@ -94,6 +93,9 @@ class Tuner:
         return path
 
     def fit(self) -> ResultGrid:
+        from ray_tpu_torch._private.usage import record_feature
+        record_feature("tune")
+
         tc = self.tune_config
         exp_dir = self._exp_dir()
         searcher = None

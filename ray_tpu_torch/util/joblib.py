@@ -40,6 +40,9 @@ class RayTpuTorchBackend(_backend_base()):
     def __init__(self, nesting_level: Optional[int] = None,
                  inner_max_num_threads: Optional[int] = None,
                  ray_remote_args: Optional[Dict[str, Any]] = None, **kwargs):
+        from ray_tpu_torch._private.usage import record_feature
+
+        record_feature("util.joblib")
         self.ray_remote_args = ray_remote_args
         super().__init__(nesting_level=nesting_level,
                          inner_max_num_threads=inner_max_num_threads,

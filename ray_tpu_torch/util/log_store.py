@@ -15,10 +15,14 @@ Retired streams (their worker died) keep their ring until
 :meth:`retire_stale`'s horizon passes — that is what makes a SIGKILL'd
 worker's last stderr retrievable from the head after death.
 
-Error bursts: the store watches stderr/traceback line rates per stream
-and emits one ``log``-source flight-recorder event per burst (via the
-injected ``emit_fn`` — no import edge back into ``_private``), which the
-doctor's ``log_error_burst`` rule surfaces.
+Error bursts: the store watches error line rates per stream and emits
+one ``log``-source flight-recorder event per burst (via the injected
+``emit_fn`` — no import edge back into ``_private``), which the doctor's
+``log_error_burst`` rule surfaces.  An error line is an ERROR/CRITICAL
+logger record, a traceback's head, or a stderr line that carries a level
+word (``ERROR``, ``CRITICAL``, ``FATAL``) or lies in a traceback: a
+healthy process that merely writes to stderr opens no burst
+(``burst_line``; the JAX store counts every stderr line).
 
 Caps are constructor params so tests can force every stage cheaply;
 their defaults are those of ``ray_tpu/util/log_store.py``: 32 MiB in all, 10,000 lines a
@@ -27,6 +31,7 @@ stream, 512 streams, and a burst of 50 error lines inside 30 s.
 
 from __future__ import annotations
 
+import re
 import threading
 import time
 from collections import deque
@@ -44,9 +49,37 @@ def is_error_record(src: str, line: str) -> bool:
     return src in _ERR_SRCS or line.startswith("Traceback (")
 
 
+# a level word that marks a stderr line as an error report
+_ERR_MARKER = re.compile(r"\b(?:ERROR|CRITICAL|FATAL)\b")
+_TB_HEAD = "Traceback (most recent call last)"
+# what a launcher puts before each line of a rank's output ("[rank0]: ")
+_LINE_PREFIX = re.compile(r"\[[^\]]*\]:\s?")
+
+
+def burst_line(src: str, line: str, in_traceback: bool = False) -> Tuple[bool, bool]:
+    """Whether a record counts toward burst detection, and whether its
+    stream is inside a traceback after it.  ERROR/CRITICAL logger records
+    and traceback heads count, as ``is_error_record``.  A stderr line
+    counts when it carries an error level word or lies in a traceback:
+    its head (``Traceback (most recent call last)`` anywhere in the line,
+    so behind a ``[rank0]: `` prefix too), its indented frames, and the
+    first unindented line after them (the exception), which ends it.
+    Counting every stderr line read a process that logs to stderr (a
+    progress line a call) as an error burst."""
+    if src != "e":
+        return is_error_record(src, line), in_traceback
+    if _TB_HEAD in line:
+        return True, True
+    if in_traceback:
+        m = _LINE_PREFIX.match(line)
+        body = line[m.end():] if m else line
+        return True, not body or body[0].isspace()
+    return bool(_ERR_MARKER.search(line)), False
+
+
 class _Stream:
     __slots__ = ("ring", "bytes", "meta", "last_ingest", "retired",
-                 "err_times", "burst_at", "total_lines")
+                 "err_times", "burst_at", "total_lines", "in_traceback")
 
     def __init__(self, meta: dict, now: float):
         # stored tuples: (seq, ts, src, job, task, actor, trace, line)
@@ -58,6 +91,7 @@ class _Stream:
         self.err_times: deque = deque()
         self.burst_at = 0.0
         self.total_lines = 0
+        self.in_traceback = False  # burst_line's state of the stream
 
 
 class LogStore:
@@ -135,7 +169,9 @@ class LogStore:
                     by_job.setdefault(rec[_JOB], []).append(
                         (self._seq, rec[_TS], name, rec[_SRC], rec[_TASK],
                          rec[_ACTOR], rec[_TRACE], line))
-                if is_error_record(rec[_SRC], line):
+                counts, st.in_traceback = burst_line(rec[_SRC], line,
+                                                     st.in_traceback)
+                if counts:
                     st.err_times.append(rec[_TS])
                     horizon = now - self.burst_window_s
                     while st.err_times and st.err_times[0] < horizon:

@@ -3,6 +3,7 @@ points run on the card unless asked for the CPU, and a CPU call never
 counts as a kernel launch."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -484,3 +485,40 @@ def test_util_libraries_and_accounting_load_neither_jax_nor_ray_tpu_and_start_no
         "    raise AssertionError('the joblib backend imported without joblib')\n"
         % (FORBIDDEN,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+DURABILITY_MODULES = ("ray_tpu_torch._private.gcs_storage", "ray_tpu_torch._private.usage",
+                      "ray_tpu_torch._private.runtime_env_packaging",
+                      "ray_tpu_torch._private.runtime_env_setup", "ray_tpu_torch.workflow",
+                      "ray_tpu_torch.workflow.api")
+
+
+def test_runtime_envs_persistence_usage_and_workflows_load_nothing_and_start_nothing(tmp_path):
+    """The GCS store, the usage report, the runtime-env packaging and
+    setup, and workflows import no JAX and nothing of ``ray_tpu``;
+    importing them starts no thread, makes no CUDA context and writes no
+    file (their caches and roots are made at first use, under the port's
+    session root).  Each has a counterpart of the same name in the JAX
+    package."""
+    for mod in DURABILITY_MODULES:
+        rel = mod.replace(".", "/")
+        rel = rel + "/__init__.py" if (ROOT / rel).is_dir() else rel + ".py"
+        assert (ROOT / rel).is_file() and (ROOT / rel.replace("ray_tpu_torch/", "ray_tpu/", 1)
+                                           ).is_file(), rel
+    tmp = tmp_path / "tmp"
+    tmp.mkdir()
+    code = (
+        "import sys, threading, torch\n"
+        "import %s\n"
+        "from ray_tpu_torch._private import runtime_env_packaging as p\n"
+        "from ray_tpu_torch.workflow import api\n"
+        "assert p.default_base_dir().startswith(%r) and api._root().startswith(%r)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        % (", ".join(DURABILITY_MODULES), str(tmp), str(tmp), FORBIDDEN))
+    env = {k: v for k, v in os.environ.items() if k != "RAY_TPU_TORCH_WORKFLOW_STORAGE"}
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**env, "TMPDIR": str(tmp)})
+    assert list(tmp.iterdir()) == []

@@ -8,10 +8,12 @@ package's ``JobInfo`` is compared as a dataclass only.
 """
 
 import dataclasses
+import json
 import os
 import shlex
 import signal
 import sys
+import tempfile
 import time
 
 import pytest
@@ -36,11 +38,17 @@ def time_limit(request):
 
 
 @pytest.fixture(scope="module")
-def client():
-    ray_tpu_torch.init(num_cpus=2)
-    c = JobSubmissionClient()
-    yield c
-    ray_tpu_torch.shutdown()
+def client(tmp_path_factory):
+    tmp_path_factory.getbasetemp()  # pytest's temp root stays outside the private TMPDIR
+    # a private TMPDIR: the session and the package cache live under it
+    with tempfile.TemporaryDirectory(prefix="jobs_") as d, pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TMPDIR", d)
+        mp.setattr(tempfile, "tempdir", d)
+        ray_tpu_torch.init(num_cpus=2)
+        try:
+            yield JobSubmissionClient()
+        finally:
+            ray_tpu_torch.shutdown()
 
 
 def _py(code: str) -> str:
@@ -119,13 +127,66 @@ def test_env_vars_reach_the_job(client):
 
 
 @pytest.mark.parametrize("key", ["working_dir", "py_modules"])
-def test_code_packages_fail_with_the_cut_named(client, tmp_path, key):
-    value = str(tmp_path) if key == "working_dir" else [str(tmp_path)]
+def test_code_packages_fail_with_the_cut_named(client, key):
+    """A code package the head cannot materialise (its URI is in no KV)
+    fails the job before its process launches, and the job's log names
+    the cause."""
+    uri = "gcs://pkg-0000000000000000dead.zip"
+    value = uri if key == "working_dir" else [uri]
     job_id = client.submit_job(entrypoint="true", runtime_env={key: value})
     assert client.get_job_status(job_id) == JobStatus.FAILED
     info = client.get_job_info(job_id)
     assert info["returncode"] is None
-    assert f"runtime_env {key} is not supported" in client.get_job_logs(job_id)
+    log = client.get_job_logs(job_id)
+    assert "runtime_env package setup failed" in log and "not found in the cluster KV" in log
+
+
+def _pkg_entries():
+    from ray_tpu_torch._private.runtime_env_packaging import PKG_KV_NAMESPACE
+
+    return sorted(k for k in global_worker.node.gcs.kv_keys(PKG_KV_NAMESPACE)
+                  if not k.endswith(b".meta"))
+
+
+def test_a_job_runs_in_its_working_dir_with_its_py_modules(client, tmp_path):
+    """A job's ``working_dir`` is shipped as a package and extracted as
+    its cwd (its excluded file left out); its ``py_modules`` go on its
+    PYTHONPATH; the same tree submitted again adds no KV entry; the
+    job's package pins are gone once it ends."""
+    from ray_tpu_torch._private.runtime_env_packaging import default_base_dir
+
+    wd, mods = tmp_path / "job_wd", tmp_path / "mods"
+    (wd / "data").mkdir(parents=True)
+    (wd / "main.py").write_text(
+        "import json, os, sys\n"
+        "import job_helper\n"
+        "files = sorted(f for f in os.listdir('.') if not f.startswith('.'))\n"
+        "print(json.dumps({'cwd': os.getcwd(), 'files': files,\n"
+        "                  'prompts': open('prompts.txt').read().split(),\n"
+        "                  'helper': job_helper.double(21)}))\n")
+    (wd / "prompts.txt").write_text("a b c\n")
+    (wd / "data" / "big.bin").write_bytes(b"\0" * 4096)
+    (mods / "job_helper").mkdir(parents=True)
+    (mods / "job_helper" / "__init__.py").write_text("def double(x):\n    return 2 * x\n")
+    env = {"working_dir": str(wd), "py_modules": [str(mods / "job_helper")],
+           "excludes": ["data"]}
+    job_id = client.submit_job(entrypoint=f"{sys.executable} main.py", runtime_env=env)
+    assert client.wait_until_finish(job_id, timeout=T) == JobStatus.SUCCEEDED, \
+        client.get_job_logs(job_id)
+    out = json.loads(client.get_job_logs(job_id).strip().splitlines()[-1])
+    assert out["prompts"] == ["a", "b", "c"] and out["helper"] == 42
+    assert out["files"] == ["main.py", "prompts.txt"]  # "data" excluded (and the cache's
+    # .ready and .pin-<pid> markers hidden)
+    assert out["cwd"].startswith(default_base_dir()) and os.path.isdir(out["cwd"])
+    entries = _pkg_entries()
+    assert len(entries) == 2  # the working_dir and the module
+    again = client.submit_job(entrypoint=f"{sys.executable} main.py", runtime_env=env)
+    assert client.wait_until_finish(again, timeout=T) == JobStatus.SUCCEEDED
+    assert _pkg_entries() == entries
+    deadline = time.monotonic() + T
+    while any(f.startswith(".pin-") for f in os.listdir(out["cwd"])):
+        assert time.monotonic() < deadline, os.listdir(out["cwd"])
+        time.sleep(0.05)
 
 
 def test_a_job_that_calls_init_joins_the_cluster(client):

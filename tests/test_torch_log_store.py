@@ -330,16 +330,67 @@ def test_store_byte_pressure_sheds_oldest():
 
 
 def test_store_error_burst_emits_event():
+    """Six stderr lines that carry ``ERROR`` make one burst in both
+    stores (the JAX store counts any stderr line, the port's those with
+    an error marker: here both count all six), and a second six inside
+    the window make none."""
     stores, events = _stores(max_lines_per_stream=1000, max_total_bytes=1 << 20,
                              max_streams=10, burst_n=5, burst_window_s=30.0)
-    _both(stores, lambda s: s.ingest("n", [_rec("w", f"err {i}", src="e") for i in range(6)],
-                                     now=T0))
+    _both(stores, lambda s: s.ingest("n", [_rec("w", f"ERROR err {i}", src="e")
+                                           for i in range(6)], now=T0))
     assert events[0] == events[1] and len(events[0]) == 1
     (source, message), kw = events[0][0]
     assert source == "log" and "error burst" in message and kw["entity_id"] == "w"
-    _both(stores, lambda s: s.ingest("n", [_rec("w", f"err2 {i}", src="e") for i in range(6)],
-                                     now=T0 + 1))
+    _both(stores, lambda s: s.ingest("n", [_rec("w", f"ERROR err2 {i}", src="e")
+                                           for i in range(6)], now=T0 + 1))
     assert events[0] == events[1] and len(events[0]) == 1
+
+
+@pytest.mark.parametrize("line,port_bursts", [
+    ("step 3: loss 0.25", False), ("warning: slow batch", False),
+    ("error without a level word", False), ("ERROR:root:bad batch", True),
+    ("2026-10-18 05:00:00 CRITICAL disk full", True), ("FATAL: cuda lost", True),
+    ("Traceback (most recent call last):", True),
+    ("[rank0]: Traceback (most recent call last):", True)])
+def test_a_stderr_line_bursts_only_with_an_error_marker(line, port_bursts):
+    """The one difference from the JAX store (ROADMAP C13): six such
+    stderr lines make a burst in the JAX store always, in the port's only
+    when they carry an error level word or a traceback head (behind a
+    rank prefix too).  Every read (``errors=True`` included) stays
+    equal."""
+    stores, events = _stores(max_lines_per_stream=1000, max_total_bytes=1 << 20,
+                             max_streams=10, burst_n=5, burst_window_s=30.0)
+    _both(stores, lambda s: s.ingest("n", [_rec("w", line, src="e") for _ in range(6)],
+                                     now=T0))
+    assert len(events[1]) == 1 and len(events[0]) == int(port_bursts)
+    assert ls.burst_line("e", line) == (port_bursts, "Traceback" in line)
+    rows = _both(stores, lambda s: s.query(errors=True))
+    assert len(rows[0]) == 6
+    _both(stores, lambda s: s.counters())
+
+
+@pytest.mark.parametrize("prefix", ["", "[rank0]: "])
+def test_every_line_of_a_stderr_traceback_counts(prefix):
+    """C13: on stderr, a traceback's head, its indented frames and the
+    exception that ends it each count toward a burst, behind a
+    launcher's rank prefix too; the plain line after it does not.  A
+    stdout record leaves the stream's traceback open."""
+    lines = [("Traceback (most recent call last):", True, True),
+             ('  File "train.py", line 7, in step', True, True),
+             ("    loss = model(batch)", True, True),
+             ("RuntimeError: CUDA error: an illegal memory access", True, False),
+             ("step 8: loss 0.25", False, False)]
+    state = False
+    for line, counts, after in lines:
+        assert ls.burst_line("e", prefix + line, state) == (counts, after), line
+        state = after
+    assert ls.burst_line("o", "step 9", True) == (False, True)
+    events = []
+    store = ls.LogStore(burst_n=4 * 3, burst_window_s=30.0,
+                        emit_fn=lambda *a, **k: events.append(a))
+    store.ingest("n", [_rec("w", prefix + line, src="e") for _ in range(3)
+                       for line, _, _ in lines], now=T0)
+    assert len(events) == 1 and "12 error/traceback lines" in events[0][1]
 
 
 def test_store_defaults_match_jax():
@@ -355,11 +406,30 @@ def test_seeded_record_streams_give_equal_reads(seed):
     """2,000 seeded records from 12 streams (stdout, stderr, logger levels,
     tracebacks, suppression markers) under tight caps, with retirement
     and LRU eviction: every read of the two stores is equal — query under
-    each filter, tail_text, counters, stats, the burst events, and what
-    retire_stale drops."""
+    each filter, tail_text, counters, stats, and what retire_stale drops.
+    The burst events differ only by C13's rule (see below)."""
     rng = np.random.default_rng(seed)
-    stores, events = _stores(max_lines_per_stream=150, max_total_bytes=60_000,
-                             max_streams=9, burst_n=4, burst_window_s=5.0)
+    caps = dict(max_lines_per_stream=150, max_total_bytes=60_000, max_streams=9,
+                burst_n=4, burst_window_s=5.0)
+    stores, events = _stores(**caps)
+    # the burst events differ in one way (ROADMAP C13): the port counts a
+    # stderr line only with an error marker or inside a traceback.  A
+    # third JAX store fed the same records, with each stderr line the port
+    # does not count relabelled stdout, emits exactly the port's events.
+    # Whether a line is inside a traceback is its stream's state, read
+    # from a fourth (port) store fed the records one at a time.
+    relabelled_events = []
+    relabelled = jax_ls.LogStore(emit_fn=lambda *a, **k: relabelled_events.append((a, k)),
+                                 **caps)
+    probe = ls.LogStore(**caps)
+
+    def relabel(rec, metas, node, now):
+        st = probe._streams.get(rec[1])
+        counts, _ = ls.burst_line(rec[2], rec[7], st is not None and st.in_traceback)
+        probe.ingest(node, [rec], metas, now=now)
+        if rec[2] == "e" and not counts:
+            return rec[:2] + ("o",) + rec[3:]
+        return rec
     srcs = ["o", "o", "o", "e", "I", "W", "E", "C", "m"]
     names = [f"worker-{i:02d}" for i in range(12)]
     for k in range(40):
@@ -368,7 +438,9 @@ def test_seeded_record_streams_give_equal_reads(seed):
         for _ in range(50):
             stream = names[int(rng.integers(len(names)))]
             src = srcs[int(rng.integers(len(srcs)))]
-            line = ("Traceback (most recent call last):" if rng.random() < 0.03
+            u = rng.random()
+            line = ("Traceback (most recent call last):" if u < 0.03
+                    else f'  File "{stream}.py", line {int(rng.integers(100))}' if u < 0.06
                     else f"{stream} says {int(rng.integers(1_000_000))}")
             batch.append(_rec(stream, line, src=src, job=f"j{int(rng.integers(3))}",
                               task=f"t{int(rng.integers(20))}",
@@ -377,11 +449,14 @@ def test_seeded_record_streams_give_equal_reads(seed):
                               ts=now))
         metas = {s: {"pid": 1000 + i} for i, s in enumerate(names)}
         _both(stores, lambda s: s.ingest("node-a" if k % 2 else "node-b", batch, metas, now=now))
+        node = "node-a" if k % 2 else "node-b"
+        relabelled.ingest(node, [relabel(r, metas, node, now) for r in batch], metas, now=now)
         if k % 7 == 3:
             victim = names[int(rng.integers(len(names)))]
-            for s in stores:
+            for s in (*stores, relabelled, probe):
                 s.retire(victim)
-    assert events[0] == events[1] and events[0]
+    assert events[0] == relabelled_events and events[0]
+    assert len(events[1]) > len(events[0])  # the JAX store also bursts on plain stderr
     for kw in ({}, {"errors": True}, {"job": "j1"}, {"task": "t3"}, {"actor": "a2"},
                {"trace": "tr4"}, {"grep": "SAYS 1"}, {"node": "node-a"}, {"pid": 1003},
                {"since_seq": 1500}, {"limit": 7}, {"stream": names[5], "errors": True}):

@@ -71,6 +71,11 @@ def ra_cluster():
         cluster = Cluster(initialize_head=True, real_processes=True,
                           head_node_args={"num_cpus": 4, "num_gpus": 2})
         try:
+            # a worker's series starts 1 s after its start-up here, or 8 s
+            # after it registered, not the head's 10 s and 60 s
+            # (test_a_workers_series_starts_after_its_warm_up)
+            global_worker.node.WORKER_WARMUP_S = 1.0
+            global_worker.node.WORKER_START_BOUND_S = 8.0
             cluster.agent_node = cluster.add_node(num_cpus=2)
             yield cluster
         finally:
@@ -108,8 +113,11 @@ def test_query_metric_returns_live_series(ra_cluster):
     rt.get([tick.remote(i) for i in range(20)], timeout=T)
 
     def has_series():
+        # a worker's series starts once its warm-up after its first task
+        # is over (the fixture's WORKER_WARMUP_S)
         q = state.query_metric("ray_tpu_proc_rss_mb", window_s=120, step_s=PUSH_S)
-        return q["series"] and any(len(s["points"]) >= 3 for s in q["series"])
+        return any(len(s["points"]) >= 3 and s["tags"].get("worker_id") not in (None, "head")
+                   for s in q["series"])
     _wait_for(has_series)
     names = {m["name"] for m in state.list_metrics()}
     assert {"ray_tpu_proc_rss_mb", "ray_tpu_sched_queue_depth", "ray_tpu_num_workers",
@@ -534,6 +542,116 @@ def test_cli_commands_exit_zero_against_the_cluster(ra_cluster):
                              env=env, capture_output=True, text=True, timeout=T)
         assert out.returncode == want, (argv, out.stdout[-2000:], out.stderr[-2000:])
         assert text in out.stdout, (argv, out.stdout[-2000:])
+
+
+@rt.remote
+class _Allocator:
+    """Allocates ``steps`` blocks of ``mb`` MB, ``step_s`` apart, in its
+    constructor (the shape of a stage that builds its model there) and
+    again in ``grow``."""
+
+    def __init__(self, steps, step_s, mb=25):
+        self.blocks = []
+        self.grow(steps, step_s, mb)
+
+    def wid(self):
+        return os.environ["RAY_TPU_TORCH_WORKER_ID"]
+
+    def grow(self, steps, step_s, mb=25):
+        for _ in range(steps):
+            self.blocks.append(b"\x01" * (mb << 20))  # written, so resident
+            time.sleep(step_s)
+        return self.wid()
+
+
+def _rss_growth_workers():
+    from ray_tpu_torch.util.doctor import run_doctor
+
+    return {f["evidence"][0]["tags"].get("worker_id") for f in run_doctor()
+            if f["rule"] == "rss_growth"}
+
+
+def test_a_workers_series_starts_after_its_warm_up():
+    """C12: the head keeps a worker's ``/proc`` rows from
+    ``WORKER_WARMUP_S`` (10 s) after its first task or constructor on, or
+    from ``WORKER_START_BOUND_S`` (60 s) after it registered if that comes
+    first; the head's own rows always, and no row of a worker it does not
+    know."""
+    from ray_tpu_torch._private.node import Node
+    from ray_tpu_torch._private.resource_spec import PROC_RSS_MB
+
+    assert (Node.WORKER_WARMUP_S, Node.WORKER_START_BOUND_S) == (10.0, 60.0)
+    head = Node.__new__(Node)  # _history_rows reads only the map of start times
+    now = time.time()
+    head._history_from = {"warm": now - 0.5, "warming": now + 1.0}
+    key = lambda wid: (("entity", "worker"), ("worker_id", wid))  # noqa: E731
+    snap = {PROC_RSS_MB: {"type": "gauge", "help": "", "values": {
+        key("warm"): 1.0, key("warming"): 2.0, key("booting"): 3.0,
+        (("entity", "head"),): 4.0}}}
+    kept = head._history_rows(snap)[PROC_RSS_MB]["values"]
+    assert sorted(kept.values()) == [1.0, 4.0]
+
+
+def test_an_actor_that_allocates_in_its_constructor_is_not_a_leak(ra_cluster):
+    """C12: a worker's trend series starts a warm-up after its first
+    finished task or actor constructor.  An actor whose constructor
+    allocates 300 MB in 12 steps at a 0.2 s push, then idles, opens no
+    ``rss_growth``; the series the TSDB keeps for it is flat."""
+    from ray_tpu_torch.util.doctor import RSS_GROWTH_MIN_MB, TREND_MIN_POINTS
+
+    a = _Allocator.remote(12, 0.25)
+    try:
+        wid = rt.get(a.wid.remote(), timeout=T)
+
+        def history():
+            q = state.query_metric("ray_tpu_proc_rss_mb", window_s=120,
+                                   tags={"worker_id": wid})
+            pts = [v for s in q["series"] for _, v in s["points"]]
+            return pts if len(pts) >= TREND_MIN_POINTS else None
+        pts = _wait_for(history)
+        assert wid not in _rss_growth_workers()
+    finally:
+        rt.kill(a)
+    assert max(pts) - min(pts) < RSS_GROWTH_MIN_MB, pts
+
+
+def test_an_actor_that_keeps_allocating_after_its_constructor_is_a_leak(ra_cluster):
+    """The other half of C12: after its constructor, an actor that keeps
+    allocating (4 MB every 0.1 s for 8 s) reads as ``rss_growth`` naming
+    its worker while it grows."""
+    a = _Allocator.remote(0, 0.0)
+    try:
+        wid = rt.get(a.wid.remote(), timeout=T)
+        a.grow.remote(80, 0.1, 4)
+        _wait_for(lambda: wid in _rss_growth_workers(), timeout=20)
+    finally:
+        rt.kill(a)
+
+
+def test_a_task_that_keeps_allocating_in_its_first_call_is_a_leak(ra_cluster, tmp_path):
+    """C12's bound: a fresh worker (its own ``env_vars``) whose first task
+    keeps allocating (2 MB every 0.1 s) gets its series
+    ``WORKER_START_BOUND_S`` (8 s here) after it registered, while that
+    task still runs, and reads as ``rss_growth`` naming it."""
+    stop, wid_file = tmp_path / "stop", tmp_path / "wid"
+
+    @rt.remote(max_retries=0, runtime_env={"env_vars": {"RA_FIRST_CALL_LEAK": "1"}})
+    def leak(stop, wid_file, limit_s):
+        with open(wid_file, "w") as f:
+            f.write(os.environ["RAY_TPU_TORCH_WORKER_ID"])
+        blocks, t0 = [], time.monotonic()
+        while not os.path.exists(stop) and time.monotonic() - t0 < limit_s:
+            blocks.append(b"\x01" * (2 << 20))  # written, so resident
+            time.sleep(0.1)
+        return len(blocks)
+
+    ref = leak.remote(str(stop), str(wid_file), 40.0)
+    try:
+        wid = _wait_for(lambda: wid_file.exists() and wid_file.read_text())
+        _wait_for(lambda: wid in _rss_growth_workers(), timeout=30)
+    finally:
+        stop.touch()
+    assert rt.get(ref, timeout=T) < 400  # it ended on the stop, not its limit
 
 
 def test_a_later_head_in_the_same_process_reports_only_its_own_events():

@@ -682,3 +682,57 @@ def test_debug_dump_writes_cluster_bundle(watchdog_cluster):
     assert os.path.isdir(os.path.join(path, "logs"))
     code, out = _cli("debug", "dump", "--label", "clidump")
     assert code == 0 and out.strip().endswith("clidump") and os.path.isdir(out.strip())
+
+
+def test_a_chatty_stderr_actor_opens_no_burst_and_tracebacks_still_do(watchdog_cluster):
+    """C13: a healthy actor that writes 200 plain lines to stderr opens no
+    ``log_error_burst`` incident (the store counts a stderr line only
+    when it carries an error level word or lies in a traceback); one that
+    writes 20 tracebacks behind a launcher's ``[rank0]: `` prefix (each a
+    head, a frame and its exception) still opens it."""
+    rt = watchdog_cluster
+    from ray_tpu_torch.experimental.state import api as state
+
+    iid = inc.incident_id("log_error_burst", "cluster")
+
+    def burst_open():
+        return any(i["id"] == iid and i["state"] in ("open", "ack")
+                   for i in state.list_incidents())
+
+    @rt.remote
+    class Writer:
+        def chat(self, n):
+            for i in range(n):
+                print(f"step {i}: loss {1.0 / (i + 1):.4f} (progress to stderr)",
+                      file=sys.stderr)
+            sys.stderr.flush()
+            return n
+
+        def fail(self, n):
+            for i in range(n):
+                print("[rank0]: Traceback (most recent call last):", file=sys.stderr)
+                print(f'[rank0]:   File "job.py", line {i}, in step', file=sys.stderr)
+                print(f"[rank0]: ValueError: bad batch {i}", file=sys.stderr)
+            sys.stderr.flush()
+            return n
+
+    _wait_for(lambda: not burst_open(), desc="no burst open before the test")
+    chatty = Writer.remote()
+    try:
+        assert rt.get(chatty.chat.remote(200), timeout=T) == 200
+        _wait_for(lambda: state.get_log(grep="progress to stderr", limit=1000)["records"]
+                  and len(state.get_log(grep="progress to stderr",
+                                        limit=1000)["records"]) == 200,
+                  desc="the 200 lines shipped")
+        time.sleep(1.5)  # five watchdog ticks over them
+        assert not burst_open(), state.list_incidents()
+        assert not [e for e in state.list_events(source="log", limit=1000)
+                    if "error burst" in e["message"]]
+        failing = Writer.remote()
+        try:
+            assert rt.get(failing.fail.remote(20), timeout=T) == 20
+            _wait_for(burst_open, desc="the traceback burst opened")
+        finally:
+            rt.kill(failing)
+    finally:
+        rt.kill(chatty)
