@@ -355,14 +355,47 @@ the backward kernels):
     the venv's build and cache hit, the replay's seconds, the resume's
     wall against the first run's, the launches, the phase's wall, and the
     card's name and power limit.
+37. ``tenant_front_doors_gpt2`` (after 36): GPT-2 125M bf16 (seed 0)
+    behind the cluster's remote front doors, on a head in this process
+    with its dashboard and a proxy process started with ``--head auto``.
+    (a) Two client processes with no card join through the proxy
+    (``ray_tpu_torch://``, namespaces "a" and "b"); each starts a named
+    ``"engine"`` actor on a quarter of the card and generates 35's 8 x 32
+    greedy tokens: equal to an engine's here, 12 ``flash_fwd`` launches
+    each on the tensor cores, the names apart (each lookup finds its own,
+    the default namespace neither), both tenants proxied in
+    ``list_tenants`` and ``python -m ray_tpu_torch list tenants``, and
+    the clients free of torch.  (b) A ``client://`` process with no card
+    puts 64 MiB of ids; a quarter-card task reads them onto the card and
+    returns GPT-2's logits of the first 16 as a card tensor, which the
+    client gets as an equal CPU tensor; its ``experimental_compile``
+    raises the thin-client error.  (e) The dashboard: the card's
+    ``"GPU"`` in ``/api/cluster_status``, the engines' pushed series in
+    ``/metrics``, a card row for each engine in ``/api/top``, and
+    ``/api/profile`` of tenant b's engine finding its decode loop while
+    it generates 40 times.  (c) ``ChaosMonkey.kill_tenant_driver`` while
+    tenant a generates: its actor DEAD and its share back within 10 s,
+    b's streams unchanged, the kill on record, and after b's
+    ``shutdown()`` the doctor's ``tenant_killed`` naming a alone.  (d)
+    ``serve-deploy`` PUTs a config to the dashboard: an app module
+    written here, ``llm_deployment`` with 2 replicas on a quarter of the
+    card each; 16 keep-alive clients x 8 requests of 32 greedy tokens,
+    ``kill_serve_replica`` after the 20th reply, then 16 x 8 again: no
+    request lost, no transport error, every reply equal to (a)'s
+    reference, the replica replaced on the freed share, the ingress's
+    deaths and retries grown, p99 under 10 s, no ``ingress_shedding`` or
+    ``drain_stuck``; the config scaled to 1 replica, then deleted.
+    Prints the put's and the get's seconds and bytes, the recovery's
+    seconds, p50/p99 before, during and after it, the launches and the
+    phase's wall.
 
 Every bf16 launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 on the serving and training paths has to run the tensor-core design
 (their ``_tc`` launch counts equal their totals; the profiled steps find
 only the ``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
 summed over the serving, training, Tune, RL, Data, Serve, graph,
-util-pool, multi-node pipeline, watched pipeline, operator-job and durable-job
-runs, and per run), the card's name
+util-pool, multi-node pipeline, watched pipeline, operator-job, durable-job
+and front-door runs, and per run), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": {...}}``.  Exits non-zero,
 printing no result, when there is no CUDA device or any phase fails.
@@ -3461,14 +3494,27 @@ def _wrap_folds(node):
 
 def _gil_lateness(state, wids):
     """Each origin's ``ray_tpu_gil_lateness_frac`` in the head's TSDB: its
-    role (a scorer in ``wids``, the head, or another worker), its
-    highest point and its last four, which the doctor's
-    ``gil_saturation`` reads."""
+    role (a scorer in ``wids``, the head, or another worker), what it
+    runs (its actor's class, else the names and counts of the tasks its
+    pid ran, else "idle"), its CPU share in ``top``, its highest point and
+    its last four, which the doctor's ``gil_saturation`` reads."""
+    import collections
+
+    pids = {w["worker_id"]: w.get("pid") for w in state.list_workers(limit=100000)}
+    classes = {a["worker_id"]: a["class_name"] for a in state.list_actors(limit=100000)
+               if a.get("worker_id")}
+    ran = collections.defaultdict(collections.Counter)
+    for t in state.list_tasks(limit=100000):
+        if t.get("worker_pid") is not None:
+            ran[t["worker_pid"]][t["name"]] += 1
+    cpu = {w["worker_id"]: w.get("cpu_pct") for w in state.top_snapshot()["workers"]}
     out = {}
     for s in state.query_metric("ray_tpu_gil_lateness_frac", window_s=600)["series"]:
         o, pts = s["tags"].get("origin"), [v for _, v in s["points"]]
         if pts:
+            runs = classes.get(o) or dict(ran.get(pids.get(o), {})) or "idle"
             out[o] = {"role": "scorer" if o in wids else "head" if o == "head" else "other",
+                      "runs": runs, "pid": pids.get(o), "cpu_pct": cpu.get(o),
                       "max": max(pts), "last4": pts[-4:], "points": len(pts)}
     return out
 
@@ -3619,7 +3665,6 @@ def phase_util_pool_bert_accounting(served, predict_rates):
         check(driver >= batch_bytes, f"{phase}: the driver owns {driver} bytes, want at least "
                                      f"the batches' {batch_bytes}")
         event_rules = {r.__name__[len("_rule_"):] for r in doctor.RULES}
-        scorer_gil = _gil_lateness(state, wids)
 
         def excused(f):
             """``gil_saturation`` on a scorer: its own lateness while it
@@ -3627,9 +3672,14 @@ def phase_util_pool_bert_accounting(served, predict_rates):
             prints it), the one finding a healthy pool shows."""
             return (f["rule"] == "gil_saturation"
                     and f["evidence"][0]["tags"].get("origin") in wids)
+        # the doctor and the CLI read the head first: the diagnostics'
+        # table reads (``_gil_lateness``) come after them, or in a failure's
+        # message, so they add no wait to the locks the doctor judges
         findings = state.doctor_report()
         trends = [f for f in findings if f["rule"] not in event_rules and not excused(f)]
-        check(not trends, f"{phase}: the doctor reports trend findings {trends}")
+        check(not trends, f"{phase}: the doctor reports trend findings {trends}; GIL "
+                          f"lateness by origin {_gil_lateness(state, wids) if trends else None}; "
+                          f"head locks {_lock_rows()}")
         host, port = node.tcp_address
         env = {**os.environ, "RAY_TPU_TORCH_ADDRESS": f"tcp://{host}:{port}",
                "RAY_TPU_TORCH_AUTHKEY": node.authkey.hex()}
@@ -3643,7 +3693,9 @@ def phase_util_pool_bert_accounting(served, predict_rates):
                for argv, p, (out, err) in zip(POOL_CLI, procs, outs) if p.returncode != 0
                and not (argv[0] == "doctor" and p.returncode == 1
                         and all(excused(f) for f in json.loads(out)))]
-        check(not bad, f"{phase}: CLI commands failed: {bad}")
+        check(not bad, f"{phase}: CLI commands failed: {bad}; GIL lateness by origin "
+                       f"{_gil_lateness(state, wids) if bad else None}")
+        scorer_gil = _gil_lateness(state, wids)
         tsdb_stats = node.tsdb.stats()
         fold_ms = sorted(folds)[len(folds) // 2] * 1e3 if folds else None
         worker_push_bytes = {w: push_bytes.get(w) for w in wids}
@@ -5853,6 +5905,638 @@ def _pids_of(*needles):
     return out
 
 
+
+# tenant_front_doors_gpt2: GPT-2 125M bf16 (seed 0) behind the cluster's
+# remote front doors.  Two tenants through a proxy process each hold a
+# named "engine" actor on TFD_SHARE of the card and generate
+# operator_job_gpt2's 8 prompts x 32 greedy tokens (every prompt queued
+# before the engine starts, as there); a client:// process with no card
+# puts TFD_THIN_IDS int64 ids (64 MiB) that a TFD_SHARE task reads onto
+# the card for GPT-2's logits of its first TFD_THIN_PROMPT ids; a Serve
+# app of 2 llm_deployment replicas at TFD_SHARE, with the tenants'
+# engine settings, is deployed over the dashboard's REST API and served
+# to TFD_HTTP_CLIENTS keep-alive clients x TFD_HTTP_PER_CLIENT requests,
+# one replica SIGKILLed after reply TFD_KILL_AFTER, then as many again
+# once the replica is replaced.  One prefill bucket makes every prefill
+# n_slots x 128 and every decode step n_slots rows, so a request's tokens
+# do not depend on what shares its batch, and each reply equals the
+# in-process engine's stream whatever the arrival order.
+TFD_ENGINE = dict(n_slots=8, max_new_tokens=32, decode_chunk_steps=16, prefill_buckets=(128,))
+TFD_SHARE, TFD_THIN_IDS, TFD_THIN_PROMPT = 0.25, 8 << 20, 16
+TFD_HTTP_CLIENTS, TFD_HTTP_PER_CLIENT, TFD_KILL_AFTER = 16, 8, 20
+# seconds: a share's return after a tenant's kill, a reply's p99 under
+# chaos, the wait for any one step of the phase
+TFD_FREE_S, TFD_P99_S, TFD_WAIT_S = 10.0, 10.0, 600
+
+# A tenant's client, "a laptop": ``python3 -c TENANT_CLIENT ARGS_JSON``
+# with no card.  It joins through the proxy, starts its named engine
+# actor and answers on stdin: "generate [N]" (N generations back to
+# back, the last one's RESULT line), "loop" (until killed), "exit".
+TENANT_CLIENT = r'''
+import json, os, sys, time
+
+import ray_tpu_torch as rt
+
+args = json.loads(sys.argv[1])
+rt.init(args["address"], namespace=args["namespace"])
+
+
+class TenantEngine:
+    """GPT-2 (seed 0) on this actor's grant; each generate builds an
+    engine over the same weights with every prompt queued before it
+    starts, so one prefill admits them all."""
+
+    def __init__(self):
+        import torch
+        from ray_tpu_torch.serve.llm import _default_init, make_config
+
+        self.cfg = make_config("gpt2", "125m")
+        self.device = torch.device("cuda")
+        self.params = _default_init(self.cfg, 0, self.device)
+
+    def ident(self):
+        return {"pid": os.getpid(), "worker_id": os.environ["RAY_TPU_TORCH_WORKER_ID"],
+                "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    def generate(self, prompts, new_tokens, engine, reps=1):
+        from ray_tpu_torch.ops import _build
+        from ray_tpu_torch.ops import attention as attn
+        from ray_tpu_torch.serve.llm import GenerationEngine
+
+        engine = dict(engine, prefill_buckets=tuple(engine["prefill_buckets"]))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            eng = GenerationEngine(self.cfg, params=self.params, device=self.device, **engine)
+            futs = [eng.submit(p, new_tokens) for p in prompts]
+            eng.start()
+            try:
+                streams = [f.result(timeout=600) for f in futs]
+            finally:
+                eng.stop()
+        return {"streams": streams, "generate_s": time.perf_counter() - t0,
+                "flash_fwd": _build.launches.get(attn.KERNEL, 0),
+                "flash_fwd_tc": _build.launches.get(attn.FWD_TC, 0)}
+
+
+eng = rt.remote(num_gpus=args["num_gpus"])(TenantEngine).options(name="engine").remote()
+ident = rt.get(eng.ident.remote(), timeout=600)
+ctx = rt.get_runtime_context()
+print("READY " + json.dumps(dict(ident, job_id=ctx.job_id, namespace=ctx.namespace,
+                                 actor_id=eng._actor_id.hex(), client_pid=os.getpid(),
+                                 lookup_actor_id=rt.get_actor("engine")._actor_id.hex(),
+                                 torch_in_client="torch" in sys.modules)), flush=True)
+work = (args["prompts"], args["new_tokens"], args["engine"])
+for line in sys.stdin:
+    cmd, _, n = line.strip().partition(" ")
+    if cmd == "generate":
+        out = rt.get(eng.generate.remote(*work, int(n or 1)), timeout=900)
+        print("RESULT " + json.dumps(out), flush=True)
+    elif cmd == "loop":
+        print("LOOPING", flush=True)
+        while True:
+            rt.get(eng.generate.remote(*work), timeout=900)
+    elif cmd == "exit":
+        break
+rt.shutdown()
+print("BYE", flush=True)
+'''
+
+# The thin client, with no card: ``python3 -c THIN_CLIENT ARGS_JSON``.
+THIN_CLIENT = r'''
+import json, os, sys, time
+
+import numpy as np
+import ray_tpu_torch as rt
+
+args = json.loads(sys.argv[1])
+rt.init(args["address"])
+ids = np.random.default_rng(0).integers(1, 50000, args["n_ids"], dtype=np.int64)
+t0 = time.perf_counter()
+ref = rt.put(ids)
+put_s = time.perf_counter() - t0
+
+
+@rt.remote(num_gpus=args["num_gpus"])
+def logits_of(ids, prompt_len):
+    """GPT-2 125M's logits (seed 0) of the first prompt_len ids, all
+    ids read onto the card first: a tensor on the card."""
+    import torch
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.serve.llm import _default_init, make_config
+
+    cfg = make_config("gpt2", "125m")
+    x = torch.from_numpy(ids).to("cuda")
+    params = _default_init(cfg, 0, torch.device("cuda"))
+    _build.reset_launches()
+    with torch.inference_mode():
+        logits = gpt2.apply(params, x[:prompt_len][None], cfg)[0].float()
+    return {"logits": logits, "ids_sum": int(x.sum()), "ids_device": str(x.device),
+            "flash_fwd": _build.launches.get(attn.KERNEL, 0),
+            "flash_fwd_tc": _build.launches.get(attn.FWD_TC, 0)}
+
+
+out_ref = logits_of.remote(ref, args["prompt_len"])
+rt.wait([out_ref], timeout=600)
+import torch  # the get below unpickles a tensor; its import is not the get's
+
+t0 = time.perf_counter()
+out = rt.get(out_ref, timeout=600)
+get_s = time.perf_counter() - t0
+logits = out.pop("logits")
+torch.save(logits, args["out"])
+
+from ray_tpu_torch.dag import InputNode
+from ray_tpu_torch.dag.compiled import CompiledGraphError
+
+
+@rt.remote
+class Echo:
+    def f(self, x):
+        return x
+
+
+with InputNode() as inp:
+    dag = Echo.bind().f.bind(inp)
+try:
+    dag.experimental_compile()
+    refused = None
+except CompiledGraphError as e:
+    refused = str(e)
+from ray_tpu_torch._private.worker import global_worker
+
+print("THIN_RESULT " + json.dumps(dict(
+    out, put_s=put_s, put_bytes=int(ids.nbytes), get_s=get_s,
+    get_bytes=int(logits.numel() * logits.element_size()), logits_device=str(logits.device),
+    logits_shape=list(logits.shape), ids_sum_here=int(ids.sum()),
+    card_here=torch.cuda.is_available(), thin=global_worker.thin_client,
+    compile_refused=refused)), flush=True)
+rt.shutdown()
+'''
+
+TFD_APP = """from ray_tpu_torch.serve.llm import llm_deployment
+
+app = llm_deployment("gpt2", "125m", name="tenant_llm", num_replicas=2,
+                     num_gpus={share!r}, engine_kwargs={engine!r}).bind()
+"""
+
+
+def _tfd_line(proc, token, timeout=TFD_WAIT_S):
+    """The first stdout line of ``proc`` that starts with ``token``, its
+    JSON tail parsed (fails on the process's exit or the timeout)."""
+    box = {}
+
+    def read():
+        for line in proc.stdout:
+            if line.startswith(token):
+                box["line"] = line[len(token):].strip()
+                return
+
+    t = threading.Thread(target=read, daemon=True)
+    t.start()
+    t.join(timeout)
+    check("line" in box, f"tenant_front_doors_gpt2: no {token!r} line within {timeout} s "
+                         f"(exit {proc.poll()})")
+    return json.loads(box["line"]) if box["line"] else None
+
+
+def _tfd_send(proc, cmd):
+    proc.stdin.write(cmd + "\n")
+    proc.stdin.flush()
+
+
+def _tfd_soak(host, port, prompts, kill, clients=TFD_HTTP_CLIENTS, per=TFD_HTTP_PER_CLIENT):
+    """``clients`` keep-alive clients x ``per`` POSTs of 32 greedy tokens
+    each (idempotency keys, so the ingress retries a dead replica's
+    requests); ``kill()`` runs once, after reply ``TFD_KILL_AFTER``.
+    Returns each reply's (end, latency, prompt index, tokens), the lost
+    requests (accepted, then failed), the transport errors, the kill's
+    record and its monotonic time (``kill`` None: no kill, None, None)."""
+    import http.client
+    import uuid
+
+    lock, replies, lost, errors, box = threading.Lock(), [], [], [], {}
+    fire = threading.Event()
+
+    def client(c):
+        conn = http.client.HTTPConnection(host, port, timeout=TFD_WAIT_S)
+        try:
+            for r in range(per):
+                i = (c * per + r) % len(prompts)
+                body = json.dumps({"tokens": prompts[i], "max_new_tokens": OP_NEW_TOKENS})
+                key, deadline = uuid.uuid4().hex, time.monotonic() + 120
+                while True:
+                    t0 = time.monotonic()
+                    try:
+                        conn.request("POST", "/gpt2", body=body, headers={
+                            "Content-Type": "application/json", "X-Idempotency-Key": key})
+                        resp = conn.getresponse()
+                        data, status = resp.read(), resp.status
+                    except (OSError, http.client.HTTPException) as e:
+                        conn.close()
+                        conn = http.client.HTTPConnection(host, port, timeout=TFD_WAIT_S)
+                        if time.monotonic() < deadline:
+                            continue
+                        with lock:
+                            errors.append(repr(e))
+                        break
+                    if status == 503 and time.monotonic() < deadline:
+                        time.sleep(min(float(resp.headers.get("Retry-After") or 0.2), 0.5))
+                        continue
+                    with lock:
+                        if status == 200:
+                            replies.append((time.monotonic(), time.monotonic() - t0, i,
+                                            json.loads(data)["tokens"]))
+                            if len(replies) == TFD_KILL_AFTER:
+                                fire.set()
+                        else:
+                            lost.append((status, data[:200]))
+                    break
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for t in threads:
+        t.start()
+    if kill is not None:
+        check(fire.wait(TFD_WAIT_S), "tenant_front_doors_gpt2: the soak never reached its kill")
+        box["t_kill"] = time.monotonic()
+        box["rec"] = kill()
+    for t in threads:
+        t.join(TFD_WAIT_S)
+    check(not any(t.is_alive() for t in threads), "tenant_front_doors_gpt2: soak clients wedged")
+    return replies, lost, errors, box.get("rec"), box.get("t_kill")
+
+
+def phase_tenant_front_doors_gpt2():
+    """The thin client, the multi-tenant proxy, the chaos harness and the
+    dashboard over GPT-2 125M on the card (see the module doc).  Returns
+    the flash_fwd launches of the tenants' engines, the thin client's
+    task and the Serve replicas that lived to the end."""
+    import http.client
+    import subprocess as sp
+    import tempfile
+    import urllib.request
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve as rt_serve
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.devtools.chaos import ChaosMonkey
+    from ray_tpu_torch.experimental.state import api as state
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve.llm import GenerationEngine, _default_init, make_config
+
+    phase, t_phase, card = "tenant_front_doors_gpt2", time.perf_counter(), nvidia_smi()
+    cfg = make_config("gpt2", "125m")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 50000, int(rng.integers(16, 100))).tolist()
+               for _ in range(OP_PROMPTS)]
+    root = tempfile.mkdtemp(prefix="tfd_")
+    with open(os.path.join(root, "tfd_serve_app.py"), "w") as f:
+        f.write(TFD_APP.format(share=TFD_SHARE, engine=dict(TFD_ENGINE, seed=0)))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    pythonpath = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, repo, os.environ.get("PYTHONPATH")) if p)
+    sys.path.insert(0, root)
+    os.environ["RAY_TPU_TORCH_METRICS_PUSH_S"] = "0.5"
+    procs, launches, row, laptop = [], {}, {}, {}
+
+    def count(out):
+        for k, n in ((attn.KERNEL, out["flash_fwd"]), (attn.FWD_TC, out["flash_fwd_tc"])):
+            launches[k] = launches.get(k, 0) + n
+
+    def start(args, script):
+        p = sp.Popen([sys.executable, "-c", script, json.dumps(args)], env=laptop, cwd=repo,
+                     stdin=sp.PIPE, stdout=sp.PIPE, text=True, bufsize=1)
+        procs.append(p)
+        return p
+
+    t0 = time.perf_counter()
+    rt.init(num_cpus=8, num_gpus=1)
+    node = global_worker.node
+    head = node._head_node_id
+    # the tenants' and the thin client's processes: no card, the key
+    laptop.update(os.environ, CUDA_VISIBLE_DEVICES="", RAY_TPU_TORCH_AUTHKEY=node.authkey.hex())
+    try:
+        row["head_up_s"] = time.perf_counter() - t0
+        check(node.dashboard is not None, f"{phase}: the head started no dashboard")
+        dash = "http://%s:%d" % tuple(node.dashboard.address)
+
+        def get(path, raw=False):
+            with urllib.request.urlopen(dash + path, timeout=TFD_WAIT_S) as r:
+                body = r.read().decode()
+            return body if raw else json.loads(body)
+
+        # the proxy, a process of its own, finds the head by its record
+        t0 = time.perf_counter()
+        proxy = sp.Popen([sys.executable, "-m", "ray_tpu_torch.util.client.proxier", "--head",
+                          "auto", "--port", "0"], cwd=repo, stdout=sp.PIPE, text=True)
+        procs.append(proxy)
+        line = proxy.stdout.readline()
+        m = re.search(r"proxy on ([\d.]+):(\d+) -> (\S+)", line)
+        check(m is not None and m.group(3) == "tcp://%s:%d" % node.tcp_address,
+              f"{phase}: the proxy printed {line!r}")
+        row["proxy_up_s"] = time.perf_counter() - t0
+        proxied = f"ray_tpu_torch://{m.group(1)}:{m.group(2)}"
+
+        # (a) two tenants through the proxy
+        base = {"address": proxied, "num_gpus": TFD_SHARE, "prompts": prompts, "new_tokens": OP_NEW_TOKENS, "engine": TFD_ENGINE}
+        t0 = time.perf_counter()
+        tenants = {ns: start(dict(base, namespace=ns), TENANT_CLIENT) for ns in ("a", "b")}
+        ready = {ns: _tfd_line(p, "READY ") for ns, p in tenants.items()}
+        row["tenants_ready_s"] = time.perf_counter() - t0
+        for p in tenants.values():
+            _tfd_send(p, "generate")
+        first = {ns: _tfd_line(p, "RESULT ") for ns, p in tenants.items()}
+        ref = GenerationEngine(cfg, seed=0, device="cuda", **TFD_ENGINE)
+        futs = [ref.submit(p, OP_NEW_TOKENS) for p in prompts]
+        ref.start()
+        try:
+            want = [f.result(timeout=TFD_WAIT_S) for f in futs]
+        finally:
+            ref.stop()
+        for ns, out in first.items():
+            check(out["streams"] == want, f"{phase}: tenant {ns}'s streams differ from the "
+                                          "engine's in this process")
+            check_tensor_cores(f"{phase} (tenant {ns})", out, cfg.n_layers)
+            count(out)
+        a, b = ready["a"], ready["b"]
+        check(a["actor_id"] != b["actor_id"] and all(
+            r["lookup_actor_id"] == r["actor_id"] for r in (a, b)),
+              f"{phase}: the tenants' engines collide: {a} {b}")
+        try:
+            rt.get_actor("engine")
+            check(False, f"{phase}: the default namespace sees a tenant's engine")
+        except ValueError:
+            pass
+        check(not (a["torch_in_client"] or b["torch_in_client"]),
+              f"{phase}: a tenant's client imported torch")
+        check({r["cuda_visible_devices"] for r in (a, b)} == {"0"},
+              f"{phase}: the engines' grants {a['cuda_visible_devices']}, "
+              f"{b['cuda_visible_devices']}")
+        rows = {r["job_id"]: r for r in state.list_tenants()}
+        for r in (a, b):
+            t = rows.get(r["job_id"], {})
+            check(t.get("proxied") and t.get("alive") and t.get("namespace") == r["namespace"]
+                  and t.get("pid") and t.get("actors") == 1,
+                  f"{phase}: list_tenants row {t} for {r['job_id']}")
+        host, port = node.tcp_address
+        cli_env = dict(os.environ, RAY_TPU_TORCH_ADDRESS=f"tcp://{host}:{port}",
+                       RAY_TPU_TORCH_AUTHKEY=node.authkey.hex())
+        listed = sp.run([sys.executable, "-m", "ray_tpu_torch", "list", "tenants"], cwd=repo,
+                        env=cli_env, capture_output=True, text=True, timeout=TFD_WAIT_S)
+        check(listed.returncode == 0 and all(
+            r["job_id"] in listed.stdout and str(rows[r["job_id"]]["pid"]) in listed.stdout
+            for r in (a, b)), f"{phase}: `list tenants` printed {listed.stdout[-2000:]}")
+        row["tenants"] = {ns: {"job_id": r["job_id"], "driver_pid": rows[r["job_id"]]["pid"],
+                               "engine_pid": r["pid"], "engine_worker_id": r["worker_id"],
+                               "generate_s": first[ns]["generate_s"]}
+                          for ns, r in ready.items()}
+
+        # (b) a thin client with no card
+        want_logits = None
+        with torch.inference_mode():
+            ids = np.random.default_rng(0).integers(1, 50000, TFD_THIN_IDS, dtype=np.int64)
+            params = _default_init(cfg, 0, torch.device("cuda"))
+            want_logits = gpt2.apply(params, torch.from_numpy(ids[:TFD_THIN_PROMPT]).to(
+                "cuda")[None], cfg)[0].float().cpu()
+            del params
+        out_path = os.path.join(root, "thin_logits.pt")
+        t0 = time.perf_counter()
+        thin = start({"address": "client://%s:%d" % node.tcp_address,
+                      "num_gpus": TFD_SHARE, "n_ids": TFD_THIN_IDS,
+                      "prompt_len": TFD_THIN_PROMPT, "out": out_path}, THIN_CLIENT)
+        tr = _tfd_line(thin, "THIN_RESULT ")
+        thin.wait(TFD_WAIT_S)
+        row["thin_client_s"] = time.perf_counter() - t0
+        got = torch.load(out_path)
+        check(tr["thin"] and not tr["card_here"] and tr["logits_device"] == "cpu",
+              f"{phase}: the thin client's result {tr}")
+        check(tr["ids_sum"] == tr["ids_sum_here"] == int(ids.sum())
+              and tr["ids_device"].startswith("cuda"),
+              f"{phase}: the task read {tr['ids_sum']} on {tr['ids_device']}")
+        err = float((got - want_logits).abs().max())
+        check(got.shape == want_logits.shape and torch.equal(got, want_logits),
+              f"{phase}: the thin client's logits differ from this process's by {err}")
+        check(tr["compile_refused"] is not None and "client://" in tr["compile_refused"],
+              f"{phase}: a thin client compiled a graph ({tr['compile_refused']})")
+        check_tensor_cores(f"{phase} (thin task)", tr, cfg.n_layers)
+        count(tr)
+        row["thin_client"] = {k: tr[k] for k in ("put_s", "put_bytes", "get_s", "get_bytes",
+                                                 "logits_shape")}
+        row["thin_client"]["max_abs_err"] = err
+        del want_logits, got
+
+        # (e) the dashboard's reads, both tenants' engines alive
+        status = get("/api/cluster_status")
+        check(status["cluster_resources"][head].get("GPU") == 1.0,
+              f"{phase}: /api/cluster_status {status['cluster_resources']}")
+        wids = {r["worker_id"] for r in (a, b)}
+        deadline = time.monotonic() + 30
+        while True:
+            metrics = get("/metrics", raw=True)
+            top = get("/api/top")
+            cards = {r["tags"].get("origin") for r in top["hbm"]
+                     if r["tags"].get("kind") == "hbm"}
+            if ("ray_tpu_llm_ttft_s_bucket" in metrics and wids <= cards
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.5)
+        check("ray_tpu_llm_ttft_s_bucket" in metrics and "ray_tpu_hbm_bytes_in_use" in metrics,
+              f"{phase}: /metrics lacks the engines' pushed series")
+        check(wids <= cards, f"{phase}: /api/top card rows of {cards}, want {sorted(wids)}: "
+                             f"{top['hbm']}")
+        _tfd_send(tenants["b"], "generate 40")
+        time.sleep(1.0)
+        prof = get(f"/api/profile?duration=2&worker_id={b['worker_id']}")
+        loop = sum(r["samples"] for r in prof.get("report") or []
+                   if re.search(r"decode|generate|_loop", r["stack"]))
+        check(prof.get("target") == b["worker_id"] and loop > 0,
+              f"{phase}: /api/profile of tenant b's engine {str(prof)[:1500]}")
+        again = _tfd_line(tenants["b"], "RESULT ")
+        check(again["streams"] == want, f"{phase}: tenant b's repeated streams differ")
+        check_tensor_cores(f"{phase} (tenant b, profiled)", again, 40 * cfg.n_layers)
+        count(again)
+        row["dashboard"] = {"profile_decode_samples": loop,
+                            "profile_samples": sum(r["samples"] for r in prof["report"]),
+                            "top_card_rows": len(cards), "metrics_bytes": len(metrics)}
+
+        # (c) chaos on tenant a while it generates
+        gpu0 = node.nodes[head].available.get("GPU", 0.0)
+        _tfd_send(tenants["a"], "loop")
+        _tfd_line(tenants["a"], "LOOPING")
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        rec = ChaosMonkey(node=node).kill_tenant_driver(namespace="a")
+        check(rec["pid"] == rows[a["job_id"]]["pid"], f"{phase}: chaos killed {rec}")
+
+        def a_freed():
+            with node.gcs.lock:
+                info = [x for x in node.gcs.actors.values() if x.actor_id.hex() == a["actor_id"]]
+            return (info and info[0].state == "DEAD"
+                    and node.nodes[head].available.get("GPU", 0.0) >= gpu0 + TFD_SHARE - 1e-9)
+        while not a_freed() and time.perf_counter() - t0 < TFD_FREE_S:
+            time.sleep(0.05)
+        free_s = time.perf_counter() - t0
+        check(a_freed(), f"{phase}: tenant a's engine or its share not back in {TFD_FREE_S} s "
+                         f"(GPU available {node.nodes[head].available.get('GPU')}, was {gpu0})")
+        _tfd_send(tenants["b"], "generate")
+        after = _tfd_line(tenants["b"], "RESULT ")
+        check(after["streams"] == want, f"{phase}: tenant b's streams changed after a's kill")
+        count(after)
+        events = state.list_events(limit=100_000, source="chaos")
+        check(any(e.get("message") == "inject kill_tenant_driver"
+                  and e.get("entity_id") == a["job_id"] for e in events),
+              f"{phase}: the kill is not on record")
+        _tfd_send(tenants["b"], "exit")
+        _tfd_line(tenants["b"], "BYE")
+        check(tenants["b"].wait(TFD_WAIT_S) == 0, f"{phase}: tenant b exited non-zero")
+        tenants["a"].kill()
+        tenants["a"].wait(TFD_WAIT_S)
+        deadline = time.monotonic() + 30
+        while not [r for r in state.list_tenants()
+                   if r["job_id"] == b["job_id"] and not r["alive"]]:
+            check(time.monotonic() < deadline, f"{phase}: tenant b's exit not seen")
+            time.sleep(0.1)
+        killed = [f for f in state.doctor_report() if f["rule"] == "tenant_killed"]
+        check(len(killed) == 1 and a["job_id"] in killed[0]["summary"]
+              and b["job_id"] not in killed[0]["summary"],
+              f"{phase}: the doctor's tenant_killed {killed}")
+        row["chaos_tenant"] = {"share_back_s": free_s, "killed_driver_pid": rec["pid"],
+                               "doctor": killed[0]["summary"]}
+
+        # (d) a Serve app deployed over REST, under chaos
+        rt_serve.start(rt_serve.HTTPOptions(host="127.0.0.1", port=0))
+        sclient = rt_serve.api._get_client()
+        config = {"applications": [{
+            "name": "gpt2_app", "import_path": "tfd_serve_app:app", "route_prefix": "/gpt2",
+            "deployments": [{"name": "tenant_llm", "num_replicas": 2}]}]}
+        cfg_path = os.path.join(root, "serve_config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(config, f)
+        t0 = time.perf_counter()
+        dep = sp.run([sys.executable, "-m", "ray_tpu_torch", "serve-deploy", cfg_path], cwd=repo,
+                     env=cli_env, capture_output=True, text=True, timeout=TFD_WAIT_S)
+        check(dep.returncode == 0 and json.loads(dep.stdout)["deployed"] == ["tenant_llm"],
+              f"{phase}: serve-deploy {dep.returncode} {dep.stdout[-800:]} {dep.stderr[-800:]}")
+        row["serve_deploy_s"] = time.perf_counter() - t0
+        deadline = time.monotonic() + TFD_WAIT_S
+        while len(replicas := replica_actors(rt, rt_serve, "tenant_llm")) < 2:
+            check(time.monotonic() < deadline, f"{phase}: {len(replicas)} replicas running")
+            time.sleep(0.25)
+        row["serve_ready_s"] = time.perf_counter() - t0
+        grants = rt.get([r._submit_compiled_task(_card_grant, (), name="grant") for r in replicas],
+                        timeout=60)
+        check(all(g == ("0", [0]) for g in grants), f"{phase}: the replicas' grants {grants}")
+        want_serve = want  # the tenants' engine settings: (a)'s reference streams
+        shost, sport = rt_serve.get_http_address()
+        conn = http.client.HTTPConnection(shost, sport, timeout=TFD_WAIT_S)
+        conn.request("POST", "/gpt2", body=json.dumps({"tokens": prompts[0],
+                                                       "max_new_tokens": OP_NEW_TOKENS}))
+        warm = json.loads(conn.getresponse().read())["tokens"]
+        conn.close()
+        check(warm == want_serve[0], f"{phase}: the app's first reply differs")
+        actor_launches(rt, replicas, reset=True)
+        stats0 = rt.get(sclient.proxy.ingress_stats.remote(), timeout=60)
+        gpu1 = node.nodes[head].available.get("GPU", 0.0)
+        replies, lost, errors, krec, t_kill = _tfd_soak(
+            shost, sport, prompts,
+            lambda: ChaosMonkey(node=node).kill_serve_replica("tenant_llm",
+                                                              controller=sclient.controller))
+        dead = krec["target"]
+        recovery_s = None
+        while recovery_s is None and time.monotonic() - t_kill < TFD_WAIT_S:
+            info = rt.get(sclient.controller.get_routing_info.remote("tenant_llm"), timeout=60)
+            if dead not in {t for t, _ in info["replicas"]} and len(info["replicas"]) >= 2:
+                recovery_s = time.monotonic() - t_kill
+            else:
+                time.sleep(0.25)
+        check(recovery_s is not None, f"{phase}: the killed replica was never replaced")
+        after, lost2, errors2, _, _ = _tfd_soak(shost, sport, prompts, None)
+        check(not (lost or errors or lost2 or errors2),
+              f"{phase}: lost {(lost + lost2)[:5]}, transport errors {(errors + errors2)[:5]}")
+        check(len(replies) == len(after) == TFD_HTTP_CLIENTS * TFD_HTTP_PER_CLIENT,
+              f"{phase}: {len(replies)} replies under the kill, {len(after)} after it")
+        bad = [(i, toks) for _, _, i, toks in replies + after if toks != want_serve[i]]
+        check(not bad, f"{phase}: {len(bad)} replies differ from the in-process engine's")
+        replicas = replica_actors(rt, rt_serve, "tenant_llm")
+        grants = rt.get([r._submit_compiled_task(_card_grant, (), name="grant") for r in replicas],
+                        timeout=60)
+        check(len(replicas) == 2 and all(g == ("0", [0]) for g in grants)
+              and abs(node.nodes[head].available.get("GPU", 0.0) - gpu1) < 1e-9,
+              f"{phase}: after recovery {len(replicas)} replicas, grants {grants}, GPU available "
+              f"{node.nodes[head].available.get('GPU')} (was {gpu1})")
+        stats1 = rt.get(sclient.proxy.ingress_stats.remote(), timeout=60)
+        check(stats1["replica_deaths"] > stats0["replica_deaths"]
+              and stats1["retries"] > stats0["retries"],
+              f"{phase}: ingress stats {stats0} -> {stats1}")
+        lat = lambda sel: [l for e, l, _, _ in replies if sel(e - t_kill)]
+        before = lat(lambda d: d < 0)
+        during = lat(lambda d: 0 <= d <= recovery_s)
+        after_r = lat(lambda d: d > recovery_s) + [l for _, l, _, _ in after]
+        p99 = pct([l for _, l, _, _ in replies + after], 0.99)
+        check(p99 < TFD_P99_S, f"{phase}: reply p99 {p99} s")
+        found = {f["rule"] for f in state.doctor_report()}
+        check(not found & {"ingress_shedding", "drain_stuck"}, f"{phase}: the doctor's {found}")
+        serve_launches = actor_launches(rt, replicas)
+        check_tensor_cores(f"{phase} (serve replicas)", serve_launches)
+        for k, n in serve_launches.items():
+            if k in (attn.KERNEL, attn.FWD_TC):
+                launches[k] = launches.get(k, 0) + n
+        apps = get("/api/serve/applications")
+        check(apps["tenant_llm"]["num_replicas_goal"] == 2, f"{phase}: {apps}")
+        config["applications"][0]["deployments"][0]["num_replicas"] = 1
+
+        def put(cfg_):
+            req = urllib.request.Request(dash + "/api/serve/applications", method="PUT",
+                                         data=json.dumps(cfg_).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=TFD_WAIT_S) as r:
+                return json.loads(r.read())
+        put(config)
+        deadline = time.monotonic() + TFD_WAIT_S
+        while len(replica_actors(rt, rt_serve, "tenant_llm")) != 1:
+            check(time.monotonic() < deadline, f"{phase}: the app never scaled to 1 replica")
+            time.sleep(0.25)
+        put({"applications": []})
+        while "tenant_llm" in rt_serve.status():
+            check(time.monotonic() < deadline, f"{phase}: the app was never deleted")
+            time.sleep(0.25)
+        windows = (("before", before), ("during", during), ("after", after_r))
+        row["serve_chaos"] = {
+            "replies": len(replies) + len(after), "recovery_s": recovery_s,
+            "killed_replica": dead,
+            "p50_ms": {k: pct(v, 0.5) * 1e3 if v else None for k, v in windows},
+            "p99_ms": {k: pct(v, 0.99) * 1e3 if v else None for k, v in windows},
+            "ingress": {k: stats1[k] - stats0[k] for k in ("replica_deaths", "retries")},
+            "replicas_share": TFD_SHARE}
+        rt_serve.shutdown()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(TFD_WAIT_S)
+        rt.shutdown()
+        os.environ.pop("RAY_TPU_TORCH_METRICS_PUSH_S", None)
+        if pythonpath is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = pythonpath
+        sys.path.remove(root)
+    for r in row.get("tenants", {}).values():
+        check(not _running(r["driver_pid"]) and not _running(r["engine_pid"]),
+              f"{phase}: a tenant's process outlived the phase: {r}")
+    emit(phase, card=card, model="gpt2 125m bf16 (seed 0)", engine=TFD_ENGINE,
+         share=TFD_SHARE, **row,
+         flash_launches=launches.get(attn.KERNEL, 0),
+         flash_launches_tensor_core=launches.get(attn.FWD_TC, 0),
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -5963,6 +6647,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     durable_launches = phase_durable_job_gpt2()
+    gc.collect()
+    torch.cuda.empty_cache()
+    front_door_launches = phase_tenant_front_doors_gpt2()
 
     runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama, "serve_bert": bert_launches,
             "train_gpt2": train_launches, "train_llama": llama_launches,
@@ -5975,6 +6662,7 @@ def main() -> int:
             "watch_pipeline_gpt2": watch_launches,
             "operator_job_gpt2": operator_launches,
             "durable_job_gpt2": durable_launches,
+            "tenant_front_doors_gpt2": front_door_launches,
             "util_pool_bert_accounting": pool_launches,
             "rl_parity": rl_parity_launches,
             "rl_ppo_atari": rl_launches, "rl_ppo_atari_runtime": rl_runtime_launches,

@@ -53,8 +53,15 @@ def init(
     driver — the ``ray.init(address=...)`` path.  The authkey comes from
     ``$RAY_TPU_TORCH_AUTHKEY`` unless passed.
 
-    ``namespace`` scopes named-actor registration and lookup in both
-    modes.
+    With ``address="client://host:port"`` joins as a thin client (Ray
+    Client analog): a process that shares no shared memory with the
+    cluster, whose object payloads ride the control socket both ways.
+    With ``address="ray_tpu_torch://host:port"`` connects through the
+    multi-tenant client proxy (``ray_tpu_torch.util.client``): the proxy
+    spawns an isolated driver subprocess for this connection, and named
+    actors default to this tenant's own ``namespace`` (its job id unless
+    given).  ``namespace`` scopes named-actor registration and lookup in
+    every mode.
 
     ``_gcs_persistence_path`` (a head started here) keeps the head's
     tables in that SQLite file, flushed every 2 s and at shutdown; a head
@@ -81,10 +88,24 @@ def init(
             if ignore_reinit_error:
                 return
             raise RuntimeError("ray_tpu_torch.init() called twice")
+        thin = False
+        proxied = False
         if address is not None:
             import json
             import os
 
+            thin = address.startswith("client://")
+            if thin:
+                # Ray Client analog (reference ``ray.init("ray://...")``,
+                # util/client/ARCHITECTURE.md): a remote process that shares
+                # no shm with the cluster; object payloads ride the control
+                # socket both ways, everything else is already socket-based
+                address = "tcp://" + address[len("client://"):]
+            elif address.startswith("ray_tpu_torch://"):
+                # multi-tenant proxy mode: thin-client object paths over a
+                # per-connection isolated driver the proxy owns
+                proxied = thin = True
+                address = "tcp://" + address[len("ray_tpu_torch://"):]
             if address == "auto":
                 from ray_tpu_torch._private.config import session_root
 
@@ -104,10 +125,11 @@ def init(
 
             object_transfer.configure(authkey)
             node = None
-            client = CoreClient(address, authkey)
+            client = CoreClient(address, authkey,
+                                proxy_namespace=namespace, proxy=proxied)
             from ray_tpu_torch._private import shm as _shm
 
-            if _shm._SESSION_ENV not in os.environ:
+            if not thin and _shm._SESSION_ENV not in os.environ:
                 # adopt the head's shm namespace so this driver's puts are
                 # swept with the session they belong to
                 try:
@@ -121,6 +143,7 @@ def init(
             client = CoreClient(node.address, node.authkey)
         ident = client.register_client(namespace=namespace)
         global_worker.mode = "driver"
+        global_worker.thin_client = thin
         global_worker.job_id = ident.get("job_id")
         global_worker.namespace = ident.get("namespace") or namespace or "default"
         global_worker.node = node
@@ -145,7 +168,8 @@ def init(
             # the head's own ring.
             from ray_tpu_torch._private import events as _events
 
-            origin = f"driver-{_os.getpid()}"
+            origin = (f"tenant-{global_worker.job_id}" if proxied
+                      else f"driver-{_os.getpid()}")
             global_worker._events_pusher = _events.EventsPusher(
                 client.send, origin=origin,
                 closed_fn=lambda: client.closed).start()
@@ -172,6 +196,13 @@ def shutdown() -> None:
                 pass
             global_worker._events_pusher = None
         try:
+            # a driver that leaves on purpose says so first: the head then
+            # records its disconnect as a clean exit, not a tenant death
+            # (the same frame reaches the head through the proxy's splice)
+            global_worker.client.send({"type": "client_leaving"})
+        except Exception:
+            pass
+        try:
             global_worker.client.close()
         except Exception:
             pass
@@ -180,6 +211,7 @@ def shutdown() -> None:
         global_worker.client = None
         global_worker.node = None
         global_worker.mode = None
+        global_worker.thin_client = False
         global_worker.job_id = None
         global_worker.namespace = None
         global_worker.function_cache.clear()

@@ -48,9 +48,26 @@ def connect_control(address: str, authkey: bytes):
 
 
 class CoreClient:
-    def __init__(self, address: str, authkey: bytes, worker_id: Optional[bytes] = None,
-                 node_id: str = ""):
+    def __init__(self, address: str, authkey: bytes, worker_id: Optional[bytes] = None, node_id: str = "",
+                 proxy_namespace: Optional[str] = None, proxy: bool = False):
         self.conn = connect_control(address, authkey)
+        if proxy:
+            # multi-tenant proxy mode (ray_tpu_torch://): ask the proxy to spawn
+            # this connection's isolated driver subprocess, then the conn
+            # becomes a transparent pipe to the head.  Done BEFORE the
+            # recv loop starts — the handshake owns the socket.
+            self.conn.send({"type": "proxy_hello",
+                            "namespace": proxy_namespace})
+            reply = self.conn.recv()
+            mtype = reply.get("type")
+            if mtype == "proxy_ready":
+                pass  # this conn is now a pipe to our isolated driver
+            elif mtype == "proxy_error":
+                raise ConnectionError(
+                    f"proxy refused connection: {reply.get('error')}")
+            else:
+                raise ConnectionError(
+                    f"unexpected proxy handshake reply: {reply!r}")
         self.send_lock = threading.Lock()
         self._req_ids = itertools.count(1)
         self._pending: Dict[int, dict] = {}
@@ -81,6 +98,9 @@ class CoreClient:
         # the same reason — the main thread is blocked inside the current
         # task, so only this thread can drain the local queue
         self._reclaim_handler = None
+        # worker-side profiling hook (dashboard on-demand profiling): runs
+        # on its own thread — sampling blocks for the requested duration
+        self._profile_handler = None
         self._subscriptions: Dict[str, list] = {}  # channel -> callbacks
         self._pubsub_queue = None  # created on first subscribe
         self._pubsub_lock = threading.Lock()
@@ -193,6 +213,11 @@ class CoreClient:
                     self._reclaim_handler(msg)
                 except Exception:
                     pass
+            elif msg.get("type") == "profile" and self._profile_handler is not None:
+                threading.Thread(
+                    target=self._profile_handler, args=(msg,), daemon=True,
+                    name="profile-request",
+                ).start()
             elif self._exec_queue is not None:
                 self._exec_queue.put(msg)
 

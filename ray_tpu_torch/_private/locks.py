@@ -12,10 +12,13 @@ it began in, and :func:`lock_stats` scales those raw aggregates by the
 measured wall/armed ratio, so the rows estimate the process-wide armed
 share of waiting and holding — the metronome's phase is uncorrelated
 with lock traffic, which is what makes sampled-window totals
-extrapolate.  (The JAX package counts a wait whole, however long after
-its window it ends, and times holds only behind contended acquires: a
-few long waits that began in 50 ms windows, scaled ~40x, read as a
-convoy behind a millisecond of hold.)
+extrapolate.  Both sides are the lock's own: a window opens on the
+locks already held, whose holds count from its open, and a wait ends
+at the release it waited for, not when the waiter next gets the GIL.
+(The JAX package counts a wait whole, however long after its window it
+ends and whatever the GIL adds, and times holds only behind contended
+acquires: a few long waits that began in 50 ms windows, scaled ~40x,
+read as a convoy behind a millisecond of hold.)
 
 The head's dispatch path acquires these locks ~14x per task, so the
 DISARMED path cost is what the 1%-of-throughput budget for the whole
@@ -100,8 +103,12 @@ def _arm(on: bool) -> None:
             _win_closed[_win_seq] = now
             _win_closed.pop(_win_seq - _WIN_KEEP, None)
         proxies = list(_instances)
+        seq = _win_seq
     for lk in proxies:
         lk._armed = on
+    if on:
+        for lk in proxies:
+            lk._mark_open_hold(seq, now)
 
 
 def arm_timing(on: Optional[bool]) -> None:
@@ -244,7 +251,7 @@ class _TimedLock:
     to the armed window it began in."""
 
     __slots__ = ("_inner", "_inner_acquire", "_inner_release", "_row",
-                 "_t0", "_win", "_armed", "__weakref__")
+                 "_t0", "_win", "_armed", "_rel", "__weakref__")
 
     def __init__(self, lock, name: str):
         self._inner = lock
@@ -254,6 +261,7 @@ class _TimedLock:
         self._t0 = None  # hold-start of the acquire being timed
         self._win = 0  # the armed window that hold began in
         self._armed = False
+        self._rel = None  # perf_counter of the last timed hold's release
         with _stats_lock:
             _instances.add(self)
 
@@ -290,9 +298,13 @@ class _TimedLock:
             t1 = time.perf_counter()
             if not got:
                 return False
-            wait = t1 - t0
+            # the wait ends at the release that let this thread in; the
+            # time it then spent getting the GIL back is not the lock's
+            rel = self._rel
+            end = rel if rel is not None and t0 <= rel <= t1 else t1
+            wait = end - t0
             row["contended"] += 1
-            row["wait_s"] += _in_window(seq, t0, t1)
+            row["wait_s"] += _in_window(seq, t0, end)
             if wait > row["max_wait_s"]:
                 row["max_wait_s"] = wait
         if self._t0 is None:  # outermost timed acquire (RLock reentry)
@@ -305,11 +317,29 @@ class _TimedLock:
             return
         self._t0 = None
         t1 = time.perf_counter()
+        self._rel = t1
         held = t1 - t0
         row = self._row
         row["hold_s"] += _in_window(self._win, t0, t1)
         if held > row["max_hold_s"]:
             row["max_hold_s"] = held
+
+    def _mark_open_hold(self, seq: int, t: float) -> None:
+        """At window ``seq``'s open (``t``): a hold taken before it, while
+        timing was off, is timed from ``t`` on, so the waits behind it in
+        the window have a hold to be read against.  ``_t0`` is set before
+        the probe: a holder that releases in between finishes the hold
+        from ``t``; a free lock is taken and given back at once (an
+        RLock this thread holds counts as held)."""
+        if self._t0 is not None:
+            return
+        self._t0, self._win = t, seq
+        owned = getattr(self._inner, "_is_owned", None)
+        if owned is not None and owned():
+            return
+        if self._inner_acquire(False):
+            self._t0 = None
+            self._inner_release()
 
     def locked(self) -> bool:
         # parity with threading.Lock.locked (RLocks lack it; mirror that)

@@ -524,6 +524,9 @@ class ClientState:
     owned: set = field(default_factory=set)
     # oids pinned via announced add_ref (deserialized borrows): oid -> n
     pinned: Dict[bytes, int] = field(default_factory=dict)
+    # the driver said it is leaving (``shutdown()``'s ``client_leaving``
+    # frame): its disconnect is a clean exit, not a tenant death
+    leaving: bool = False
 
 
 @dataclass
@@ -744,6 +747,9 @@ class Node:
         self._outbox_lock = make_lock("node.outbox")
         # broadcast fan-out acks: token -> {"event", "ok", "error"}
         self._pull_acks: Dict[str, dict] = {}
+        # on-demand worker profiles (the dashboard's /api/profile):
+        # token -> {"event", "report"}
+        self._profile_acks: Dict[str, dict] = {}
         # accepted connections whose reader threads are alive: shutdown
         # force-closes them (close alone never wakes a blocked recv — the
         # leak that accumulated threads across sessions in one process)
@@ -945,6 +951,16 @@ class Node:
         except Exception:
             logger.warning("watchdog failed to start:\n%s",
                            traceback.format_exc())
+        # the dashboard: on the control plane's host, on a port the kernel
+        # picks (heads of several sessions share a host)
+        self.dashboard = None
+        try:
+            from ray_tpu_torch.dashboard import Dashboard
+
+            self.dashboard = Dashboard(self, host=host, port=0)
+            logger.info("dashboard at http://%s:%d", *self.dashboard.address)
+        except Exception:
+            logger.warning("dashboard failed to start:\n%s", traceback.format_exc())
         # session discovery for `ray_tpu_torch.init(address="auto")` / the CLI
         self._write_session_file()
         # Prestart the plain worker pool up to the CPU count (WorkerPool
@@ -974,6 +990,7 @@ class Node:
             "session_dir": self.session_dir,
             "session_id": self.session_id,
             "pid": os.getpid(),
+            "dashboard": list(self.dashboard.address) if self.dashboard else None,
         }
         fd = os.open(path + ".tmp", os.O_CREAT | os.O_TRUNC | os.O_WRONLY, 0o600)
         with os.fdopen(fd, "w") as f:
@@ -1311,13 +1328,16 @@ class Node:
                 "client_proxy", "tenant disconnected", severity="DEBUG",
                 entity_id=st.job_id, namespace=st.namespace)
             return
-        # the died/reaped event PAIR is the doctor's tenant_killed food:
-        # died opens the incident, reaped closes it (a crash between the
-        # two leaves an open ERROR — the reap really is wedged then)
-        events_mod.emit(
-            "client_proxy", "tenant driver died", severity="WARNING",
-            entity_id=st.job_id, namespace=st.namespace, pid=st.pid,
-            live_actors=len(to_kill))
+        if not st.leaving:
+            # the died/reaped event PAIR is the doctor's tenant_killed
+            # food: died opens the incident, reaped closes it (a crash
+            # between the two leaves an open ERROR — the reap really is
+            # wedged then).  A driver that said it was leaving is reaped
+            # the same way but records one clean "tenant disconnected".
+            events_mod.emit(
+                "client_proxy", "tenant driver died", severity="WARNING",
+                entity_id=st.job_id, namespace=st.namespace, pid=st.pid,
+                live_actors=len(to_kill))
         for info in to_kill:
             self.kill_actor(info.actor_id)
         released = len(st.owned)
@@ -1328,8 +1348,9 @@ class Node:
         st.owned.clear()
         st.pinned.clear()
         events_mod.emit(
-            "client_proxy", "tenant reaped", severity="INFO",
-            entity_id=st.job_id, namespace=st.namespace,
+            "client_proxy",
+            "tenant disconnected" if st.leaving else "tenant reaped",
+            severity="INFO", entity_id=st.job_id, namespace=st.namespace,
             killed_actors=len(to_kill), detached_survivors=detached,
             released_refs=released)
         logger.info(
@@ -1540,6 +1561,59 @@ class Node:
         except (OSError, ValueError):
             pass
 
+    def _on_put_blob(self, conn: Connection, msg: dict) -> None:
+        """Store a thin client's shipped payload head-side and seal it
+        (Ray Client put).  Failures reply as errors — they must not tear
+        down the connection's serve loop."""
+        from ray_tpu_torch._private.object_store import store_blob
+        from ray_tpu_torch._private.object_ref import ObjectRef as _Ref
+
+        try:
+            loc = store_blob(_Ref(msg["oid"]), msg["blob"],
+                             is_error=msg.get("is_error", False))
+            client = self.clients.get(conn)
+            if client is not None:
+                client.owned.add(msg["oid"])
+            self.seal_object(msg["oid"], loc, msg.get("contained", []),
+                             client=client)
+            value = True
+        except Exception as e:  # noqa: BLE001 — ANY failure must reply,
+            # or the client blocks on its 300 s request timeout
+            value = {"error": f"put failed: {type(e).__name__}: {e}"}
+        self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
+                           "value": value})
+        self._flush_sends()  # the seal may have unblocked actor dispatches
+
+    def _on_get_blob(self, conn: Connection, msg: dict) -> None:
+        """Ship an object's serialized payload to a thin client."""
+        from ray_tpu_torch._private.object_store import payload_bytes
+
+        loc = self.registry.wait_sealed_existing(msg["oid"], msg.get("timeout"))
+        if loc == "missing":
+            reply = {"error": f"unknown or released object {msg['oid'].hex()}"}
+        elif loc is None:
+            reply = {"timeout": True}
+        else:
+            try:
+                reply = {"blob": payload_bytes(loc), "is_error": loc.is_error}
+            except FileNotFoundError:
+                # segment spilled/moved between the location read and the
+                # attach — one refetch gets the fresh location (same race
+                # the fat-client get handles)
+                loc = self.registry.wait_sealed_existing(msg["oid"], 5.0)
+                try:
+                    if loc in (None, "missing"):
+                        # the broad arm below turning this into an
+                        # error reply IS the handling
+                        # raylint: disable=R2
+                        raise FileNotFoundError(msg["oid"].hex())
+                    reply = {"blob": payload_bytes(loc), "is_error": loc.is_error}
+                except (OSError, ValueError) as e:
+                    reply = {"error": f"payload read failed: {e}"}
+            except (OSError, ValueError) as e:
+                reply = {"error": f"payload read failed: {e}"}
+        self._reply(conn, {"type": "reply", "req_id": msg["req_id"], "value": reply})
+
     def _handle_message(self, conn: Connection, worker: Optional[WorkerHandle], msg: dict) -> None:
         mtype = msg["type"]
         # driver connections own what they create: returns/puts/borrows are
@@ -1654,6 +1728,29 @@ class Node:
             self._reply(conn, {"type": "reply", "req_id": msg["req_id"],
                                "value": {"session_id": self.session_id,
                                          "head_node_id": self._head_node_id}})
+        elif mtype == "client_leaving":
+            # the driver's shutdown(): its disconnect that follows on this
+            # connection is a clean exit (the reap still runs)
+            if client is not None:
+                client.leaving = True
+        elif mtype == "put_blob":
+            # off-thread like get_blob: a multi-GB shm write must not stall
+            # this connection's reader loop (the client multiplexes
+            # concurrent requests over it)
+            threading.Thread(
+                target=self._on_put_blob, args=(conn, msg), daemon=True
+            ).start()
+        elif mtype == "get_blob":
+            # served off-thread: wait_sealed may block for minutes and this
+            # reader loop must keep handling the connection's other traffic
+            threading.Thread(
+                target=self._on_get_blob, args=(conn, msg), daemon=True
+            ).start()
+        elif mtype == "profile_result":
+            holder = self._profile_acks.pop(msg.get("token"), None)
+            if holder is not None:
+                holder["report"] = msg.get("report")
+                holder["event"].set()
         elif mtype == "replica_added":
             self._on_replica_added(worker, msg)
         elif mtype == "dynamic_yield":
@@ -4339,9 +4436,6 @@ class Node:
     # ------------------------------------------------------------------
     # introspection
     # ------------------------------------------------------------------
-    # state tables whose stores the port does not carry yet
-    _CUT_TABLES = ("tenants",)
-
     def _list_state(self, what: str, limit: int = 1000,
                     filters: Optional[dict] = None) -> List[dict]:
         return self._list_state_page(what, limit, filters)[0]
@@ -4440,6 +4534,20 @@ class Node:
         if what == "traces":
             self._fold_local_traces()
             return self.traces.list(limit), len(self.traces)
+        if what == "tenants":
+            # one row per driver job (live + recently dead), with actor
+            # counts per namespace — what chaos resolves pids from and
+            # what `ray_tpu_torch list tenants` renders
+            with self.gcs.lock:
+                actor_counts: Dict[str, int] = {}
+                for a in self.gcs.actors.values():
+                    if a.job_id and a.state != "DEAD":
+                        actor_counts[a.job_id] = actor_counts.get(a.job_id, 0) + 1
+            with self.lock:
+                out = [dict(rec, actors=actor_counts.get(jid, 0))
+                       for jid, rec in self._jobs.items()]
+            out.sort(key=lambda r: r["job_id"])
+            return out[:limit], len(out)
         if what == "logs":
             # one row per captured stream (worker/job/head files the
             # monitors are tailing, retired death tails included)
@@ -4457,9 +4565,6 @@ class Node:
                 return [], 0
             rows = self.watchdog.slos()
             return rows[:limit], len(rows)
-        if what in self._CUT_TABLES:
-            raise ValueError(f"state table {what!r} is not kept by "
-                             "ray_tpu_torch yet (its store is not ported)")
         raise ValueError(f"unknown state table {what!r}")
 
     # ------------------------------------------------------------------
@@ -4648,8 +4753,27 @@ class Node:
                         events_mod.emit(
                             "log", "log stream retired",
                             severity="DEBUG", entity_id=name)
+                    self._scan_tenant_logs()
             except Exception:
                 logger.debug("tsdb sampler tick failed", exc_info=True)
+    def _scan_tenant_logs(self) -> None:
+        """Adopt proxied tenant-driver capture files (``tenant-*.log``
+        under the session logs dir).  The proxier spawns those drivers
+        from its own process, so spawn-time registration can't reach this
+        monitor — a narrow glob keeps the registration-based ownership
+        rule intact (nothing else ever writes tenant-*.log there)."""
+        if self._log_monitor is None:
+            return
+        import glob as glob_mod
+
+        known = set(self._log_monitor.streams())
+        pattern = os.path.join(self.session_dir, "logs", "tenant-*.log")
+        for path in glob_mod.glob(pattern):
+            stream = os.path.basename(path)[:-len(".log")]
+            if stream not in known:
+                self._log_monitor.register(stream, path,
+                                           node=self._head_node_id)
+
 
     def _sample_local_procs(self, sampler) -> None:
         """/proc stats for the head process and every worker whose process
@@ -5268,6 +5392,8 @@ class Node:
     def _state_snapshot(self) -> dict:
         snap = self.gcs.snapshot()
         snap["object_store"] = self.registry.stats()
+        snap["dashboard"] = (
+            list(self.dashboard.address) if self.dashboard else None)
         with self.lock:
             snap["cluster_resources"] = {
                 nid: dict(ns.total) for nid, ns in self.nodes.items() if ns.alive
@@ -5356,6 +5482,11 @@ class Node:
             self._live_conns.clear()
         for conn in conns:
             force_close_connection(conn)
+        try:
+            if self.dashboard is not None:
+                self.dashboard.close()
+        except Exception:
+            pass
         try:
             self.job_manager.shutdown()
         except Exception:

@@ -715,7 +715,7 @@ class ObjectRegistry:
     ) -> Union[ObjectLocation, None, str]:
         """Like :meth:`wait_sealed` but never creates an entry: returns the
         sentinel ``"missing"`` for unknown/deleted oids instead of parking a
-        phantom _Entry nobody owns."""
+        phantom _Entry nobody owns (thin-client get path)."""
         with self._lock:
             e = self._objects.get(oid)
         if e is None:
@@ -1303,6 +1303,67 @@ def _write_segment(name: str, write_fn, expected: int) -> str:
         raise
     os.close(fd)
     return name
+
+
+def store_blob(ref: ObjectRef, blob: bytes, is_error: bool = False) -> ObjectLocation:
+    """Store an already-serialized payload (thin-client put: the client
+    shipped the bytes over the control socket because it shares no shm with
+    this host).  Small blobs stay inline; big ones land in local shm."""
+    cfg = get_config()
+    if len(blob) <= cfg.max_direct_call_object_size:
+        return ObjectLocation(inline=bytes(blob), is_error=is_error)
+
+    def write_all(fd: int) -> int:
+        view = memoryview(blob)
+        total = 0
+        while view:  # os.write caps single writes (~2 GiB on Linux)
+            n = os.write(fd, view)
+            view = view[n:]
+            total += n
+        return total
+
+    name = _write_segment(session_shm_name(ref.hex()), write_all, len(blob))
+    return ObjectLocation(shm_name=name, size=len(blob), is_error=is_error)
+
+
+def payload_bytes(loc: ObjectLocation) -> bytes:
+    """The serialized payload at ``loc`` as bytes (thin-client get: the
+    caller can't attach this host's shm, so the head reads the bytes out
+    and ships them over the socket).  Remote-node segments are pulled into
+    the local namespace first, exactly like :func:`read_value`."""
+    if loc.inline is not None:
+        return loc.inline
+    if loc.spilled_path is not None:
+        with open(loc.spilled_path, "rb") as f:
+            return f.read()
+    arena_src = None
+    if loc.arena_path is not None:
+        try:
+            view = _arena_view(loc.arena_path)
+            return bytes(view[loc.arena_off:loc.arena_off + loc.size])
+        except FileNotFoundError:
+            if not loc.fetch_addr:
+                raise
+            # remote arena-backed object: the origin serves the arena slice
+            # under the object's shm name (same pull read_value does)
+            arena_src = (loc.arena_path, loc.arena_off)
+    with _ATTACHED_LOCK:
+        seg = _ATTACHED.get(loc.shm_name)
+    if seg is None:
+        try:
+            seg = ShmSegment.attach(loc.shm_name, loc.size)
+        except FileNotFoundError:
+            if not loc.fetch_addr:
+                raise
+            from ray_tpu_torch._private import object_transfer
+
+            object_transfer.pull_object(
+                loc.shm_name, loc.fetch_addr, loc.size, arena=arena_src
+            )
+            seg = ShmSegment.attach(loc.shm_name, loc.size)
+        with _ATTACHED_LOCK:
+            seg = _ATTACHED.setdefault(loc.shm_name, seg)
+    return bytes(seg.buf)
 
 
 def _report_replica(oid: Optional[bytes]) -> None:

@@ -167,6 +167,22 @@ def _env_float(name: str, default: float) -> float:
         return default
 
 
+def gil_lateness_frac(elapsed_s: float, expected_s: float, own_cpu_s: float,
+                      process_cpu_s: float) -> float:
+    """The share of a burst's wall this sampler thread waited for the GIL.
+
+    The wall past the ticks' schedule less the sampler's own CPU (its
+    sample bodies) is time it sat runnable; only another thread of this
+    process running Python can have held it off the GIL, so the wait is
+    bounded by the CPU the process's other threads used in the burst.  A
+    process that used none (an idle worker on a host whose run queue is
+    long) reads 0, where the JAX package's reading (elapsed less the
+    schedule, over elapsed) calls its late wake-ups GIL wait."""
+    late = max(0.0, elapsed_s - expected_s - own_cpu_s)
+    others = max(0.0, process_cpu_s - own_cpu_s)
+    return max(0.0, min(1.0, min(late, others) / max(elapsed_s, 1e-9)))
+
+
 def continuous_enabled() -> bool:
     """Continuous profiling is ON by default; RAY_TPU_TORCH_CONT_PROFILE=0
     disables it cluster-wide (the env is inherited by spawned workers)."""
@@ -204,10 +220,12 @@ class ContinuousProfiler:
 
     The sampler doubles as the process's GIL-pressure probe: each burst
     compares the wall time its ticks actually took against the schedule
-    they asked for.  Tick lateness beyond the timer period means this
-    thread sat runnable-but-unscheduled — on a CPython process that is
-    GIL wait, and the published ``ray_tpu_gil_lateness_frac`` gauge is
-    the "core-bound" number the doctor's ``gil_saturation`` rule reads.
+    they asked for.  Tick lateness beyond the timer period and the
+    sampler's own CPU means this thread sat runnable-but-unscheduled — GIL
+    wait as far as the process's other threads used CPU meanwhile
+    (:func:`gil_lateness_frac`), the host's run queue past that — and the
+    published ``ray_tpu_gil_lateness_frac`` gauge is the "core-bound"
+    number the doctor's ``gil_saturation`` rule reads.
     """
 
     def __init__(self, origin: str,
@@ -294,6 +312,7 @@ class ContinuousProfiler:
         deadline = t0 + self.burst_s
         ticks = 0
         busy_ticks = 0
+        cpu0, own0 = time.process_time(), time.thread_time()
         while time.perf_counter() < deadline and not self._stop.is_set():
             if sample_stacks(exclude, self.max_depth, counter):
                 busy_ticks += 1
@@ -301,12 +320,9 @@ class ContinuousProfiler:
             self._stop.wait(self.period_s)
         elapsed = time.perf_counter() - t0
         if ticks:
-            # expected wall for the burst is ticks * period (+ sample
-            # bodies, already inside elapsed); the excess is time this
-            # thread waited for the GIL / the scheduler
-            expected = ticks * self.period_s
-            self.lateness_frac = max(
-                0.0, min(1.0, (elapsed - expected) / max(elapsed, 1e-9)))
+            self.lateness_frac = gil_lateness_frac(
+                elapsed, ticks * self.period_s, time.thread_time() - own0,
+                time.process_time() - cpu0)
         if not counter:
             return
         bucket = (time.time() // self.bucket_s) * self.bucket_s

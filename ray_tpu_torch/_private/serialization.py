@@ -246,4 +246,41 @@ def deserialize(src: memoryview) -> Any:
     for n in table:
         bufs.append(pickle.PickleBuffer(src[off : off + n]))
         off += _pad(n)
+    if _HAS_CARD is not True and _STORAGE_LOADER in payload and not _has_card():
+        return _CardlessUnpickler(io.BytesIO(payload), buffers=bufs).load()
     return pickle.loads(payload, buffers=bufs)
+
+
+# A torch tensor pickles its storage through torch's own reducer, which
+# ends in ``torch.storage._load_from_bytes(torch.save bytes)``; a card
+# tensor's bytes name its card, and ``torch.load`` refuses them in a
+# process that has none (a thin client, a driver on a laptop).  There the
+# tensor arrives on the CPU with the same values, as a jax.Array reaches
+# a JAX client on its own default device.  A process with a card loads it
+# back onto the card, untouched, and once it has seen one such payload
+# scans no other.  torch is imported only for a payload that holds a
+# tensor, which unpickling it would import anyway.
+_STORAGE_LOADER = b"_load_from_bytes"
+_HAS_CARD = None  # decided at the first payload that holds a tensor
+
+
+def _has_card() -> bool:
+    global _HAS_CARD
+    if _HAS_CARD is None:
+        import torch
+
+        _HAS_CARD = torch.cuda.is_available()
+    return _HAS_CARD
+
+
+def _load_storage_on_cpu(b: bytes):
+    import torch
+
+    return torch.load(io.BytesIO(b), map_location="cpu", weights_only=False)
+
+
+class _CardlessUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module == "torch.storage" and name == "_load_from_bytes":
+            return _load_storage_on_cpu
+        return super().find_class(module, name)

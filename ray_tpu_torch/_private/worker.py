@@ -70,6 +70,10 @@ class Worker:
         self.node: Optional["Node"] = None  # driver only: in-process head
         self.node_id: str = ""
         self.worker_id: bytes = b""
+        # thin-client mode (ray_tpu_torch.init("client://...") — Ray Client
+        # analog): this process shares no shm with the cluster, so object
+        # payloads ride the control socket both ways
+        self.thin_client: bool = False
         self.function_cache: Dict[bytes, Any] = {}
         self.registered_fn_ids: set = set()
         # runtime_env package uploads are once per unique env per driver
@@ -224,9 +228,66 @@ class Worker:
     def put(self, value: Any) -> ObjectRef:
         self.flush_removals()
         ref = ObjectRef.random()
-        loc, contained = store_value(ref, value)
-        self.client.seal(ref.binary(), loc, [r.binary() for r in contained])
+        if self.thin_client:
+            self._put_blob(ref, value)
+        else:
+            loc, contained = store_value(ref, value)
+            self.client.seal(ref.binary(), loc, [r.binary() for r in contained])
         return self.track_ref(ref, owned=True)
+
+    def _put_blob(self, ref: ObjectRef, value: Any,
+                  track_contained: bool = True) -> None:
+        """Thin-client put: ship serialized bytes; the head stores them."""
+        meta, buffers, contained = serialization.serialize(value)
+        reply = self.client.request({
+            "type": "put_blob",
+            "oid": ref.binary(),
+            "blob": serialization.to_bytes(meta, buffers),
+            # big-args specs track their refs via pinned_refs instead
+            "contained": [r.binary() for r in contained] if track_contained else [],
+        }, timeout=300)["value"]
+        if isinstance(reply, dict) and reply.get("error"):
+            raise RuntimeError(reply["error"])
+
+    def _get_blobs(self, oids: List[bytes], timeout: Optional[float]) -> List[Any]:
+        """Thin-client get: the head ships each payload over the socket.
+        One shared deadline across the batch (fat-client get semantics);
+        fetches run concurrently over the req_id-multiplexed connection."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ray_tpu_torch.exceptions import GetTimeoutError
+
+        deadline = None if timeout is None else time.monotonic() + timeout
+
+        def fetch(oid: bytes):
+            remaining = None
+            if deadline is not None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise GetTimeoutError(f"Get timed out after {timeout}s")
+            reply = self.client.request(
+                {"type": "get_blob", "oid": oid, "timeout": remaining},
+                timeout=None if remaining is None else remaining + 30,
+            )["value"]
+            if reply.get("timeout"):
+                raise GetTimeoutError(f"Get timed out after {timeout}s")
+            if reply.get("error"):
+                raise RuntimeError(reply["error"])
+            value = serialization.deserialize(memoryview(reply["blob"]))
+            return value, bool(reply.get("is_error"))
+
+        unique = list(dict.fromkeys(oids))
+        if len(unique) == 1:
+            results = [fetch(unique[0])]
+        else:
+            with ThreadPoolExecutor(min(8, len(unique))) as ex:
+                results = list(ex.map(fetch, unique))
+        values: Dict[bytes, Any] = {}
+        for oid, (value, is_error) in zip(unique, results):
+            if is_error:
+                raise value
+            values[oid] = value
+        return [values[oid] for oid in oids]
 
     def get(self, refs: List[ObjectRef], timeout: Optional[float] = None) -> List[Any]:
         # traced callers get a get_wait span (object availability + transfer
@@ -257,6 +318,8 @@ class Worker:
 
         self.flush_removals()
         oids = [r.binary() for r in refs]
+        if self.thin_client:
+            return self._get_blobs(oids, timeout)
         blocked = self.mode == "worker" and self.task_depth > 0
         if blocked:
             self.client.notify_blocked()
@@ -382,8 +445,12 @@ class Worker:
             # big args travel via the object store, not the control socket;
             # the spec owns this object's initial refcount
             big_ref = ObjectRef.random()
-            loc, _ = store_value(big_ref, (conv_args, conv_kwargs))
-            self.client.seal(big_ref.binary(), loc, [])
+            if self.thin_client:
+                self._put_blob(big_ref, (conv_args, conv_kwargs),
+                               track_contained=False)
+            else:
+                loc, _ = store_value(big_ref, (conv_args, conv_kwargs))
+                self.client.seal(big_ref.binary(), loc, [])
             args_blob = None
             args_oid = big_ref.binary()
             dep_ids.append(args_oid)
@@ -1005,6 +1072,18 @@ def main() -> None:
         client.send({"type": "pipeline_returned", "task_ids": returned})
 
     client._reclaim_handler = _on_reclaim_message
+
+    def _on_profile_message(msg):
+        # dashboard on-demand profiling (profile_manager.py analog): sample
+        # this process for the requested window, report back to the head
+        from ray_tpu_torch._private.sampling_profiler import profile_for
+
+        report = profile_for(float(msg.get("duration", 3.0)),
+                             top=int(msg.get("top", 40)))
+        client.send({"type": "profile_result", "token": msg.get("token"),
+                     "report": report})
+
+    client._profile_handler = _on_profile_message
 
     while True:
         try:

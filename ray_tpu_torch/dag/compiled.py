@@ -492,6 +492,10 @@ class CompiledDAG:
                  get_timeout: Optional[float] = None):
         from ray_tpu_torch._private.worker import global_worker
 
+        if global_worker.thin_client:
+            raise CompiledGraphError(
+                "compiled graphs require a co-located driver (thin "
+                "client:// drivers share no data plane with the cluster)")
         if max_inflight < 1:
             raise ValueError("max_inflight must be >= 1")
         self._w = global_worker

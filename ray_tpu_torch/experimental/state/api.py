@@ -21,10 +21,10 @@ behind ``python -m ray_tpu_torch memory``/``top``/``perf``/``doctor``.
 ``list_logs``/``get_log``/``tail_log`` read the head's log store,
 ``list_profiles``/``get_profile``/``profile_diff``/``profile_ledger`` its
 profile store, and ``list_incidents``/``list_slos``/``get_incident``/
-``ack_incident``/``debug_dump`` its watchdog.
+``ack_incident``/``debug_dump`` its watchdog.  ``list_tenants`` reads
+the head's driver directory (direct, thin and proxied drivers).
 
-A table the head does not keep (tenants: the multi-tenant proxy is not
-ported) raises ``ValueError``.
+A table the head does not keep raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -107,6 +107,14 @@ def list_jobs(limit: int = 1000) -> List[dict]:
     """Submitted jobs (the head's JobManager): id, entrypoint, status,
     return code, times, metadata, log path."""
     return _list("jobs", limit)
+
+
+def list_tenants(limit: int = 1000) -> List[dict]:
+    """Driver jobs (tenants) with namespace, driver pid, proxied flag,
+    liveness, and live actor counts — the multi-tenancy directory (what
+    ``ray_tpu_torch list tenants`` renders and the tenant-kill chaos op
+    resolves pids from)."""
+    return _list("tenants", limit)
 
 
 def list_events(limit: int = 1000, source: Optional[str] = None,

@@ -10,7 +10,7 @@ Reference: ``python/ray/scripts/scripts.py`` (cluster lifecycle) and
     stop                                       stop the last started head
     status                                     cluster resources/state
     list {actors,tasks,nodes,objects,workers,placement_groups,jobs,traces,
-          slices,logs,incidents,slos}
+          slices,tenants,logs,incidents,slos}
     submit [--wait] -- <entrypoint...>         submit a job
     job-logs <job_id> / job-stop <job_id>
     logs [STREAM] [--follow --errors --grep P] cluster log plane (tailed
@@ -20,6 +20,7 @@ Reference: ``python/ray/scripts/scripts.py`` (cluster lifecycle) and
     events [--source S --severity L --limit N] flight-recorder event table
     trace [TRACE_ID] [--json]                  span tree + critical path
     serve-status                               serve deployments + autoscaling
+    serve-deploy CONFIG                        PUT a JSON app config to the dashboard
     doctor [--json --live]                     pathology findings (exit 1 on any;
                                                --live reads the watchdog's incident set)
     incidents [--follow --history --ack ID]    watchdog incident lifecycle
@@ -30,6 +31,7 @@ Reference: ``python/ray/scripts/scripts.py`` (cluster lifecycle) and
     memory [--limit N --json]                  object-ownership audit
     metrics [NAME --window S --step S --agg A] TSDB directory, or one series
     perf [--window S --json]                   step phases, MFU, card memory
+    profile [--duration N --worker-id HEX]     on-demand sampling profile (dashboard)
     profile --live [--window S --origin O]     always-on flamegraph (folded stacks)
     profile diff WINDOW_A WINDOW_B             differential folded stacks
     profile ledger [--window S]                per-task CPU cost ledger
@@ -109,6 +111,8 @@ def cmd_start(args) -> None:
         host, port = node.tcp_address
         print(f"ray_tpu_torch head running: tcp://{host}:{port}")
         print(f"authkey: {node.authkey.hex()}")
+        if node.dashboard:
+            print("dashboard: http://%s:%d" % tuple(node.dashboard.address))
         print("join with: python -m ray_tpu_torch start "
               f"--address {host}:{port} --authkey {node.authkey.hex()}")
         print("Ctrl-C to stop.", flush=True)
@@ -801,71 +805,138 @@ def cmd_perf(args) -> None:
 
 
 def cmd_profile(args) -> None:
-    """The always-on profiling plane (the head's ProfileStore — no new
-    sampling, the history is already there).  ``--live`` prints the
-    merged folded stacks; ``profile diff A B`` emits differential folded
-    stacks between the trailing B seconds and the A-second baseline
-    before them; ``profile ledger`` prints the per-task CPU cost columns;
-    ``profile list`` the origins with retained history.  ``--format
-    collapsed`` (the default) is speedscope / flamegraph.pl ready.
-    On-demand dense sampling of one worker goes through the dashboard,
-    which the port does not carry."""
-    _connect()
+    """Profiles, on demand and continuous.
+
+    Default: dense on-demand sampling via the dashboard's /api/profile.
+    ``--live`` reads the always-on plane instead (head ProfileStore —
+    no new sampling, the history is already there); ``profile diff A B``
+    emits differential folded stacks between the trailing B seconds and
+    the A-second baseline before them; ``profile ledger`` prints the
+    per-task CPU cost columns; ``profile list`` the origins with
+    retained history.  ``--format collapsed`` (default for the
+    continuous modes) is speedscope / flamegraph.pl ready."""
+    import urllib.request
+
+    rt = _connect()
     mode = args.rest[0] if args.rest else None
     if mode not in (None, "diff", "ledger", "list"):
         raise SystemExit(f"unknown profile mode {mode!r} "
                          "(expected: diff, ledger, list)")
-    if not (args.live or mode):
-        raise SystemExit("on-demand sampling needs the dashboard, which "
-                         "ray_tpu_torch does not carry; use `profile "
-                         "--live` (or diff, ledger, list)")
-    from ray_tpu_torch.experimental.state import api as state
+    if args.live or mode in ("diff", "ledger", "list"):
+        from ray_tpu_torch.experimental.state import api as state
 
-    if mode == "list":
-        rows = state.list_profiles()
-        print(json.dumps(rows, indent=2))
-        return
-    if mode == "ledger":
-        led = state.profile_ledger(window_s=args.window)
-        if args.format == "json":
-            print(json.dumps(led, indent=2))
+        if mode == "list":
+            rows = state.list_profiles()
+            print(json.dumps(rows, indent=2))
             return
-        wall = led["per_task_wall_us"]
-        print(f"per-task CPU ledger over the last {led['window_s']:.0f}s "
-              f"({led['tasks']} tasks, {wall:.1f}us wall/task):")
-        for col, us in led["columns"].items():
-            pct = 100.0 * us / wall if wall else 0.0
-            print(f"  {col:20s} {us:10.2f}us  {pct:5.1f}%")
-        print(f"  {'sum':20s} {led['sum_us']:10.2f}us  "
-              f"{led['sum_over_wall'] * 100:5.1f}%  (exactness check)")
-        print(f"  overlapped worker CPU (pipelined, not on the wall): "
-              f"{led['overlapped_worker_cpu_us']:.2f}us/task")
-        return
-    if mode == "diff":
-        if len(args.rest) != 3:
-            raise SystemExit(
-                "usage: ray_tpu_torch profile diff WINDOW_A WINDOW_B "
-                "(seconds; trailing B vs the A-long baseline before it)")
-        d = state.profile_diff(window_a=float(args.rest[1]),
-                               window_b=float(args.rest[2]),
-                               origin=args.origin)
-        body = (json.dumps(d, indent=2) if args.format == "json"
-                else d["collapsed"])
-    else:  # --live
-        q = state.get_profile(window_s=args.window, origin=args.origin)
-        if args.format == "json":
-            body = json.dumps(q, indent=2)
+        if mode == "ledger":
+            led = state.profile_ledger(window_s=args.window)
+            if args.format == "json":
+                print(json.dumps(led, indent=2))
+                return
+            wall = led["per_task_wall_us"]
+            print(f"per-task CPU ledger over the last {led['window_s']:.0f}s "
+                  f"({led['tasks']} tasks, {wall:.1f}us wall/task):")
+            for col, us in led["columns"].items():
+                pct = 100.0 * us / wall if wall else 0.0
+                print(f"  {col:20s} {us:10.2f}us  {pct:5.1f}%")
+            print(f"  {'sum':20s} {led['sum_us']:10.2f}us  "
+                  f"{led['sum_over_wall'] * 100:5.1f}%  (exactness check)")
+            print(f"  overlapped worker CPU (pipelined, not on the wall): "
+                  f"{led['overlapped_worker_cpu_us']:.2f}us/task")
+            return
+        if mode == "diff":
+            if len(args.rest) != 3:
+                raise SystemExit(
+                    "usage: ray_tpu_torch profile diff WINDOW_A WINDOW_B "
+                    "(seconds; trailing B vs the A-long baseline before it)")
+            d = state.profile_diff(window_a=float(args.rest[1]),
+                                   window_b=float(args.rest[2]),
+                                   origin=args.origin)
+            body = (json.dumps(d, indent=2) if args.format == "json"
+                    else d["collapsed"])
+        else:  # --live
+            q = state.get_profile(window_s=args.window, origin=args.origin)
+            if args.format == "json":
+                body = json.dumps(q, indent=2)
+            else:
+                body = "\n".join(
+                    f"{stack.replace('|', ';')} {n}"
+                    for stack, n in sorted(q["folded"].items(),
+                                           key=lambda kv: -kv[1]))
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(body + "\n")
+            print(f"wrote profile to {args.out}")
         else:
-            body = "\n".join(
-                f"{stack.replace('|', ';')} {n}"
-                for stack, n in sorted(q["folded"].items(),
-                                       key=lambda kv: -kv[1]))
+            print(body)
+        return
+    snap = rt._private.worker.global_worker.client.request(
+        {"type": "state_snapshot"})["value"]
+    dash = snap.get("dashboard")
+    if not dash:
+        raise SystemExit("head has no dashboard; profiling needs it")
+    duration = args.duration
+    if duration > 30.0:
+        # the dashboard clamps server-side; say so instead of silently
+        # returning a shorter profile than asked for
+        print("note: profile duration is capped at 30s by the dashboard",
+              file=sys.stderr)
+        duration = 30.0
+    url = ("http://%s:%d/api/profile?duration=%s&format=%s"
+           % (dash[0], dash[1], duration, args.format or "json"))
+    if args.worker_id:
+        url += f"&worker_id={args.worker_id}"
+    with urllib.request.urlopen(url, timeout=duration + 60) as resp:
+        body = resp.read().decode()
     if args.out:
         with open(args.out, "w") as f:
-            f.write(body + "\n")
+            f.write(body)
         print(f"wrote profile to {args.out}")
     else:
-        print(body)
+        print(body, end="" if body.endswith("\n") else "\n")
+
+
+def cmd_serve_deploy(args) -> None:
+    """``serve deploy config.yaml`` analog: validate the declarative app
+    config and PUT it to the head's REST endpoint."""
+    import urllib.request
+
+    with open(args.config) as f:
+        text = f.read()
+    try:
+        config = json.loads(text)
+    except json.JSONDecodeError:
+        try:  # yaml if the environment provides it; never a hard dependency
+            import yaml  # type: ignore
+
+            config = yaml.safe_load(text)
+        except ImportError:
+            raise SystemExit(
+                "config must be JSON (no yaml parser in this environment)")
+    from ray_tpu_torch.serve.schema import SchemaError, parse_deploy_config
+
+    try:
+        parse_deploy_config(config)  # client-side validation, better errors
+    except SchemaError as e:
+        raise SystemExit(f"invalid config: {e}")
+    _connect()
+    from ray_tpu_torch._private.worker import global_worker
+
+    snap = global_worker.client.request({"type": "state_snapshot"})["value"]
+    dash = snap.get("dashboard")
+    if not dash:
+        raise SystemExit("head has no dashboard; cannot reach the serve REST API")
+    req = urllib.request.Request(
+        "http://%s:%d/api/serve/applications" % tuple(dash),
+        data=json.dumps(config).encode(),
+        headers={"Content-Type": "application/json"}, method="PUT")
+    try:
+        with urllib.request.urlopen(req, timeout=240) as resp:
+            print(resp.read().decode())
+    except urllib.error.HTTPError as e:
+        # the endpoint's JSON error payload IS the diagnosis; show it
+        raise SystemExit(f"deploy failed ({e.code}): {e.read().decode()}")
 
 
 def main(argv=None) -> None:
@@ -896,7 +967,7 @@ def main(argv=None) -> None:
     s = sub.add_parser("list", help="state API tables")
     s.add_argument("what", choices=["actors", "tasks", "nodes", "objects",
                                     "workers", "placement_groups", "jobs",
-                                    "traces", "slices", "logs",
+                                    "traces", "slices", "tenants", "logs",
                                     "incidents", "slos"])
     s.add_argument("--limit", type=int, default=100)
     s.set_defaults(fn=cmd_list)
@@ -949,7 +1020,7 @@ def main(argv=None) -> None:
                    help="filter: scheduler|object_store|streaming|serve|"
                         "train|actor|worker_pool|node|collective|"
                         "serve_llm|compiled_dag|trace|syncer|chaos|"
-                        "autoscaler|perf|rllib")
+                        "autoscaler|perf|client_proxy|rllib")
     s.add_argument("--severity", default=None,
                    help="filter: DEBUG|INFO|WARNING|ERROR")
     s.add_argument("--limit", type=int, default=200)
@@ -968,6 +1039,12 @@ def main(argv=None) -> None:
     sub.add_parser(
         "serve-status", help="serve deployments + autoscaling state"
     ).set_defaults(fn=cmd_serve_status)
+
+    s = sub.add_parser(
+        "serve-deploy",
+        help="deploy serve applications from a declarative JSON config")
+    s.add_argument("config", help="path to the config file")
+    s.set_defaults(fn=cmd_serve_deploy)
 
     s = sub.add_parser(
         "doctor",
@@ -1058,19 +1135,22 @@ def main(argv=None) -> None:
 
     s = sub.add_parser(
         "profile",
-        help="the always-on profiling plane (--live / diff / ledger / "
-             "list)")
+        help="profiles: on-demand sampling, the always-on plane "
+             "(--live / diff / ledger / list)")
     s.add_argument("rest", nargs="*",
                    help="mode: diff WINDOW_A WINDOW_B | ledger | list "
-                        "(none: --live)")
+                        "(none: on-demand or --live)")
     s.add_argument("--live", action="store_true",
-                   help="merged folded stacks from the continuous "
-                        "profiler's history")
+                   help="read the continuous profiler's history instead "
+                        "of sampling on demand")
     s.add_argument("--window", type=float, default=300.0,
                    help="trailing window seconds for --live/ledger")
     s.add_argument("--origin", default=None,
                    help="one origin ('head', worker id hex, "
-                        "'agent:<node>'); default: all")
+                        "'agent:<node>', 'tenant-<job>'); default: all")
+    s.add_argument("--duration", type=float, default=3.0,
+                   help="on-demand sampling duration")
+    s.add_argument("--worker-id", default=None, help="worker id hex")
     s.add_argument("--format", choices=["json", "collapsed"],
                    default=None)
     s.add_argument("--out", default=None, help="write to file")

@@ -424,7 +424,7 @@ def test_operator_plane_loads_neither_jax_nor_ray_tpu_and_starts_nothing():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
                          capture_output=True, text=True)
     assert "{start,up,down,stop,status,list,submit,job-logs,logs,job-stop,timeline," \
-           "events,trace,serve-status,doctor,incidents,slo,debug,top,slices,memory," \
+           "events,trace,serve-status,serve-deploy,doctor,incidents,slo,debug,top,slices,memory," \
            "metrics,perf,profile}" in out.stdout
 
 
@@ -521,4 +521,37 @@ def test_runtime_envs_persistence_usage_and_workflows_load_nothing_and_start_not
     env = {k: v for k, v in os.environ.items() if k != "RAY_TPU_TORCH_WORKFLOW_STORAGE"}
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
                    env={**env, "TMPDIR": str(tmp)})
+    assert list(tmp.iterdir()) == []
+
+
+FRONT_DOOR_MODULES = ("ray_tpu_torch.util.client", "ray_tpu_torch.util.client.driver",
+                      "ray_tpu_torch.util.client.proxier", "ray_tpu_torch.devtools",
+                      "ray_tpu_torch.devtools.chaos", "ray_tpu_torch.devtools.chaos.harness",
+                      "ray_tpu_torch.dashboard", "ray_tpu_torch.dashboard.dashboard",
+                      "ray_tpu_torch.dashboard.grafana_dashboard_factory")
+
+
+def test_front_doors_load_nothing_and_start_nothing(tmp_path):
+    """The thin client's proxy and tenant driver, the chaos harness and
+    the dashboard import no JAX and nothing of ``ray_tpu``; importing
+    them starts no thread, binds no socket, makes no CUDA context and
+    writes no file.  Each has a counterpart of the same name in the JAX
+    package."""
+    for mod in FRONT_DOOR_MODULES:
+        rel = mod.replace(".", "/")
+        rel = rel + "/__init__.py" if (ROOT / rel).is_dir() else rel + ".py"
+        assert (ROOT / rel).is_file() and (ROOT / rel.replace("ray_tpu_torch/", "ray_tpu/", 1)
+                                           ).is_file(), rel
+    tmp = tmp_path / "tmp"
+    tmp.mkdir()
+    code = (
+        "import sys, threading, torch\n"
+        "import %s\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        % (", ".join(FRONT_DOOR_MODULES), FORBIDDEN))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**os.environ, "TMPDIR": str(tmp)})
     assert list(tmp.iterdir()) == []

@@ -362,7 +362,7 @@ def test_down_kills_a_head_by_its_record_only_if_it_is_the_ports(private_tmp):
     os.remove(record)
 
 
-@pytest.mark.parametrize("name", ["lint", "serve-deploy"])
+@pytest.mark.parametrize("name", ["lint"])
 def test_unregistered_subcommands_exit_with_argparses_error(name, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main([name])
@@ -388,9 +388,19 @@ def test_accounting_subcommands_take_the_jax_packages_flags(name, flags, capsys)
 
 
 def test_list_takes_only_the_tables_the_head_keeps(capsys):
-    with pytest.raises(SystemExit):
-        cli.main(["list", "tenants"])
-    assert "invalid choice: 'tenants'" in capsys.readouterr().err
+    """``list`` takes the JAX package's tables (``tenants`` among them,
+    now that the head keeps it) and refuses any other."""
+    from ray_tpu.scripts import cli as jax_cli
+
+    def choices(main):
+        with pytest.raises(SystemExit):
+            main(["list", "no_such_table"])
+        err = capsys.readouterr().err
+        assert "invalid choice: 'no_such_table'" in err
+        return set(re.findall(r"[a-z_]+", err.split("choose from", 1)[1]))
+
+    ours = choices(cli.main)
+    assert "tenants" in ours and ours == choices(jax_cli.main)
 
 
 # -- the store commands, held to the JAX package's CLI on the same head --------
@@ -407,11 +417,11 @@ def _jax_parser_flags(name):
 
 @pytest.mark.parametrize("name,cut", [("logs", set()), ("incidents", set()), ("slo", set()),
                                       ("debug", set()), ("slices", set()),
-                                      ("profile", {"--duration", "--worker-id"})])
+                                      ("profile", set())])
 def test_store_subcommands_take_the_jax_packages_flags(name, cut, capsys):
     """``logs``, ``incidents``, ``slo``, ``debug``, ``slices`` and
-    ``profile`` take the JAX package's flags; ``profile`` lacks the two
-    of on-demand sampling, which needs the dashboard."""
+    ``profile`` take the JAX package's flags (``profile`` with the two of
+    on-demand sampling through the dashboard)."""
     with pytest.raises(SystemExit) as e:
         cli.main([name, "--help"])
     assert e.value.code == 0
@@ -519,9 +529,13 @@ def test_store_commands_print_what_the_jax_cli_prints(store_head, monkeypatch, a
     assert ours[1], argv
 
 
-def test_profile_without_a_mode_names_the_dashboard(store_head):
-    code, out = _run(cli.main, ["profile"])
-    assert code != 0 or "dashboard" in out
+def test_profile_without_a_mode_names_the_dashboard(store_head, monkeypatch):
+    """``profile`` without a mode samples on demand through the head's
+    dashboard; a head without one is named in the exit."""
+    code, out = _run(cli.main, ["profile", "--duration", "0.2"])
+    assert code == 0 and json.loads(out)["target"] == "head"
+    real = store_head._state_snapshot
+    monkeypatch.setattr(store_head, "_state_snapshot", lambda: dict(real(), dashboard=None))
     with pytest.raises(SystemExit, match="dashboard"):
         cli.main(["profile"])
 

@@ -571,3 +571,53 @@ def test_serve_replicas_on_the_card(cuda):
     finally:
         serve.shutdown()
         ray_tpu_torch.shutdown()
+
+
+def test_a_card_tensor_reaches_a_thin_client_with_no_card_on_the_cpu(cuda, tmp_path):
+    """A task returns a tensor on the card; a ``client://`` process that
+    sees no card (``CUDA_VISIBLE_DEVICES=""``) gets it as a CPU tensor
+    with the same values, while this process, which has the card, gets
+    it back on the card."""
+    import subprocess
+    import sys
+    import textwrap
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private.worker import global_worker
+
+    @ray_tpu_torch.remote(num_gpus=0.25)
+    def on_card(n):
+        return torch.arange(n, dtype=torch.float32, device="cuda").reshape(4, -1) * 0.5
+
+    client = textwrap.dedent("""
+        import os, sys, torch
+        import ray_tpu_torch
+        ray_tpu_torch.init(address=sys.argv[1], _authkey=bytes.fromhex(sys.argv[2]))
+        t = ray_tpu_torch.get(ray_tpu_torch.get_actor("keeper", namespace="cuda-thin")
+                              .tensor.remote(), timeout=120)
+        assert not torch.cuda.is_available()
+        assert t.device.type == "cpu", t.device
+        assert torch.equal(t, torch.arange(64, dtype=torch.float32).reshape(4, -1) * 0.5)
+        print("CPU_TENSOR_OK")
+    """)
+
+    @ray_tpu_torch.remote(num_gpus=0.25)
+    class Keeper:
+        def tensor(self):
+            return torch.arange(64, dtype=torch.float32, device="cuda").reshape(4, -1) * 0.5
+
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        here = ray_tpu_torch.get(on_card.remote(64), timeout=300)
+        assert here.device.type == "cuda"
+        k = Keeper.options(name="keeper", namespace="cuda-thin").remote()
+        assert ray_tpu_torch.get(k.tensor.remote(), timeout=300).device.type == "cuda"
+        host, port = global_worker.node.tcp_address
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", TMPDIR=str(tmp_path))
+        out = subprocess.run([sys.executable, "-c", client, f"client://{host}:{port}",
+                              global_worker.node.authkey.hex()], capture_output=True, text=True,
+                             timeout=300, env=env,
+                             cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        assert "CPU_TENSOR_OK" in out.stdout, out.stderr[-3000:]
+    finally:
+        ray_tpu_torch.shutdown()

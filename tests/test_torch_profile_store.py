@@ -515,6 +515,86 @@ def test_a_convoy_is_still_read_as_one():
     assert finding is not None and finding["rule"] == "lock_contention"
 
 
+def test_a_hold_that_began_before_the_window_counts_from_its_open():
+    """A hold taken while timing was off is still under way when the
+    window opens, and a thread waits behind it there.  The window opens
+    on held locks: that hold counts from the open, so the rows show one
+    waiter behind one hold, not a wait behind no hold at all (the JAX
+    timing counts such a hold nowhere)."""
+    locks.arm_timing(False)
+    locks.reset_lock_stats()
+    lk = locks.make_lock("test.open_hold", rlock=True)
+    waiting, got = threading.Event(), threading.Event()
+
+    def waiter():
+        waiting.set()
+        with lk:
+            got.set()
+    try:
+        lk.acquire()  # untimed: the window is shut
+        locks.arm_timing(True)
+        th = threading.Thread(target=waiter)
+        th.start()
+        assert waiting.wait(10)
+        time.sleep(0.1)
+        lk.release()
+        assert got.wait(10)
+        th.join(10)
+        row = locks.lock_stats()["test.open_hold"]
+    finally:
+        locks.arm_timing(None)
+    assert row["contended"] == 1 and row["hold_s"] >= 0.09, row
+    assert row["wait_s"] < 2.0 * row["hold_s"], row
+    scaled = {k: v * 20 for k, v in row.items()}  # past LOCK_WAIT_MIN_S
+    assert _lock_finding("test.open_hold", scaled) is None, row
+
+
+def test_a_waiters_turn_for_the_gil_after_the_release_is_no_lock_wait():
+    """The holder releases after 10 ms and keeps the GIL 40 ms more (a
+    long switch interval), so the waiter returns from its acquire 50 ms
+    after it began.  Only the 10 ms the lock was held count as its wait:
+    the rest is the GIL's, which ``gil_saturation`` reads.  With the wait
+    counted to the acquire's return, as the JAX timing counts it, the
+    doctor would read 25 waits of one thread as a convoy."""
+    locks.reset_lock_stats()
+    lk = locks.make_lock("test.handoff")
+    ready, done = threading.Event(), threading.Event()
+    rounds, whole = 25, []
+
+    def waiter():
+        for _ in range(rounds):
+            assert ready.wait(10)
+            ready.clear()
+            t0 = time.perf_counter()
+            with lk:
+                whole.append(time.perf_counter() - t0)
+            done.set()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(0.5)
+    locks.arm_timing(True)
+    th = threading.Thread(target=waiter)
+    th.start()
+    try:
+        for _ in range(rounds):
+            with lk:
+                ready.set()
+                time.sleep(0.01)  # the waiter blocks on the lock
+            t = time.perf_counter()
+            while time.perf_counter() - t < 0.04:
+                pass  # the GIL stays here
+            assert done.wait(10)
+            done.clear()
+        th.join(10)
+        row = locks.lock_stats()["test.handoff"]
+    finally:
+        locks.arm_timing(None)
+        sys.setswitchinterval(old)
+    assert sum(whole) > 1.0  # what the JAX timing would count as wait
+    assert row["contended"] >= rounds // 2, row  # a waiter late to block waits on nothing
+    assert row["wait_s"] < 2.0 * row["hold_s"], row
+    assert _lock_finding("test.handoff", row) is None, row
+
+
 def test_condition_on_timed_rlock():
     rlk = locks.make_lock("test.cond", rlock=True)
     cond = threading.Condition(rlk)
@@ -699,3 +779,102 @@ def test_the_lock_metronome_reads_idle_to_the_sampler():
         assert classes.count("idle") >= 19, classes
     finally:
         p.stop()
+
+
+# -- the GIL-lateness reading (ROADMAP C14) -----------------------------------
+#
+# The one difference from the JAX sampler: the port bounds a burst's GIL
+# wait by the CPU the process's other threads used in it and leaves the
+# sampler's own CPU out (``sampling_profiler.gil_lateness_frac``); the JAX
+# reading is (elapsed - ticks * period) / elapsed.  So an idle worker whose
+# wake-ups run late on a busy host reads 0 here, where the JAX package's
+# ``gil_saturation`` read such a worker as core-bound.
+
+@pytest.mark.parametrize("elapsed,expected,own,cpu", [
+    (0.1, 0.05, 0.0, 0.1), (0.1, 0.05, 0.0, 0.0), (0.1, 0.05, 0.02, 0.03),
+    (0.06, 0.05, 0.0, 0.2), (0.05, 0.06, 0.0, 0.05)])
+def test_gil_lateness_reading_is_the_jax_reading_bounded_by_other_threads_cpu(
+        elapsed, expected, own, cpu):
+    jax_reading = max(0.0, min(1.0, (elapsed - expected) / elapsed))
+    got = sp.gil_lateness_frac(elapsed, expected, own, cpu)
+    bound = max(0.0, min(elapsed - expected - own, cpu - own)) / elapsed
+    assert got == pytest.approx(min(jax_reading, max(0.0, bound)), abs=1e-12)
+    if own == 0.0 and cpu >= elapsed:  # other threads held a core throughout
+        assert got == pytest.approx(jax_reading, abs=1e-12)
+
+
+_PROBE = """
+import json, sys, threading
+from ray_tpu_torch._private import sampling_profiler as sp
+
+stop = threading.Event()
+
+def spin():
+    x = 0
+    while not stop.is_set():
+        x += 1
+
+import os
+os.nice(int(sys.argv[2]))  # behind the host's other work in its run queue
+for _ in range(int(sys.argv[1])):
+    threading.Thread(target=spin, daemon=True).start()
+p = sp.ContinuousProfiler("probe", ingest_fn=lambda *a, **k: None)
+out = []
+for _ in range(8):
+    p._burst()
+    out.append(p.lateness_frac)
+stop.set()
+print(json.dumps(out))
+"""
+
+
+def _probe_lateness(spinning_threads, nice=0):
+    import json
+    import subprocess
+
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(spinning_threads), str(nice)],
+                         capture_output=True, text=True, timeout=T,
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout)
+
+
+def _gil_finding(readings):
+    from ray_tpu_torch.util import doctor
+
+    pts = [(T0 + i, v) for i, v in enumerate(readings)]
+    return doctor._trend_rule_gil_saturation(
+        {"ray_tpu_gil_lateness_frac": [{"tags": {"origin": "w"}, "points": pts}]})
+
+
+def test_an_idle_worker_on_a_busy_host_opens_no_gil_saturation():
+    """Every core of the host spins in other processes and the idle probe
+    runs behind them (niced): its ticks wake late, but nothing in it held
+    the GIL, so its reading stays under the rule's threshold and
+    ``gil_saturation`` stays closed."""
+    import subprocess
+
+    hogs = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+            for _ in range(os.cpu_count() or 1)]
+    try:
+        readings = _probe_lateness(0, nice=19)
+    finally:
+        for h in hogs:
+            h.kill()
+            h.wait(timeout=10)
+    assert max(readings) < sp_threshold(), readings
+    assert _gil_finding(readings) is None
+
+
+def test_a_worker_spinning_python_threads_still_opens_gil_saturation():
+    readings = _probe_lateness(3)
+    assert min(readings) >= sp_threshold(), readings
+    f = _gil_finding(readings)
+    assert f is not None and f["rule"] == "gil_saturation"
+
+
+def sp_threshold():
+    from ray_tpu_torch.util import doctor
+
+    return doctor.GIL_SATURATION_FRAC
+

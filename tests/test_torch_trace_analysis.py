@@ -176,12 +176,15 @@ def test_trace_command_renders_a_head_assembled_trace():
             with tracing.trace("render-me") as ctx:
                 assert rt.get(e.echo.remote(1), timeout=T) == 1
             deadline = time.monotonic() + T
-            trace = None
+            trace = last = None
             while time.monotonic() < deadline:
-                trace = state.get_trace(ctx["trace_id"])
-                if trace and any(s["name"] == "Echo.echo" for s in trace["spans"]):
+                # settled: the call's span is in, and a second read finds
+                # no span that arrived since (the CLI reads it again below)
+                last, trace = trace, state.get_trace(ctx["trace_id"])
+                if (trace and any(s["name"] == "Echo.echo" for s in trace["spans"])
+                        and trace == last):
                     break
-                time.sleep(0.1)
+                time.sleep(0.2)
             assert trace and any(s["name"] == "Echo.echo" for s in trace["spans"])
             a = ta.analyze(trace)
             assert a == jax_ta.analyze(trace)
