@@ -388,14 +388,37 @@ the backward kernels):
     Prints the put's and the get's seconds and bytes, the recovery's
     seconds, p50/p99 before, during and after it, the launches and the
     phase's wall.
+38. ``core_perf_witness_gpt2`` (after 37): (a) the core microbenchmarks
+    (``ray_tpu_torch._private.ray_perf.main(quick=True)``, a head with
+    ``num_gpus=0`` on the card's host, then two real-agent clusters for
+    the broadcast rows), each row printed; every value above 0,
+    ``task_round_trip`` above 20 and ``actor_call_round_trip`` above 40
+    ops/s (the floors of ``tests/test_perf_smoke.py``).  (b) A process
+    started with ``RAY_TPU_TORCH_LOCKWITNESS=1`` and a private
+    ``RAY_TPU_TORCH_LOCKWITNESS_DIR`` in its environment (so every named
+    lock, the module-level ones made at import too, is a raylint
+    ``WitnessLock`` in it and in every process of its cluster): a port
+    head serving GPT-2 125M bf16 (seed 0) through ``llm_deployment``
+    (one ``num_gpus=1`` replica) answers 8 greedy requests of 32 tokens
+    while tasks run, an actor is killed and an array is put and read
+    back; the streams equal an unwitnessed engine's in this process, the
+    witness saw nested acquisitions with one on a ``node.shard`` lock,
+    the report directory stays empty (no lock-order cycle in the head,
+    its workers or the replica), and the replica's ``flash_fwd``
+    launches are 12 a prefill, all on the tensor cores; ``doctor
+    --static`` against that live head names no ``raylint/`` finding.
+    (c) ``python -m ray_tpu_torch lint --json`` exits 0 against the
+    port's baseline.  Prints the rows, the edges, the launches, each
+    part's seconds, the phase's wall, and the card's name and power
+    limit.
 
 Every bf16 launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 on the serving and training paths has to run the tensor-core design
 (their ``_tc`` launch counts equal their totals; the profiled steps find
 only the ``_tc`` kernels by name). Then a ``{"kernels": [...]}`` line (launches
 summed over the serving, training, Tune, RL, Data, Serve, graph,
-util-pool, multi-node pipeline, watched pipeline, operator-job, durable-job
-and front-door runs, and per run), the card's name
+util-pool, multi-node pipeline, watched pipeline, operator-job, durable-job,
+front-door and witnessed-serving runs, and per run), the card's name
 and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": {...}}``.  Exits non-zero,
 printing no result, when there is no CUDA device or any phase fails.
@@ -6537,6 +6560,217 @@ def phase_tenant_front_doors_gpt2():
     return launches
 
 
+WITNESS_ENGINE = dict(n_slots=8, max_new_tokens=32, decode_chunk_steps=16, prefill_buckets=(128,))
+WITNESS_REQUESTS, WITNESS_NEW_TOKENS, WITNESS_WAIT_S = 8, 32, 600
+# the floors of tests/test_perf_smoke.py (ops/s)
+PERF_FLOORS = {"task_round_trip": 20, "actor_call_round_trip": 40}
+
+# The witnessed head's driver: a process of its own, so that
+# RAY_TPU_TORCH_LOCKWITNESS is in its environment before the interpreter
+# starts and the locks made at import are witnessed too.  argv[1] is the
+# JSON spec; the last line it prints is "WITNESSED {...}".
+WITNESS_DRIVER = r'''
+import contextlib, io, json, os, sys, time
+import numpy as np
+import ray_tpu_torch as rt
+from ray_tpu_torch import serve
+from ray_tpu_torch._private import object_store
+from ray_tpu_torch.devtools.raylint.lockwitness import WITNESS, WitnessLock
+from ray_tpu_torch.scripts import cli
+from ray_tpu_torch.serve.llm import llm_deployment
+from ray_tpu_torch.util import metrics
+
+spec = json.loads(sys.argv[1])
+out = {"wrapped": {"metrics.registry": isinstance(metrics._global.lock, WitnessLock),
+                   "object_store.attached": isinstance(object_store._ATTACHED_LOCK, WitnessLock),
+                   "object_store.arena_maps": isinstance(object_store._ARENA_MAPS_LOCK,
+                                                         WitnessLock)}}
+assert all(out["wrapped"].values()), out["wrapped"]
+
+
+def launch_counts(instance, reset):
+    from ray_tpu_torch.ops import _build
+    counts = dict(_build.launches)
+    if reset:
+        _build.reset_launches()
+    return counts
+
+
+def grant(instance):
+    return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+@rt.remote
+def square(i):
+    return i * i
+
+
+@rt.remote
+class Counter:
+    def __init__(self):
+        self.n = 0
+
+    def inc(self):
+        self.n += 1
+        return self.n
+
+
+wait = spec["wait_s"]
+t0 = time.perf_counter()
+rt.init(num_cpus=4)
+try:
+    out["head_up_s"] = time.perf_counter() - t0
+    serve.start(serve.HTTPOptions(host="127.0.0.1", port=0))
+    t0 = time.perf_counter()
+    handle = serve.run(llm_deployment("gpt2", "125m", engine_kwargs=spec["engine"]).bind(),
+                       host="127.0.0.1", port=0, timeout_s=wait)
+    out["deploy_s"] = time.perf_counter() - t0
+    info = rt.get(serve.api._get_client().controller.get_routing_info.remote("llm"), timeout=60)
+    (replica,) = [h for _, h in info["replicas"]]
+    out["grant"] = rt.get(replica._submit_compiled_task(grant, (), name="grant"), timeout=60)
+    rt.get(handle.remote({"tokens": [1] * 8, "max_new_tokens": 4}), timeout=wait)
+    rt.get(replica._submit_compiled_task(launch_counts, (True,), name="launches"), timeout=60)
+    prefills0 = rt.get(handle.stats.remote(), timeout=60)["prefills"]
+    t0 = time.perf_counter()
+    refs = [handle.remote({"tokens": p, "max_new_tokens": spec["new_tokens"]})
+            for p in spec["prompts"]]
+    # alongside the requests: tasks, actors and a kill, a put
+    assert rt.get([square.remote(i) for i in range(32)], timeout=wait) == \
+        [i * i for i in range(32)]
+    actors = [Counter.remote() for _ in range(3)]
+    for c in actors:
+        assert rt.get([c.inc.remote() for _ in range(5)], timeout=wait)[-1] == 5
+    rt.kill(actors[0])
+    arr = np.arange(1 << 22, dtype=np.float32)
+    assert np.array_equal(rt.get(rt.put(arr), timeout=60), arr)
+    out["outs"] = [o["tokens"] for o in rt.get(refs, timeout=wait)]
+    out["requests_wall_s"] = time.perf_counter() - t0
+    out["launches"] = rt.get(replica._submit_compiled_task(launch_counts, (False,),
+                                                           name="launches"), timeout=60)
+    out["admissions"] = rt.get(handle.stats.remote(), timeout=60)["prefills"] - prefills0
+    # doctor --static against this live head, in-process
+    t0 = time.perf_counter()
+    buf, rc = io.StringIO(), 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main(["doctor", "--static", "--json"])
+        except SystemExit as e:
+            rc = e.code
+    out["doctor_rc"], out["doctor_s"] = rc, time.perf_counter() - t0
+    out["doctor_rules"] = sorted({f["rule"] for f in json.loads(buf.getvalue())})
+    serve.shutdown()
+finally:
+    rt.shutdown()
+snap = WITNESS.snapshot()
+out["edges"], out["cycles"] = snap["edges"], len(snap["cycles"])
+print("WITNESSED " + json.dumps(out), flush=True)
+'''
+
+
+def phase_core_perf_witness_gpt2():
+    """The core microbenchmarks on the card's host, GPT-2 125M served on
+    the card under the lock witness, and the raylint gate (see the module
+    doc).  Returns the witnessed replica's launches."""
+    import glob
+    import tempfile
+
+    from ray_tpu_torch._private import ray_perf
+    from ray_tpu_torch.serve.llm import GenerationEngine, make_config
+
+    phase, t_phase, card = "core_perf_witness_gpt2", time.perf_counter(), nvidia_smi()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    row = {}
+
+    # (a) the core microbenchmarks
+    t0 = time.perf_counter()
+    rows = ray_perf.main(quick=True)
+    row["perf_s"] = time.perf_counter() - t0
+    perf = {r["metric"]: r["value"] for r in rows}
+    check(len(rows) >= 9 and all(v > 0 for v in perf.values()),
+          f"{phase}: a ray_perf row is not above 0: {perf}")
+    for metric, floor in PERF_FLOORS.items():
+        check(perf[metric] > floor, f"{phase}: {metric} {perf[metric]} ops/s, floor {floor}")
+
+    # the unwitnessed reference: the same engine in this process
+    cfg = make_config("gpt2", "125m")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 50000, int(rng.integers(16, 100))).tolist()
+               for _ in range(WITNESS_REQUESTS)]
+    engine = dict(WITNESS_ENGINE, seed=0)
+    ref = GenerationEngine(cfg, device="cuda", **engine)
+    futs = [ref.submit(p, WITNESS_NEW_TOKENS) for p in prompts]
+    ref.start()
+    try:
+        want = [f.result(timeout=WITNESS_WAIT_S) for f in futs]
+    finally:
+        ref.stop()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the witnessed head, its replica and its workers
+    with tempfile.TemporaryDirectory(prefix="witness_") as d:
+        report_dir = os.path.join(d, "reports")
+        env = dict(os.environ, RAY_TPU_TORCH_LOCKWITNESS="1",
+                   RAY_TPU_TORCH_LOCKWITNESS_DIR=report_dir,
+                   PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+        spec = {"engine": engine, "prompts": prompts, "new_tokens": WITNESS_NEW_TOKENS,
+                "wait_s": WITNESS_WAIT_S}
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", WITNESS_DRIVER, json.dumps(spec)],
+                                cwd=repo, env=env, stdout=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            stdout, _ = proc.communicate(timeout=3 * WITNESS_WAIT_S)
+        finally:
+            try:  # whatever of its session is left
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+        row["witnessed_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"{phase}: the witnessed drive exited {proc.returncode}")
+        reports = [open(p).read() for p in sorted(glob.glob(os.path.join(report_dir, "*.json")))]
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("WITNESSED ")]
+    check(bool(lines), f"{phase}: the witnessed drive printed no result")
+    got = json.loads(lines[-1].split(" ", 1)[1])
+    check(not reports and got["cycles"] == 0,
+          f"{phase}: lock-order cycles reported: {reports[:2]}")
+    check(any("node.shard" in e for e in got["edges"]),
+          f"{phase}: no nested acquisition on a node.shard lock: {got['edges']}")
+    check(got["grant"] == "0", f"{phase}: replica grant {got['grant']!r}")
+    check(got["outs"] == want, f"{phase}: the witnessed replica's streams differ from the "
+                               "unwitnessed engine's")
+    launches = got["launches"]
+    check_tensor_cores(phase, launches, cfg.n_layers * got["admissions"])
+    raylint_rows = [r for r in got["doctor_rules"] if r.startswith("raylint/")]
+    check(not raylint_rows, f"{phase}: doctor --static names {raylint_rows}")
+
+    # (c) the raylint gate over the checkout
+    t0 = time.perf_counter()
+    lint = subprocess.run([sys.executable, "-m", "ray_tpu_torch", "lint", "--json"], cwd=repo,
+                          capture_output=True, text=True, timeout=600)
+    row["lint_s"] = time.perf_counter() - t0
+    check(lint.returncode == 0, f"{phase}: lint exited {lint.returncode}: {lint.stdout[-2000:]}")
+    gate = json.loads(lint.stdout)
+    emit(phase, perf_rows=perf, perf_floors=PERF_FLOORS,
+         witness={"wrapped_at_import": got["wrapped"], "edges": len(got["edges"]),
+                  "node_shard_edges": sorted(e for e in got["edges"] if "node.shard" in e),
+                  "cycles": got["cycles"], "reports": len(reports)},
+         model="gpt2 125M bf16, one num_gpus=1 replica, witnessed",
+         engine={k: v for k, v in WITNESS_ENGINE.items() if k != "prefill_buckets"},
+         requests=len(prompts), new_tokens_per_req=WITNESS_NEW_TOKENS,
+         streams_equal_unwitnessed_engine=True, admissions=got["admissions"],
+         flash_launches=launches.get(attn.KERNEL, 0),
+         flash_launches_tensor_core=launches.get(attn.FWD_TC, 0),
+         head_up_s=got["head_up_s"], deploy_s=got["deploy_s"],
+         requests_wall_s=got["requests_wall_s"], doctor_static_s=got["doctor_s"],
+         doctor_rules=got["doctor_rules"], lint_ok=gate["ok"],
+         lint_baselined=len(gate["baselined"]), **row,
+         phase_s=time.perf_counter() - t_phase, card=card)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -6650,6 +6884,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     front_door_launches = phase_tenant_front_doors_gpt2()
+    gc.collect()
+    torch.cuda.empty_cache()
+    witness_launches = phase_core_perf_witness_gpt2()
 
     runs = {"serve_gpt2": serve_gpt2, "serve_llama": serve_llama, "serve_bert": bert_launches,
             "train_gpt2": train_launches, "train_llama": llama_launches,
@@ -6663,6 +6900,7 @@ def main() -> int:
             "operator_job_gpt2": operator_launches,
             "durable_job_gpt2": durable_launches,
             "tenant_front_doors_gpt2": front_door_launches,
+            "core_perf_witness_gpt2": witness_launches,
             "util_pool_bert_accounting": pool_launches,
             "rl_parity": rl_parity_launches,
             "rl_ppo_atari": rl_launches, "rl_ppo_atari_runtime": rl_runtime_launches,

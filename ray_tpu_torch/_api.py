@@ -74,15 +74,23 @@ def init(
     under ``CUDA_VISIBLE_DEVICES``); the head never creates a CUDA
     context of its own.
     """
+    import json
+    import os
+
+    from ray_tpu_torch._private import events as _events
+    from ray_tpu_torch._private import object_transfer
+    from ray_tpu_torch._private import shm as _shm
     from ray_tpu_torch._private.client import CoreClient
+    from ray_tpu_torch._private.config import session_root
     from ray_tpu_torch._private.node import Node
 
-    import os as _os
-
-    if address is None and _os.environ.get("RAY_TPU_TORCH_ADDRESS", "").startswith("tcp://"):
+    # every import above, not under ``_init_lock``: an import takes the
+    # interpreter's import lock, which must never nest inside ours
+    # (raylint R4)
+    if address is None and os.environ.get("RAY_TPU_TORCH_ADDRESS", "").startswith("tcp://"):
         # submitted jobs join the cluster that launched them (the
         # reference's $RAY_ADDRESS behavior)
-        address = _os.environ["RAY_TPU_TORCH_ADDRESS"]
+        address = os.environ["RAY_TPU_TORCH_ADDRESS"]
     with _init_lock:
         if global_worker.connected:
             if ignore_reinit_error:
@@ -91,9 +99,6 @@ def init(
         thin = False
         proxied = False
         if address is not None:
-            import json
-            import os
-
             thin = address.startswith("client://")
             if thin:
                 # Ray Client analog (reference ``ray.init("ray://...")``,
@@ -107,8 +112,6 @@ def init(
                 proxied = thin = True
                 address = "tcp://" + address[len("ray_tpu_torch://"):]
             if address == "auto":
-                from ray_tpu_torch._private.config import session_root
-
                 with open(os.path.join(session_root(), "last_session.json")) as f:
                     sess = json.load(f)
                 address = sess["address"]
@@ -116,19 +119,13 @@ def init(
                 if sess.get("session_id"):
                     # adopt the head's shm namespace so this driver's puts
                     # live (and are swept) with the session they belong to
-                    from ray_tpu_torch._private import shm as _shm
-
                     os.environ[_shm._SESSION_ENV] = sess["session_id"]
             else:
                 authkey = _authkey or bytes.fromhex(os.environ["RAY_TPU_TORCH_AUTHKEY"])
-            from ray_tpu_torch._private import object_transfer
-
             object_transfer.configure(authkey)
             node = None
             client = CoreClient(address, authkey,
                                 proxy_namespace=namespace, proxy=proxied)
-            from ray_tpu_torch._private import shm as _shm
-
             if not thin and _shm._SESSION_ENV not in os.environ:
                 # adopt the head's shm namespace so this driver's puts are
                 # swept with the session they belong to
@@ -154,7 +151,7 @@ def init(
         # re-emit them prefixed "(name pid=… node=…)".  RAY_TPU_TORCH_LOG_TO_DRIVER=0
         # turns the re-emission off.
         if (global_worker.job_id
-                and _os.environ.get("RAY_TPU_TORCH_LOG_TO_DRIVER", "1") != "0"):
+                and os.environ.get("RAY_TPU_TORCH_LOG_TO_DRIVER", "1") != "0"):
             if _log_plane.enabled():
                 try:
                     client.subscribe(f"logs:{global_worker.job_id}",
@@ -166,10 +163,8 @@ def init(
             # serve router) ship to the head like a worker's do.  The
             # in-process head path needs no pusher — driver emits land in
             # the head's own ring.
-            from ray_tpu_torch._private import events as _events
-
             origin = (f"tenant-{global_worker.job_id}" if proxied
-                      else f"driver-{_os.getpid()}")
+                      else f"driver-{os.getpid()}")
             global_worker._events_pusher = _events.EventsPusher(
                 client.send, origin=origin,
                 closed_fn=lambda: client.closed).start()

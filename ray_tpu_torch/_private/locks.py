@@ -383,8 +383,22 @@ class _TimedLock:
 
 def make_lock(name: str, *, rlock: bool = False):
     """A named Lock/RLock behind the duty-cycled timing proxy (see the
-    module docstring); the locks in ``_UNTIMED`` come back bare."""
+    module docstring); the locks in ``_UNTIMED`` come back bare.
+
+    With ``RAY_TPU_TORCH_LOCKWITNESS`` set, every named lock (the
+    ``_UNTIMED`` ones too) is instead a raylint ``WitnessLock`` over the
+    bare lock, and goes untimed: the witness replaces the timing, as in
+    the JAX package.  The timing's window bookkeeping (``_mark_open_hold``,
+    the ``_rel`` stamps) would otherwise run inside the witnessed
+    acquires, and a witnessed run is read for lock order, never for
+    wait/hold.  The flag is read per call, so it must be in the
+    environment before the first import for module-level locks (the
+    metrics registry, ``object_store``'s attached and arena-map locks)."""
     lock = threading.RLock() if rlock else threading.Lock()
+    if os.environ.get("RAY_TPU_TORCH_LOCKWITNESS"):
+        from ray_tpu_torch.devtools.raylint.lockwitness import wrap_lock
+
+        return wrap_lock(name, lock)
     if name in _UNTIMED:
         return lock
     return _TimedLock(lock, name)

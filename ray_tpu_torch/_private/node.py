@@ -603,8 +603,8 @@ class Node:
         # doctor)
         self._session_ring = _SessionRing(events_mod.buffer().last_seq())
         self.session_dir = session_dir or (
-            # raylint: disable=R3 (once per session)
             os.path.join(session_root(),
+                         # raylint: disable=R3 (once per session)
                          f"session_{os.getpid()}_{os.urandom(4).hex()}")
         )
         os.makedirs(self.session_dir, exist_ok=True)

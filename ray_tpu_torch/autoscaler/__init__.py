@@ -5,7 +5,10 @@ The port's copy of ``ray_tpu/autoscaler`` (analog of
 (``_private/autoscaler.py:167``) over pluggable ``NodeProvider``s
 (``autoscaler/node_provider.py:13``), with a local provider whose nodes
 are real node-agent subprocesses holding ``node_config["num_gpus"]``
-cards.  Demand counts ``"GPU"``: a pending actor or task that asks for a
+cards, and a GCP provider of card hosts (``gcp_gpu.py``
+``GCPGPUNodeProvider``, the counterpart of the JAX package's
+``gcp_tpu.py`` ``GCPTPUNodeProvider``: Compute Engine VMs with cards in
+place of TPU VMs, imported by its full name as the JAX one is).  Demand counts ``"GPU"``: a pending actor or task that asks for a
 card the cluster lacks waits as demand until a node with one joins.
 ``TrendAutoscaler`` adds TSDB-trend decisions (scale before the doctor
 flags an incident) and slice-atomic replacement of degraded slices

@@ -21,8 +21,9 @@ Reference: ``python/ray/scripts/scripts.py`` (cluster lifecycle) and
     trace [TRACE_ID] [--json]                  span tree + critical path
     serve-status                               serve deployments + autoscaling
     serve-deploy CONFIG                        PUT a JSON app config to the dashboard
-    doctor [--json --live]                     pathology findings (exit 1 on any;
-                                               --live reads the watchdog's incident set)
+    doctor [--json --live --static]            pathology findings (exit 1 on any;
+                                               --live reads the watchdog's incident set,
+                                               --static adds raylint's new findings)
     incidents [--follow --history --ack ID]    watchdog incident lifecycle
     slo                                        declared SLOs + burn-rate state
     debug dump                                 write a whole-cluster post-mortem bundle
@@ -36,8 +37,9 @@ Reference: ``python/ray/scripts/scripts.py`` (cluster lifecycle) and
     profile diff WINDOW_A WINDOW_B             differential folded stacks
     profile ledger [--window S]                per-task CPU cost ledger
     profile list                               origins with profile history
+    lint [--rule R4 --json --update-baseline]  raylint static-analysis gate
 
-Every command but ``start``, ``up``, ``down`` and ``stop`` talks to the
+Every command but ``start``, ``up``, ``down``, ``stop`` and ``lint`` talks to the
 cluster named by ``$RAY_TPU_TORCH_ADDRESS`` (``tcp://host:port``, with
 ``$RAY_TPU_TORCH_AUTHKEY``) when it is set, else to the last head started
 on this host (its session record under the temp directory).
@@ -372,11 +374,82 @@ def cmd_serve_status(_args) -> None:
     print(json.dumps(status, indent=2, default=repr))
 
 
+def _repo_root() -> str:
+    """The checkout root (where the port's package and its raylint
+    baseline live): the parent of the ``ray_tpu_torch`` package, falling
+    back to the cwd when the package is installed elsewhere but the cwd
+    looks like a checkout (it holds the package with its baseline)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.devtools.raylint.core import BASELINE_RELPATH
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        ray_tpu_torch.__file__)))
+    if not os.path.exists(os.path.join(root, BASELINE_RELPATH)) \
+            and os.path.exists(os.path.join(os.getcwd(), BASELINE_RELPATH)):
+        return os.getcwd()
+    return root
+
+
+def _static_findings(rules=None, update_baseline=False, root=None):
+    """Run the raylint gate over the checkout; returns the GateResult."""
+    from ray_tpu_torch.devtools.raylint import run_gate
+
+    return run_gate(root or _repo_root(), rules=rules,
+                    update_baseline=update_baseline)
+
+
+def cmd_lint(args) -> None:
+    """raylint: the 8-rule static-analysis gate (no cluster needed).
+    Exit 1 on findings the package's baseline doesn't grandfather."""
+    from ray_tpu_torch.devtools.raylint.runner import render_report, to_json
+
+    rules = None
+    if args.rule:
+        rules = sorted({r.strip().upper() for spec in args.rule
+                        for r in spec.split(",") if r.strip()})
+    try:
+        result = _static_findings(rules=rules,
+                                  update_baseline=args.update_baseline,
+                                  root=args.root)
+    except ValueError as e:  # bad --rule id / --update-baseline subset
+        raise SystemExit(f"ray_tpu_torch lint: {e}")
+    if args.json:
+        print(json.dumps(to_json(result), indent=1))
+    else:
+        print(render_report(result, verbose=args.verbose))
+    if not result.ok:
+        sys.exit(1)
+
+
 def cmd_doctor(args) -> None:
     """Rule-based pathology analysis over the recorded event/task state
     and the head's TSDB trends; exits non-zero when findings exist so CI
     can gate on it.  ``--live`` reports the watchdog's current open
-    incidents instead of re-diagnosing."""
+    incidents instead of re-diagnosing.  With ``--static``, raylint's
+    non-baselined findings join the report (one command for "is this
+    cluster AND this tree healthy")."""
+    findings = []
+    if args.static:
+        lint = _static_findings(root=args.root)
+        findings.extend({
+            "severity": "WARNING",
+            "rule": f"raylint/{f.rule}",
+            "summary": f"{f.location()}: {f.message}",
+            "remedy": f.remedy,
+            "evidence": [{"file": f.path, "line": f.line}],
+            "count": 1,
+        } for f in lint.new)
+        # stale baseline keys fail `lint` (the baseline only burns
+        # down): doctor --static must agree with the gate
+        findings.extend({
+            "severity": "WARNING",
+            "rule": "raylint/baseline",
+            "summary": f"stale baseline entry (finding fixed): {key}",
+            "remedy": ("remove it via `python -m ray_tpu_torch lint "
+                       "--update-baseline`"),
+            "evidence": [{"baseline_key": key}],
+            "count": 1,
+        } for key in lint.stale_keys)
     _connect()
     from ray_tpu_torch.util.doctor import render, run_doctor
 
@@ -385,7 +458,7 @@ def cmd_doctor(args) -> None:
         # re-diagnosing — what the continuous loop already concluded
         from ray_tpu_torch.experimental.state import api as state
 
-        findings = [{
+        findings.extend({
             "severity": inc["severity"], "rule": inc["rule"],
             "summary": f"[{inc['state']}] {inc['summary']}",
             "remedy": inc.get("remedy", ""),
@@ -393,9 +466,9 @@ def cmd_doctor(args) -> None:
             "evidence": [{"incident_id": inc["id"],
                           "bundle_dir": inc.get("bundle_dir")}],
         } for inc in state.list_incidents()
-            if inc["state"] in ("open", "ack")]
+            if inc["state"] in ("open", "ack"))
     else:
-        findings = run_doctor()
+        findings.extend(run_doctor())
     if args.json:
         print(json.dumps(findings, indent=2, default=repr))
     else:
@@ -1054,6 +1127,13 @@ def main(argv=None) -> None:
     s.add_argument("--live", action="store_true",
                    help="report the watchdog's current open incidents "
                         "instead of re-diagnosing from scratch")
+    s.add_argument("--static", action="store_true",
+                   help="also run the raylint static gate and fold its "
+                        "new findings into the report/exit code")
+    s.add_argument("--root", default=None,
+                   help="checkout root for --static (default: the "
+                        "ray_tpu_torch package's parent, or cwd if the "
+                        "baseline lives there)")
     s.set_defaults(fn=cmd_doctor)
 
     s = sub.add_parser(
@@ -1087,6 +1167,25 @@ def main(argv=None) -> None:
     s.add_argument("--label", default=None,
                    help="bundle directory name (default dump-<ts>)")
     s.set_defaults(fn=cmd_debug)
+
+    s = sub.add_parser(
+        "lint",
+        help="raylint static-analysis suite over the port's package "
+             "(8 invariant rules; exit 1 on non-baselined findings)")
+    s.add_argument("--rule", action="append", default=None,
+                   metavar="R1[,R2...]",
+                   help="run only these rule ids (repeatable)")
+    s.add_argument("--json", action="store_true")
+    s.add_argument("--verbose", action="store_true",
+                   help="also list baselined findings")
+    s.add_argument("--update-baseline", action="store_true",
+                   help="rewrite the package's raylint baseline.json "
+                        "from the current findings (full-rule runs only)")
+    s.add_argument("--root", default=None,
+                   help="checkout root to analyze (default: the "
+                        "ray_tpu_torch package's parent, or cwd if the "
+                        "baseline lives there)")
+    s.set_defaults(fn=cmd_lint)
 
     s = sub.add_parser(
         "top", help="live cluster resource view (nodes, workers, pinned "

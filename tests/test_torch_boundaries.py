@@ -424,7 +424,7 @@ def test_operator_plane_loads_neither_jax_nor_ray_tpu_and_starts_nothing():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
                          capture_output=True, text=True)
     assert "{start,up,down,stop,status,list,submit,job-logs,logs,job-stop,timeline," \
-           "events,trace,serve-status,serve-deploy,doctor,incidents,slo,debug,top,slices,memory," \
+           "events,trace,serve-status,serve-deploy,doctor,incidents,slo,debug,lint,top,slices,memory," \
            "metrics,perf,profile}" in out.stdout
 
 
@@ -552,6 +552,52 @@ def test_front_doors_load_nothing_and_start_nothing(tmp_path):
         "assert threading.active_count() == 1, threading.enumerate()\n"
         "assert not torch.cuda.is_initialized()\n"
         % (", ".join(FRONT_DOOR_MODULES), FORBIDDEN))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**os.environ, "TMPDIR": str(tmp)})
+    assert list(tmp.iterdir()) == []
+
+
+LAST_SLICE_MODULES = ("ray_tpu_torch._private.ray_perf", "ray_tpu_torch.train",
+                      "ray_tpu_torch.train.sklearn_trainer", "ray_tpu_torch.autoscaler.gcp_gpu",
+                      "ray_tpu_torch.devtools.raylint", "ray_tpu_torch.devtools.raylint.core",
+                      "ray_tpu_torch.devtools.raylint.runner",
+                      "ray_tpu_torch.devtools.raylint.lockwitness",
+                      "ray_tpu_torch.scripts.cli")
+
+# JAX module -> the port's counterpart, where the name differs
+RENAMED = {"train/jax_utils.py": "train/torch_utils.py",
+           "protocol/ray_tpu_pb2.py": "protocol/ray_tpu_torch_pb2.py",
+           "autoscaler/gcp_tpu.py": "autoscaler/gcp_gpu.py"}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Comparing the two packages' ``*.py`` lists leaves only the three
+    JAX modules whose counterparts have other names."""
+    def rel(pkg):
+        return {p.relative_to(ROOT / pkg).as_posix() for p in (ROOT / pkg).rglob("*.py")
+                if "_build" not in p.parts}
+
+    jax_mods, ours = rel("ray_tpu"), rel("ray_tpu_torch")
+    assert sorted(jax_mods - ours) == sorted(RENAMED)
+    assert set(RENAMED.values()) <= ours
+
+
+def test_last_slice_loads_nothing_and_starts_nothing(tmp_path):
+    """The microbenchmark harness, the sklearn trainer, the card-host
+    provider and raylint import no JAX, nothing of ``ray_tpu`` and no
+    scikit-learn (``import ray_tpu_torch.train`` works where it is
+    missing); importing them, the lock witness included, starts no
+    thread, makes no CUDA context and writes no file."""
+    tmp = tmp_path / "tmp"
+    tmp.mkdir()
+    code = (
+        "import sys, threading, torch\n"
+        "import %s\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r + ('sklearn',)]\n"
+        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        % (", ".join(LAST_SLICE_MODULES), FORBIDDEN))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
                    env={**os.environ, "TMPDIR": str(tmp)})
     assert list(tmp.iterdir()) == []

@@ -362,29 +362,34 @@ def test_down_kills_a_head_by_its_record_only_if_it_is_the_ports(private_tmp):
     os.remove(record)
 
 
-@pytest.mark.parametrize("name", ["lint"])
+@pytest.mark.parametrize("name", ["no_such_command"])
 def test_unregistered_subcommands_exit_with_argparses_error(name, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main([name])
-    assert e.value.code == 2
-    assert f"invalid choice: '{name}'" in capsys.readouterr().err
+    """Every JAX subcommand is registered now (``lint`` was the last);
+    a name neither CLI knows exits with argparse's error in both."""
+    from ray_tpu.scripts import cli as jax_cli
+
+    for main in (cli.main, jax_cli.main):
+        with pytest.raises(SystemExit) as e:
+            main([name])
+        assert e.value.code == 2
+        assert f"invalid choice: '{name}'" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("name,flags", [("doctor", ["--json", "--live"]),
+@pytest.mark.parametrize("name,flags", [("doctor", ["--json", "--live", "--static", "--root"]),
                                         ("top", ["--interval", "--iterations", "--sort"]),
                                         ("memory", ["--limit", "--json"]),
                                         ("metrics", ["--window", "--step", "--agg"]),
                                         ("perf", ["--window", "--json"])])
 def test_accounting_subcommands_take_the_jax_packages_flags(name, flags, capsys):
     """``doctor``, ``top``, ``memory``, ``metrics`` and ``perf`` are
-    registered with the JAX package's flags (``doctor`` without its
-    ``--static``, which runs raylint)."""
+    registered with the JAX package's flags (``doctor`` with its
+    ``--static``, which runs the port's raylint)."""
     with pytest.raises(SystemExit) as e:
         cli.main([name, "--help"])
     assert e.value.code == 0
     out = capsys.readouterr().out
     assert all(f in out for f in flags), out
-    assert "--static" not in out
+    assert set(re.findall(r"(--[a-z][a-z-]*)", out)) - {"--help"} == _jax_parser_flags(name)
 
 
 def test_list_takes_only_the_tables_the_head_keeps(capsys):
