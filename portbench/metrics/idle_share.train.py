@@ -1,0 +1,3 @@
+"""Device idle percent of a traced stretch of the training window (device trace)."""
+
+from portbench.readers import idle_share as read  # noqa: F401
