@@ -720,13 +720,14 @@ def _execute_task(msg: dict) -> None:
         _main_exec["spec"] = spec
         _main_exec["tid"] = spec["task_id"]
     try:
-        try:
-            args, kwargs = _resolve_args(spec, dep_locs)
-        except FileNotFoundError:
-            # a dep's segment was spilled between dispatch and attach —
-            # refetch locations once (same guard Worker.get has)
-            fresh = w.client.get_locations(list(dep_locs), timeout=60)
-            args, kwargs = _resolve_args(spec, fresh or dep_locs)
+        with tracing.span("task.args"):
+            try:
+                args, kwargs = _resolve_args(spec, dep_locs)
+            except FileNotFoundError:
+                # a dep's segment was spilled between dispatch and attach —
+                # refetch locations once (same guard Worker.get has)
+                fresh = w.client.get_locations(list(dep_locs), timeout=60)
+                args, kwargs = _resolve_args(spec, fresh or dep_locs)
         if spec.get("is_actor_creation"):
             cls = w.fetch_function(spec["fn_id"])
             w.task_depth += 1
@@ -837,7 +838,8 @@ def _execute_task(msg: dict) -> None:
     finally:
         if on_main:  # close the cancellation-interrupt window
             _main_exec["tid"] = None
-    _seal_and_report(w, spec, results, failed, error_str, exec_start)
+    with tracing.span("task.seal"):
+        _seal_and_report(w, spec, results, failed, error_str, exec_start)
 
 
 def _seal_and_report(w, spec: dict, results: List[Any], failed: bool,

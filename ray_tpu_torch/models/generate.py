@@ -36,6 +36,7 @@ from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.models.transformer import layers
 from ray_tpu_torch.ops.attention import NEG_INF, attention
 from ray_tpu_torch.ops.layers import layernorm, rmsnorm, rope
+from ray_tpu_torch.util import tracing
 
 Cache = Dict[str, torch.Tensor]
 
@@ -233,7 +234,8 @@ def decode_step(params, cfg, cache: Cache, tokens: torch.Tensor,
         # one indexed write per tensor: only the new column (l, b, :, pos_b)
         k_all[l][iota_b, iota_kv, positions] = k[:, :, 0, :].to(k_all.dtype)
         v_all[l][iota_b, iota_kv, positions] = v[:, :, 0, :].to(v_all.dtype)
-        out = _decode_attend(q, k_all[l], v_all[l], pos)  # [B, H, 1, dh]
+        with tracing.span("gen.decode_attend"):
+            out = _decode_attend(q, k_all[l], v_all[l], pos)  # [B, H, 1, dh]
         out = out.transpose(1, 2).reshape(B, 1, H * dh).to(cfg.dtype)
         if fam == "gpt2":
             x = _gpt2_post_attn(x, out, p, cfg)

@@ -47,6 +47,7 @@ from ray_tpu_torch.parallel.sharding import (
     shard_batch,
     spec_to_placements,
 )
+from ray_tpu_torch.util import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,14 +352,19 @@ def make_train_step_from_loss(loss_fn: Callable, cfg: Any, optimizer,
         opt_state = state["opt_state"]
         optimizer.zero_grad(opt_state)
         if mesh is None:
-            loss = loss_fn(state["params"], batch, cfg)
-            loss.backward()
+            with tracing.span("train.forward"):
+                loss = loss_fn(state["params"], batch, cfg)
+            with tracing.span("train.backward"):
+                loss.backward()
         else:
             with implicit_replication():
-                loss = loss_fn(state["params"], shard_batch(batch, mesh, rules), cfg, mesh)
-                loss.backward()
+                with tracing.span("train.forward"):
+                    loss = loss_fn(state["params"], shard_batch(batch, mesh, rules), cfg, mesh)
+                with tracing.span("train.backward"):
+                    loss.backward()
             loss = loss.full_tensor()
-        optimizer.update(opt_state)
+        with tracing.span("train.optimizer"):
+            optimizer.update(opt_state)
         state["step"] += 1
         return state, {"loss": loss.detach(), "step": state["step"]}
 

@@ -23,9 +23,11 @@ The engine keeps its own counters (``stats()``, ``perf_stats()``: TTFT and
 inter-token latency reservoirs and the prefill-interference tick meter)
 and, while the events plane is on, exports them as the JAX engine does:
 the ``ray_tpu_llm_*`` metrics in the process registry
-(``util/metrics.py``), ``serve_llm`` events for admissions, interleaves
-and completions (a completion joins the submitter's trace), and a
-``perf`` event every 32 interleaved ticks.
+(``util/metrics.py``), ``serve_llm`` events for admissions and
+completions (a completion joins the submitter's trace), and a ``perf``
+event every 32 interleaved ticks.  While the process is armed
+(``util/tracing.arm``) the engine thread marks its prefills, decode
+chunks and drains with spans, and the decode step each layer's attention.
 
 :func:`llm_deployment` wraps the engine in a Serve deployment whose
 replica holds a card (``num_gpus=1`` by default); :func:`prefill_decode_graph`
@@ -50,6 +52,7 @@ import torch
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch._private import events as _events
 from ray_tpu_torch.models import generate as gen
+from ray_tpu_torch.util import tracing
 
 _LLM_METRICS = None
 # per-process engine sequence: tick-meter entity ids stay unique when one
@@ -319,6 +322,11 @@ class GenerationEngine:
         self.total_generated = 0
         self.total_requests = 0
         self.prefills = 0  # admission calls (each one prefill of width n_slots)
+        # decode steps dispatched, and over them the cache positions the
+        # active rows attend (a row at step s of a chunk attends
+        # len(tokens) + decode_steps + s + 1): the work of decode attention
+        self.decode_steps = 0
+        self.kv_positions_attended = 0
         # pid + per-process seq: the event's origin tells processes apart,
         # the seq two engines inside one replica process
         self._ticks = _TickMeter(f"engine-{os.getpid()}-{next(_ENGINE_SEQ)}")
@@ -402,6 +410,8 @@ class GenerationEngine:
                 "total_requests": self.total_requests,
                 "total_generated_tokens": self.total_generated,
                 "prefills": self.prefills,
+                "decode_steps": self.decode_steps,
+                "kv_positions_attended": self.kv_positions_attended,
             }
 
     @staticmethod
@@ -508,14 +518,15 @@ class GenerationEngine:
             toks[j, :len(req.tokens)] = req.tokens
             lens[j] = len(req.tokens)
             slots[j] = slot
-        slots_dev = self._to_device(slots)
-        last_logits, self.cache = gen.prefill_at(
-            self.params, self.cfg, self._to_device(toks), self._to_device(lens),
-            self.cache, slots_dev)
-        self.prefills += 1
-        firsts = gen.sample_logits(last_logits, self._generator,
-                                   temperature=self.temperature, top_k=self.top_k)
-        self._last_tok[slots_dev] = firsts
+        with tracing.span("engine.prefill"):
+            slots_dev = self._to_device(slots)
+            last_logits, self.cache = gen.prefill_at(
+                self.params, self.cfg, self._to_device(toks), self._to_device(lens),
+                self.cache, slots_dev)
+            self.prefills += 1
+            firsts = gen.sample_logits(last_logits, self._generator,
+                                       temperature=self.temperature, top_k=self.top_k)
+            self._last_tok[slots_dev] = firsts
         for _, req in batch:
             req.scheduled = 1  # the prefill's sampled first token
         if _events.ENABLED:
@@ -560,22 +571,20 @@ class GenerationEngine:
         admit_s = time.perf_counter() - t_tick0
         with self._lock:
             rows = [(i, s) for i, s in enumerate(self._slots) if s is not None]
-        if _events.ENABLED and admissions and len(rows) > len(admissions):
-            # new prefills joined mid-stream: the interleave the continuous
-            # batcher exists for
-            _events.emit(
-                "serve_llm", "prefill/decode interleave", severity="DEBUG",
-                admitted=len(admissions),
-                decoding=len(rows) - len(admissions))
         dispatched = None
         if rows:
             self._check_cache_bound(rows)
             active = np.zeros((self.n_slots + 1,), bool)  # scratch inactive
             active[[i for i, _ in rows]] = True
-            emitted, self.cache, _ = gen.decode_chunk(
-                self.params, self.cfg, self.cache, self._last_tok,
-                self._to_device(active), self._generator, steps=self.chunk,
-                temperature=self.temperature, top_k=self.top_k, eos_id=self.eos_id)
+            with tracing.span("engine.decode"):
+                emitted, self.cache, _ = gen.decode_chunk(
+                    self.params, self.cfg, self.cache, self._last_tok,
+                    self._to_device(active), self._generator, steps=self.chunk,
+                    temperature=self.temperature, top_k=self.top_k, eos_id=self.eos_id)
+            self.decode_steps += self.chunk
+            self.kv_positions_attended += sum(
+                self.chunk * (len(req.tokens) + req.decode_steps) for _, req in rows
+            ) + len(rows) * self.chunk * (self.chunk + 1) // 2
             # inactive slots carry their token through, so the last column
             # is every slot's next input
             self._last_tok = emitted[:, -1]
@@ -589,7 +598,8 @@ class GenerationEngine:
         prev, self._pending = self._pending, dispatched
         if prev is not None:
             self._draining = prev  # visible to the error path
-            self._drain(prev)
+            with tracing.span("engine.drain"):
+                self._drain(prev)
             self._draining = None
         self._ticks.record(time.perf_counter() - t_tick0,
                            admit_s if admissions else 0.0, len(admissions), len(rows))

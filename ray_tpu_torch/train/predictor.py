@@ -18,6 +18,7 @@ import torch
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.air.checkpoint import Checkpoint
 from ray_tpu_torch.convert import from_jax_params
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.tree import tree_map
 
 # an array, or any tree of dicts, lists and tuples of arrays
@@ -76,10 +77,12 @@ class TorchPredictor(Predictor):
         return cls(data.get(params_key, data), apply_fn, device=device)
 
     def predict(self, batch: Batch, **kwargs):
-        batch = tree_map(lambda a: torch.from_numpy(np.asarray(a)).to(self.device), batch)
-        with torch.inference_mode():
+        with tracing.span("predict.h2d"):
+            batch = tree_map(lambda a: torch.from_numpy(np.asarray(a)).to(self.device), batch)
+        with tracing.span("predict.apply"), torch.inference_mode():
             out = self._apply(self._params, batch)
-        return tree_map(lambda t: _to_numpy(t) if isinstance(t, torch.Tensor) else t, out)
+        with tracing.span("predict.d2h"):
+            return tree_map(lambda t: _to_numpy(t) if isinstance(t, torch.Tensor) else t, out)
 
 
 class _ScoringWrapper:
@@ -105,6 +108,10 @@ class _ScoringWrapper:
         self._keep_columns = keep_columns
 
     def __call__(self, batch):
+        with tracing.span("predict.batch"):
+            return self._score(batch)
+
+    def _score(self, batch):
         feats = batch
         if self._feature_columns is not None and isinstance(batch, dict):
             if len(self._feature_columns) == 1:

@@ -1,10 +1,11 @@
-"""Profiling helpers: device traces and optional OpenTelemetry spans.
+"""Profiling helpers: device traces and timed scopes.
 
 Counterpart of ``ray_tpu/util/profiling.py``.  :func:`profile_trace`
 captures a ``torch.profiler`` trace of the enclosed block (CPU activity,
 and the card's kernels when CUDA is present) and exports it as a Chrome
-trace, viewable in Perfetto or ``chrome://tracing``.  :func:`span` is the
-reference's lazily imported OpenTelemetry span.  :func:`profile_step`
+trace, viewable in Perfetto or ``chrome://tracing``.  Spans are
+``util/tracing.py``'s (its ``trace`` opens the OpenTelemetry span where
+the SDK imports).  :func:`profile_step`
 arms a one-step trace on the process's active ``StepProfiler``
 (``util/perf.py``), and :class:`timed` records a scope's wall time into
 ``util/metrics``.
@@ -16,7 +17,7 @@ import contextlib
 import os
 import threading
 import time
-from typing import Iterator, Optional
+from typing import Iterator
 
 import torch
 
@@ -87,20 +88,6 @@ def profile_step(logdir: str) -> bool:
         return False
     prof.arm_trace(logdir)
     return True
-
-
-@contextlib.contextmanager
-def span(name: str, attributes: Optional[dict] = None) -> Iterator[None]:
-    """OpenTelemetry span when the SDK is importable, no-op otherwise
-    (the reference's lazy-import pattern)."""
-    try:
-        from opentelemetry import trace  # type: ignore
-    except ImportError:
-        yield
-        return
-    tracer = trace.get_tracer("ray_tpu_torch")
-    with tracer.start_as_current_span(name, attributes=attributes or {}):
-        yield
 
 
 class timed:

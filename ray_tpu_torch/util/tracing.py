@@ -25,6 +25,13 @@ per-trace :class:`~ray_tpu_torch._private.events.TraceTable` served by
 Presence of a context IS the enable signal: outside any ``trace()`` block
 nothing is recorded and task specs stay clean, so the disabled path costs
 one contextvar read per submission.
+
+The one exception is :func:`arm`: while a measurement has armed the
+process, :func:`span` records the hot-path regions it marks (the decode
+engine's prefill, decode attention, a predictor's phases, a task's
+argument fetch) on every thread, with no trace context.  Those rows carry
+their start on the epoch clock, which is the clock ``torch.profiler``
+stamps its device trace with, so a device trace can be cut by them.
 """
 
 from __future__ import annotations
@@ -211,6 +218,7 @@ def restore(token: Any) -> None:
 _RESERVED_KEYS = frozenset((
     "source", "message", "severity", "entity_id", "span_dur",
     "trace_id", "span_id", "parent_span_id", "phase", "name",
+    "start_ns", "thread",
 ))
 
 
@@ -241,27 +249,81 @@ def emit_span(name: str, dur_s: float, ctx: Optional[Dict[str, str]],
     merged.update(data)
     if ctx.get("job"):
         merged.setdefault("job", ctx["job"])
-    safe = {(f"attr_{k}" if k in _RESERVED_KEYS else k): v
-            for k, v in merged.items()}
     _events.emit(
         TRACE_SOURCE, name, severity=severity, entity_id=ctx["trace_id"],
         span_dur=dur_s, trace_id=ctx["trace_id"], span_id=ctx["span_id"],
-        parent_span_id=ctx.get("parent_span_id", ""), phase=phase, **safe)
+        parent_span_id=ctx.get("parent_span_id", ""), phase=phase, **_safe(merged))
 
 
-@contextlib.contextmanager
-def span(name: str, phase: str = "span", **data) -> Iterator[Optional[dict]]:
+def _safe(attrs: dict) -> dict:
+    """``attrs`` with the keys that shadow span or emit fields prefixed
+    ``attr_``."""
+    return {(f"attr_{k}" if k in _RESERVED_KEYS else k): v for k, v in attrs.items()}
+
+
+# hot-path spans: recorded outside any trace context only while armed
+_armed = False
+# a shared no-op for the disarmed path: no generator, no id, no event
+_NOOP = contextlib.nullcontext()
+# the id of the armed span that encloses the running code ("" at the top)
+_enclosing: contextvars.ContextVar[str] = contextvars.ContextVar(
+    "ray_tpu_hot_span", default="")
+
+
+def arm(on: bool) -> None:
+    """Record every :func:`span` of this process while ``on``, on any
+    thread and outside any trace context: one flight-recorder row per
+    closed span, with its start on the epoch clock (``start_ns``), its
+    thread (``thread``, ``threading.get_ident()``) and the id of the armed
+    span around it (``parent_span_id``, "" at the top).  Off by default;
+    a measurement arms a stretch and reads the rows back (the ring keeps
+    ``events.DEFAULT_CAPACITY`` rows, so a stretch stays well under it)."""
+    global _armed
+    _armed = bool(on)
+
+
+def span(name: str, phase: str = "span", **data):
     """Child-span context manager: times the block and emits it as a child
-    of the current context.  Unlike :func:`trace` it never STARTS a trace
-    — outside any context it is a pure no-op (no uuid, no event)."""
-    ctx = child_context(name)
-    if ctx is None:
-        yield None
-        return
-    token = _ctx_set(ctx)
-    t0 = time.perf_counter()
-    try:
-        yield ctx
-    finally:
-        _ctx_reset(token)
-        emit_span(name, time.perf_counter() - t0, ctx, phase=phase, **data)
+    of the current context.  Unlike :func:`trace` it never STARTS a trace.
+    Outside any context it records only while the process is armed
+    (:func:`arm`); otherwise it is the shared no-op (no id, no event).
+    Entering it gives the child context, or None outside a trace."""
+    if not _armed and _current.get() is None:
+        return _NOOP
+    return _Span(name, phase, data)
+
+
+class _Span:
+    """One :func:`span` that records: a child of the current trace, or,
+    outside one, an armed hot-path span."""
+
+    __slots__ = ("name", "phase", "data", "ctx", "token", "parent", "span_id", "t0")
+
+    def __init__(self, name: str, phase: str, data: dict):
+        self.name, self.phase, self.data = name, phase, data
+
+    def __enter__(self) -> Optional[Dict[str, str]]:
+        self.ctx = child_context(self.name)
+        if self.ctx is not None:
+            self.token = _ctx_set(self.ctx)
+            self.t0 = time.perf_counter()
+            return self.ctx
+        self.parent = _enclosing.get()
+        self.span_id = new_span_id()
+        self.token = _enclosing.set(self.span_id)
+        self.t0 = time.time_ns()
+        return None
+
+    def __exit__(self, *exc) -> None:
+        if self.ctx is not None:
+            _ctx_reset(self.token)
+            emit_span(self.name, time.perf_counter() - self.t0, self.ctx,
+                      phase=self.phase, **self.data)
+            return
+        t1 = time.time_ns()
+        _enclosing.reset(self.token)
+        _events.emit(
+            TRACE_SOURCE, self.name, severity="DEBUG", span_dur=(t1 - self.t0) / 1e9,
+            ts=t1 / 1e9, start_ns=self.t0, thread=threading.get_ident(),
+            span_id=self.span_id, parent_span_id=self.parent, phase=self.phase,
+            **_safe(self.data))

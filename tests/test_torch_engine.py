@@ -97,3 +97,49 @@ def test_engine_rejects_bad_prompts_and_oversized_cache():
     with pytest.raises(ValueError, match="positions"):
         GenerationEngine(cfg, n_slots=1, max_new_tokens=100, prefill_buckets=(64,),
                          device="cpu")
+
+
+def _scheduled_work(reqs, n_slots, chunk):
+    """The decode steps and attended positions of the engine's schedule,
+    worked out from the requests' (prompt length, max_new) alone: each
+    iteration fills the free slots in queue order, decodes a chunk for
+    every occupied slot (a row at step s attends len + steps so far + s +
+    1 positions), and frees the slots whose request is then scheduled to
+    its cap (the prefill gave the first token)."""
+    queue, slots = list(reqs), [None] * n_slots
+    steps = positions = 0
+    while queue or any(slots):
+        for i in range(n_slots):
+            if slots[i] is None and queue:
+                n, m = queue.pop(0)
+                slots[i] = [n, m, 1, 0]  # length, cap, scheduled, decode steps
+        steps += chunk
+        for i, row in enumerate(slots):
+            if row is None:
+                continue
+            n, m, sched, done = row
+            positions += sum(n + done + s + 1 for s in range(chunk))
+            row[2], row[3] = min(m, sched + chunk), done + chunk
+            if row[2] >= m:
+                slots[i] = None
+    return steps, positions
+
+
+def test_engine_counts_decode_steps_and_the_positions_they_attend():
+    """Across admissions mid-stream (five requests on two slots, queued
+    before the engine starts), ``decode_steps`` and
+    ``kv_positions_attended`` equal the schedule's, recomputed from the
+    requests' lengths."""
+    cfg = make_config("gpt2", "tiny", dtype=torch.float32)
+    reqs = [(3, 8), (2, 4), (5, 6), (1, 7), (4, 2)]
+    eng = GenerationEngine(cfg, n_slots=2, max_new_tokens=8, decode_chunk_steps=3,
+                           prefill_buckets=(8,), device="cpu")
+    futs = [eng.submit([7 + j for j in range(n)], m) for n, m in reqs]
+    eng.start()
+    try:
+        assert [len(f.result(timeout=120)) for f in futs] == [m for _, m in reqs]
+    finally:
+        eng.stop()
+    stats = eng.stats()
+    assert (stats["decode_steps"], stats["kv_positions_attended"]) == _scheduled_work(reqs, 2, 3)
+    assert stats["decode_steps"] == 3 * sum(eng.perf_stats()["ticks"].values())

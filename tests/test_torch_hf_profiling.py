@@ -73,10 +73,23 @@ def test_nested_profile_trace_is_a_no_op(tmp_path):
 
 
 def test_span_runs_its_block_with_or_without_opentelemetry(monkeypatch):
-    ran = []
-    with profiling.span("step", {"n": 1}):
-        ran.append(1)
+    """``tracing.trace`` opens an OpenTelemetry span where the SDK imports;
+    a ``tracing.span`` under it runs and records its row either way."""
+    from ray_tpu_torch._private import events
+    from ray_tpu_torch.util import tracing
+
+    ran, traces = [], []
+    since = events.buffer().last_seq()
+    with tracing.trace("root", {"n": 1}) as root:
+        with tracing.span("step", n=1):
+            ran.append(1)
+    traces.append(root["trace_id"])
     monkeypatch.setitem(sys.modules, "opentelemetry", None)  # import fails
-    with profiling.span("step"):
-        ran.append(2)
+    with tracing.trace("root") as root:
+        with tracing.span("step"):
+            ran.append(2)
+    traces.append(root["trace_id"])
     assert ran == [1, 2]
+    steps = [r["data"]["trace_id"] for r in events.local_events()
+             if r["seq"] > since and r["message"] == "step"]
+    assert steps == traces

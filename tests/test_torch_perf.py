@@ -138,11 +138,11 @@ def test_profiling_double_start_guard_and_profile_step(tmp_path):
 def test_profiling_timed_scope():
     """``timed`` records a histogram ``ray_tpu_torch_timed_<name>_seconds``
     shaped as the JAX package's ``ray_tpu_timed_<name>_seconds`` for the
-    same scopes (type, bounds, count), and ``span`` is a no-op without
-    OpenTelemetry."""
+    same scopes (type, bounds, count), and ``tracing.span`` runs its block
+    outside any trace."""
     from ray_tpu.util import metrics as jax_metrics
     from ray_tpu.util import profiling as jax_profiling
-    from ray_tpu_torch.util import metrics, profiling
+    from ray_tpu_torch.util import metrics, profiling, tracing
 
     def count(reg, name):
         # another test file in the same process may have timed this scope
@@ -167,5 +167,5 @@ def test_profiling_timed_scope():
     assert tuple(vals["bounds"]) == tuple(jax_vals["bounds"])
     assert sum(vals["buckets"]) == vals["count"]
 
-    with profiling.span("noop-span"):
+    with tracing.span("noop-span"):
         pass
