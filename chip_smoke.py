@@ -24,7 +24,10 @@ the backward kernels):
    rectangular and ragged shapes (dQ, dK and dV bit-identical across two
    calls); each kernel's time beside the plain version's, one library
    call's and the bound the card sets, at the shapes the main paths give
-   it.
+   it.  ``decode_kernel``: ``decode_attend`` at the ``decode-long``
+   cell's shape (257 slots x 12 heads x 912 positions x 64, bf16) against
+   its plain version, with its time beside its bytes bound, the plain
+   version's and SDPA's.
 3. ``parity``: tiny GPT-2 and Llama in f32 (and GPT-2 at full width, two
    layers) with the same weights on the CPU and on the card: the prefill
    logits agree and the greedy token streams are equal.
@@ -594,7 +597,8 @@ def sass_mma_counts(lib_path) -> dict:
 
 def phase_device(build):
     t0 = time.perf_counter()
-    builds = build.build([attn.KERNEL, attn.BWD_SOURCE], ptxas_verbose=True)
+    builds = build.build([attn.KERNEL, attn.BWD_SOURCE, attn.DECODE_KERNEL],
+                         ptxas_verbose=True)
     for name, b in builds.items():
         print(f"--- nvcc {name}.cu ---\n{b['log']}", file=sys.stderr, flush=True)
     build_wall_s = time.perf_counter() - t0
@@ -839,6 +843,67 @@ def _excess(got, ref, tol):
     """(max |err|, the most it exceeds tol + tol·|ref| by, ≤ 0 when within)."""
     diff = (got.float() - ref.float()).abs()
     return diff.max().item(), (diff - (tol + tol * ref.float().abs())).max().item()
+
+
+# the decode-long cell's attention: its 256 slots and the engine's scratch
+# one, GPT-2 125M's 12 heads x 64, a 912-position bf16 cache; positions
+# drawn from 32-736, 384 on average as the cell's slots' are
+DECODE_CELL = (257, 12, 12, 912, 64)
+DECODE_POS = (32, 736)
+
+
+def decode_bound_ms(pos, h, kv, d, elt=2) -> float:
+    """The least time for ``decode_attend``'s work: the K and V rows of
+    the attended positions (``pos + 1`` a slot and KV head), q, the
+    output and ``pos``, each moved once over HBM bandwidth (bytes bound it:
+    half an operation a byte)."""
+    b = pos.numel()
+    rows = int((pos + 1).sum()) * kv
+    nbytes = 2 * rows * d * elt + 2 * b * h * d * elt + 8 * b
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def phase_decode_kernel():
+    """``decode_attend`` at the decode-long cell's shape against its plain
+    version (1e-2 absolute and relative: the plain version rounds the
+    weights to bf16 before P·V, the kernel rounds its f32 result once),
+    then its device time, the plain version's and SDPA's with the same mask
+    (a yardstick the port never calls), beside its bytes bound; warm L2 (it
+    holds 50 of the ~300 MB a call reads)."""
+    b, h, kv, s, d = DECODE_CELL
+    g = torch.Generator(device="cuda").manual_seed(200)
+    q = torch.randn(b, h, 1, d, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(b, kv, s, d, generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    pos = torch.randint(DECODE_POS[0], DECODE_POS[1] + 1, (b,), generator=g, device="cuda")
+    build.reset_launches()
+    out = attn.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    check(build.launches.get(attn.DECODE_KERNEL, 0) == 1,
+          f"decode_kernel: {build.launches.get(attn.DECODE_KERNEL, 0)} launches for one call")
+    plain = lambda: attn.decode_attention_reference(q, k, v, pos)
+    err, excess = _excess(out, plain().transpose(1, 2).reshape(b, 1, h * d), 1e-2)
+    check(excess <= 0, f"decode_kernel: max err {err} against the plain version")
+    mask = (torch.arange(s, device="cuda") <= pos[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timed = {"kernel": device_ms(lambda: attn.decode_attention(q, k, v, pos)),
+             "plain": device_ms(plain),
+             "library": device_ms(lambda: sdpa(q, k, v, attn_mask=mask))}
+    clocks = gpu_clocks()
+    bound_ms = decode_bound_ms(pos, h, kv, d)
+    row = {"name": attn.DECODE_KERNEL, "route": "cuda",
+           "source": "ray_tpu_torch/ops/csrc/decode_attend.cu", "replaces": "none, added",
+           "design": "a block per (slot, KV head) over 0..pos, 16-byte loads of the bf16 "
+                     "cache, f32 online softmax",
+           "shape": f"{b}x{h}x{s}x{d} bf16, positions {DECODE_POS[0]}-{DECODE_POS[1]} "
+                    f"(mean {float(pos.float().mean()):.1f})",
+           "max_abs_err": err, "ms": timed["kernel"], "plain_ms": timed["plain"],
+           "library_ms": timed["library"],
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "roofline_pct": 100 * bound_ms / timed["kernel"]}
+    emit("decode_kernel", kernel_ms=row["ms"], bound_us=bound_ms * 1e3,
+         clocks_sm_max_power_after_timing=clocks, **row)
+    return row
 
 
 def phase_bwd_kernels():
@@ -1249,6 +1314,9 @@ def serve(family: str):
           f"{family}: {flash} flash launches for {stats['prefills']} admissions")
     check(launches.get(attn.FWD_TC, 0) == flash,
           f"{family}: {launches.get(attn.FWD_TC, 0)} of {flash} prefill launches on the tensor cores")
+    check(launches.get(attn.DECODE_KERNEL, 0) == cfg.n_layers * stats["decode_steps"],
+          f"{family}: {launches.get(attn.DECODE_KERNEL, 0)} decode_attend launches for "
+          f"{stats['decode_steps']} decode steps")
     lats = [done_at[i] - t_start for i in range(N_REQUESTS)]
     ms = lambda s: None if s is None else s * 1e3
     row = {
@@ -1261,6 +1329,7 @@ def serve(family: str):
         "itl_samples": perf["itl"]["count"], "itl_tokens_per_sample": perf["itl"]["tokens_per_sample"],
         "itl_back_to_back": perf["itl"]["back_to_back"],
         "peak_mem_bytes": peak, "flash_launches": flash,
+        "decode_attend_launches": launches.get(attn.DECODE_KERNEL, 0),
         "flash_launches_tensor_core": launches.get(attn.FWD_TC, 0), "admissions": stats["prefills"],
         "ticks": perf["ticks"], "decode_tick_baseline_ms": ms(perf["decode_tick_baseline_s"]),
         "interference_frac": perf["interference_frac"], **{k: v for k, v in SERVE.items()
@@ -6783,6 +6852,7 @@ def main() -> int:
     phase_device(build)
     fwd = phase_kernels()
     bwd = phase_bwd_kernels()
+    dec = phase_decode_kernel()
     phase_parity()
     phase_bert_parity()
     phase_train_parity()
@@ -6915,7 +6985,10 @@ def main() -> int:
         # equal to launches: train() and serve() checked it
         tc = attn.TENSOR_CORE_COUNTER[kern]
         r["launches_tensor_core"] = sum(n.get(tc, 0) for n in runs.values())
-    print(json.dumps({"kernels": [fwd, *bwd.values()]}), flush=True)
+    dec["launches_by_path"] = {path: n[attn.DECODE_KERNEL] for path, n in runs.items()
+                               if n.get(attn.DECODE_KERNEL)}
+    dec["launches"] = sum(dec["launches_by_path"].values())
+    print(json.dumps({"kernels": [fwd, *bwd.values(), dec]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

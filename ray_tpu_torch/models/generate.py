@@ -10,7 +10,11 @@ same per-slot semantics:
   :func:`decode_step` update the tensors of the ``cache`` dict they are
   given and return that same dict (the JAX package returns a new cache);
 - prefill attention goes through :func:`ray_tpu_torch.ops.attention.attention`
-  (the flash kernel on the card); decode attention is plain PyTorch.
+  (the flash kernel on the card); decode attention goes through
+  :func:`ray_tpu_torch.ops.attention.decode_attention`, on the card the
+  hand-written ``decode_attend`` kernel, which reads each slot's cache in
+  place, in its own dtype, up to that slot's position, and writes the heads
+  merged in the cache's dtype; on the CPU its plain einsums.
 
 Indexing out of range raises in PyTorch (a device-side assert on the
 card, which ends the process), where XLA drops or clamps it.  So the
@@ -34,7 +38,7 @@ from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.gpt2 import GPT2Config
 from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.models.transformer import layers
-from ray_tpu_torch.ops.attention import NEG_INF, attention
+from ray_tpu_torch.ops.attention import NEG_INF, attention, decode_attention
 from ray_tpu_torch.ops.layers import layernorm, rmsnorm, rope
 from ray_tpu_torch.util import tracing
 
@@ -69,23 +73,6 @@ def init_cache(cfg, n_slots: int, max_len: int, device: DeviceLike = None) -> Ca
         "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
         "pos": torch.zeros(n_slots, dtype=torch.long, device=dev),
     }
-
-
-def _decode_attend(q, k_cache, v_cache, pos) -> torch.Tensor:
-    """q ``[B, H, 1, dh]`` against the full cache ``[B, KV, S, dh]`` with
-    a per-slot length mask ``j <= pos``; returns f32 ``[B, H, 1, dh]``.
-    GQA folds the query heads onto their KV head by reshape.  Scores and
-    the P·V product are f32 over the cache's values (bf16 products are
-    exact in f32), as the reference's f32-accumulating einsums are."""
-    B, H, _, dh = q.shape
-    KV, S = k_cache.shape[1], k_cache.shape[2]
-    q = q.reshape(B, KV, H // KV, dh)
-    scores = torch.einsum("bkgd,bksd->bkgs", q.float(), k_cache.float()) / (dh ** 0.5)
-    mask = torch.arange(S, device=q.device)[None, None, None, :] <= pos[:, None, None, None]
-    scores = torch.where(mask, scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgs,bksd->bkgd", w.to(v_cache.dtype).float(), v_cache.float())
-    return out.reshape(B, H, 1, dh)
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +207,7 @@ def decode_step(params, cfg, cache: Cache, tokens: torch.Tensor,
     fam = family_of(cfg)
     pos = cache["pos"]
     B = tokens.shape[0]
-    H, dh, KV = cfg.n_heads, cfg.head_dim, kv_heads(cfg)
+    KV = kv_heads(cfg)
     positions = pos[:, None]  # [B, 1]: per-slot offsets
     x = _embed(params, tokens[:, None], cfg, positions)  # [B, 1, D]
     iota_b = torch.arange(B, device=tokens.device)[:, None]
@@ -235,8 +222,7 @@ def decode_step(params, cfg, cache: Cache, tokens: torch.Tensor,
         k_all[l][iota_b, iota_kv, positions] = k[:, :, 0, :].to(k_all.dtype)
         v_all[l][iota_b, iota_kv, positions] = v[:, :, 0, :].to(v_all.dtype)
         with tracing.span("gen.decode_attend"):
-            out = _decode_attend(q, k_all[l], v_all[l], pos)  # [B, H, 1, dh]
-        out = out.transpose(1, 2).reshape(B, 1, H * dh).to(cfg.dtype)
+            out = decode_attention(q, k_all[l], v_all[l], pos)  # [B, 1, H·dh]
         if fam == "gpt2":
             x = _gpt2_post_attn(x, out, p, cfg)
         else:

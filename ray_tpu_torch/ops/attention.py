@@ -17,6 +17,14 @@ by the tensors' device:
   like with like: :func:`causal_skip_attention` or :func:`full_attention`
   up to ``_MAX_MATERIALIZED_T``, :func:`blockwise_attention` above it.
 
+Decoding takes another entry, :func:`decode_attention`: one query row a
+slot against that slot's KV cache, dispatched by device in the same way.
+A CUDA tensor launches the hand-written ``decode_attend`` kernel
+(``csrc/decode_attend.cu``), which reads the cache in its own dtype in
+place, and only up to each slot's position; it replaces no TPU kernel (the
+JAX package decodes with XLA einsums).  A CPU tensor takes its plain
+version, :func:`decode_attention_reference`, those einsums.
+
 The causal diagonal is aligned bottom-right (``q_offset = t_k - t_q``)
 everywhere.  Masked scores are ``NEG_INF = -1e30``, not ``-inf``, as in
 the reference.  :func:`mha_reference` is the naive ground truth and is not
@@ -510,3 +518,123 @@ def attention(q, k, v, *, causal: bool = False,
             return causal_skip_attention(q, k, v, scale=scale, block=256)
         return full_attention(q, k, v, causal=causal, scale=scale)
     return blockwise_attention(q, k, v, causal=causal, scale=scale, block_k=128)
+
+
+# ---------------------------------------------------------------------------
+# decode attention: one query row a slot against its KV cache
+# ---------------------------------------------------------------------------
+
+DECODE_KERNEL = "decode_attend"
+_DECODE_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DECODE_MAX_GROUP = 8         # query heads per KV head one block serves
+
+
+def decode_attention_reference(q, k_cache, v_cache, pos) -> torch.Tensor:
+    """The plain version of the kernel: q ``[B, H, 1, dh]`` against the
+    full cache ``[B, KV, S, dh]`` with a per-slot length mask ``j <= pos``;
+    returns f32 ``[B, H, 1, dh]``.  GQA folds the query heads onto their KV
+    head by reshape.  Scores and the P·V product are f32 over the cache's
+    values (bf16 products are exact in f32), as the reference's
+    f32-accumulating einsums are; the weights are rounded to the cache's
+    dtype before P·V, as there."""
+    B, H, _, dh = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    q = q.reshape(B, KV, H // KV, dh)
+    scores = torch.einsum("bkgd,bksd->bkgs", q.float(), k_cache.float()) / (dh ** 0.5)
+    mask = torch.arange(S, device=q.device)[None, None, None, :] <= pos[:, None, None, None]
+    scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bksd->bkgd", w.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(B, H, 1, dh)
+
+
+def _check_decode_shapes(q, k_cache, v_cache, pos) -> None:
+    qs, ks = q.shape, k_cache.shape
+    if len(qs) != 4 or qs[2] != 1 or len(ks) != 4 or v_cache.shape != ks:
+        raise ValueError(f"decode_attention takes q [B, H, 1, dh] and caches [B, KV, S, dh], "
+                         f"got q {tuple(qs)}, k {tuple(ks)}, v {tuple(v_cache.shape)}")
+    if ks[0] != qs[0] or ks[3] != qs[3] or pos.shape != (qs[0],) or qs[1] % ks[1]:
+        raise ValueError(f"decode_attention shapes disagree: q {tuple(qs)}, "
+                         f"caches {tuple(ks)}, pos {tuple(pos.shape)}")
+
+
+def _check_decode_cuda_args(q, k_cache, v_cache, pos):
+    """Raises ``ValueError`` for what ``decode_attend`` does not take;
+    returns the card's index and the caches' strides.  Called once a layer
+    a decode step, while the card waits for the host: every check reads
+    each property once."""
+    dev = q.get_device()
+    if not k_cache.get_device() == v_cache.get_device() == pos.get_device() == dev:
+        raise ValueError("decode_attention needs its tensors on one CUDA device")
+    dtype = q.dtype
+    if dtype not in _DECODE_DTYPE_CODE or k_cache.dtype != dtype or v_cache.dtype != dtype:
+        raise ValueError(f"decode_attention takes float32, bfloat16 or float16 q and caches of "
+                         f"one dtype, got {dtype}, {k_cache.dtype}, {v_cache.dtype}")
+    if pos.dtype != torch.int64 or pos.stride(0) != 1:
+        raise ValueError("decode_attention takes pos as a unit-stride int64 [B]")
+    h, d, kv = q.shape[1], q.shape[3], k_cache.shape[1]
+    if d % 8 or not 8 <= d <= 256:
+        raise ValueError(f"decode_attention head dim {d} is not a multiple of 8 up to 256")
+    if h // kv > _DECODE_MAX_GROUP:
+        raise ValueError(f"decode_attention serves 1 to {_DECODE_MAX_GROUP} query heads per "
+                         f"KV head, got {h} query heads on {kv}")
+    kst, vst = k_cache.stride(), v_cache.stride()
+    if q.stride(3) != 1 or kst[3] != 1 or vst[3] != 1:
+        raise ValueError("decode_attention needs a unit stride on the head dim")
+    elt = k_cache.element_size()
+    if ((k_cache.data_ptr() | v_cache.data_ptr()) % 16
+            or any(st * elt % 16 for st in kst[:3] + vst[:3])):
+        for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+            why = tensor_core_misalignment(t.data_ptr(), t.shape, t.stride(), elt)
+            if why is not None:
+                raise ValueError(f"decode_attention reads 16-byte chunks of each {name} row, "
+                                 f"but {why}")
+    return dev, kst, vst
+
+
+def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
+    """One decode step's attention: ``q [B, H, 1, dh]`` of each slot
+    against its own cache ``k_cache``/``v_cache [B, KV, S, dh]`` over the
+    positions ``0..pos[b]`` (``pos`` int64 ``[B]``), query head ``h`` on KV
+    head ``h // (H // KV)``.  Returns ``[B, 1, H·dh]``, the heads merged as
+    the output projection takes them, in the cache's dtype, rounded once
+    from f32.
+
+    A CUDA tensor launches the ``decode_attend`` kernel: the cache is read
+    in its own dtype in place, never copied or upcast, and never past
+    ``pos[b]``; scores, softmax, P and P·V are float32.  ``pos`` is read on
+    the card, so nothing waits for the device.  The kernel takes float32,
+    bfloat16 and float16 caches, head dims that are a multiple of 8 up to
+    256, 1 to 8 query heads per KV head, ``q`` as any view with a unit
+    stride on dh, caches whose rows start on 16-byte boundaries; anything
+    else raises ``ValueError``.  Counts one launch of ``DECODE_KERNEL``.  A
+    CPU tensor takes :func:`decode_attention_reference`."""
+    _check_decode_shapes(q, k_cache, v_cache, pos)
+    b, h, _, d = q.shape
+    if q.device.type == "cpu":
+        out = decode_attention_reference(q, k_cache, v_cache, pos)
+        return out.transpose(1, 2).reshape(b, 1, h * d).to(k_cache.dtype)
+    dev, kst, vst = _check_decode_cuda_args(q, k_cache, v_cache, pos)
+    _, kv, s, _ = k_cache.shape
+    out = torch.empty(b, 1, h * d, dtype=q.dtype, device=q.device)
+    qst = q.stride()
+    # the raw handle of the current stream: torch.cuda.current_stream()
+    # builds a Stream object, ~11 us a call on an H100's host, once a layer
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    err = _decode_lib().decode_attend(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        b, h, kv, s, d, qst[0], qst[1], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
+        d ** -0.5, _DECODE_DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{DECODE_KERNEL} launch failed: cudaError {err}")
+    _build.count_launch(DECODE_KERNEL)
+    return out
+
+
+def _decode_lib():
+    lib = _build.load(DECODE_KERNEL)
+    if not lib.decode_attend.argtypes:
+        lib.decode_attend.argtypes = [_P] * 5 + [_I] * 5 + [_I64] * 8 + [
+            ctypes.c_float, _I, _P]
+        lib.decode_attend.restype = ctypes.c_int
+    return lib

@@ -15,7 +15,8 @@ another order, and dS = P·(dP − Δ) cancels); bf16 1e-2 as above (both
 sides round P and dS to bf16 at the same places; an f32 ulp of difference
 before a rounding can move it by one bf16 ulp).  bf16 at D 64 and 128 runs
 the tensor-core forward, dQ and dK/dV (``ta.uses_tensor_cores``), with the
-same tolerances.
+same tolerances.  The decode kernel's tolerances are stated at its
+tests.
 """
 
 import os
@@ -276,6 +277,155 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v = _qkv(cuda, torch.float32, 16, 16, 48)
     with pytest.raises(ValueError, match="head dim"):
         ta.flash_attention(q, k, v, False)
+
+
+# ---------------------------------------------------------------------------
+# decode attention: the decode_attend kernel
+# ---------------------------------------------------------------------------
+
+# (B, H, KV, S, dh, dtype)
+DECODE_CASES = [
+    (257, 12, 12, 912, 64, torch.bfloat16),  # the decode-long cell: 256 slots and the scratch one
+    (6, 16, 4, 700, 128, torch.bfloat16),    # GQA, g = 4
+    (6, 16, 4, 700, 128, torch.float32),     # the same in f32
+    (5, 4, 4, 40, 16, torch.float32),        # the tiny configs chip_smoke.py decodes in f32
+    (3, 24, 3, 300, 96, torch.float16),      # g = 8, a head dim off a power of two
+    (4, 6, 2, 530, 256, torch.float32),      # g = 3, two 16-byte chunks a lane
+    (2, 2, 1, 1, 8, torch.bfloat16),         # one position
+]
+
+# the kernel's f32 result against f32 attention: only the order of the sums
+# and exp2 against exp differ (1e-4 relative, 1e-5 absolute); a bf16 or
+# f16 output adds one rounding, at most half a unit in the last place
+# (2^-8 and 2^-11 relative)
+DECODE_F32_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 1e-4 + 2 ** -8),
+                  torch.float16: (1e-5, 1e-4 + 2 ** -11)}
+
+
+def _decode_inputs(device, b, h, kv, s, d, dtype, seed=0):
+    """q [B, H, 1, dh] and caches [B, KV, S, dh] drawn on the card; pos
+    with 0 and S - 1 among random positions."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *shape: torch.randn(*shape, generator=g, device=device).to(dtype)
+    pos = torch.randint(0, s, (b,), generator=g, device=device)
+    pos[0], pos[-1] = 0, s - 1
+    return mk(b, h, 1, d), mk(b, kv, s, d), mk(b, kv, s, d), pos
+
+
+def _decode_f32(q, k, v, pos):
+    """Attention over positions 0..pos in f32 from the same cache, P kept
+    in f32 as the kernel keeps it: ``[B, 1, H·dh]``."""
+    b, h, _, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    scores = torch.einsum("bkgd,bksd->bkgs", q.float().reshape(b, kv, h // kv, d),
+                          k.float()) * d ** -0.5
+    mask = torch.arange(s, device=q.device) <= pos[:, None, None, None]
+    w = torch.softmax(torch.where(mask, scores, ta.NEG_INF), dim=-1)
+    return torch.einsum("bkgs,bksd->bkgd", w, v.float()).reshape(b, 1, h * d)
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,dtype", DECODE_CASES)
+def test_decode_kernel_matches_f32_attention(cuda, b, h, kv, s, d, dtype):
+    """Against f32 attention from the same cache, at ``DECODE_F32_TOL``:
+    f32 caches hold the kernel's arithmetic to 1e-4, the others add the
+    output's one rounding."""
+    q, k, v, pos = _decode_inputs(cuda, b, h, kv, s, d, dtype)
+    before = _build.launches.get(ta.DECODE_KERNEL, 0)
+    out = ta.decode_attention(q, k, v, pos)
+    assert _build.launches[ta.DECODE_KERNEL] == before + 1
+    assert out.shape == (b, 1, h * d) and out.dtype == dtype
+    atol, rtol = DECODE_F32_TOL[dtype]
+    torch.testing.assert_close(out.float(), _decode_f32(q, k, v, pos), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,dtype", DECODE_CASES)
+def test_decode_kernel_matches_the_plain_version(cuda, b, h, kv, s, d, dtype):
+    """Against ``decode_attention_reference``, which rounds the normalised
+    weights to the cache's dtype before P·V (the kernel keeps them f32) and
+    leaves its result f32: bf16 1e-2 absolute and relative (2^-9 of each
+    weight, then 2^-9 of the kernel's result), f16 2e-3 (2^-12 each), f32
+    1e-5 and 1e-4."""
+    q, k, v, pos = _decode_inputs(cuda, b, h, kv, s, d, dtype, seed=1)
+    out = ta.decode_attention(q, k, v, pos)
+    plain = ta.decode_attention_reference(q, k, v, pos).transpose(1, 2).reshape(b, 1, h * d)
+    atol, rtol = {torch.bfloat16: (1e-2, 1e-2), torch.float16: (2e-3, 2e-3),
+                  torch.float32: (1e-5, 1e-4)}[dtype]
+    torch.testing.assert_close(out.float(), plain, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,dtype", [DECODE_CASES[0], DECODE_CASES[5]])
+def test_decode_kernel_never_reads_past_pos(cuda, b, h, kv, s, d, dtype):
+    """NaN written past every slot's position changes no bit of the
+    result: those positions are never read."""
+    q, k, v, pos = _decode_inputs(cuda, b, h, kv, s, d, dtype, seed=3)
+    clean = ta.decode_attention(q, k, v, pos)
+    past = torch.arange(s, device=cuda) > pos[:, None]  # [B, S]
+    k[past[:, None, :, None].expand_as(k)] = float("nan")
+    v[past[:, None, :, None].expand_as(v)] = float("nan")
+    assert torch.equal(ta.decode_attention(q, k, v, pos), clean)
+
+
+def test_decode_kernel_makes_no_copy_of_the_cache(cuda):
+    """At the cell's shape (two 359 MB bf16 caches) the call allocates its
+    output and nothing else: an f32 copy of either cache would be 718 MB."""
+    q, k, v, pos = _decode_inputs(cuda, *DECODE_CASES[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = ta.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= out.numel() * out.element_size() + 512
+
+
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+def test_decode_step_on_card_launches_the_kernel_once_a_layer(cuda, family):
+    """Tiny GPT-2 and tiny Llama (GQA, g = 2) in f32: one ``decode_step``
+    on the card launches ``decode_attend`` once a layer, and its logits and
+    positions match the CPU's (the plain version) within 1e-4."""
+    from ray_tpu_torch.models import generate as gen
+    from ray_tpu_torch.models import gpt2, llama
+
+    mod = gpt2 if family == "gpt2" else llama
+    cfg = (gpt2.GPT2Config if family == "gpt2" else llama.LlamaConfig).tiny(dtype=torch.float32)
+    params = mod.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (3, 7)))
+    lengths = torch.tensor([7, 2, 5])
+    toks, active = torch.tensor([5, 6, 7]), torch.tensor([True, False, True])
+    got = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        cache = gen.init_cache(cfg, 3, 24, device=dev)
+        with torch.inference_mode():
+            gen.prefill(p, cfg, prompts.to(dev), lengths.to(dev), cache, 0)
+            before = _build.launches.get(ta.DECODE_KERNEL, 0)
+            logits, cache = gen.decode_step(p, cfg, cache, toks.to(dev), active.to(dev))
+        got[str(dev)] = (logits.cpu(), cache["pos"].cpu(),
+                         _build.launches.get(ta.DECODE_KERNEL, 0) - before)
+    assert got["cpu"][2] == 0 and got["cuda"][2] == cfg.n_layers
+    torch.testing.assert_close(got["cuda"][0], got["cpu"][0], atol=1e-4, rtol=0)
+    assert torch.equal(got["cuda"][1], got["cpu"][1])
+
+
+def test_decode_kernel_rejects_what_it_does_not_take(cuda):
+    before = dict(_build.launches)
+    for (b, h, kv, s, d, dtype), match in (
+            ((2, 4, 4, 16, 12, torch.bfloat16), "head dim 12"),
+            ((2, 4, 4, 16, 264, torch.float32), "head dim 264"),
+            ((2, 16, 1, 16, 64, torch.bfloat16), "1 to 8 query heads"),
+            ((2, 4, 4, 16, 64, torch.float64), "float32, bfloat16 or float16")):
+        q, k, v, pos = _decode_inputs(cuda, b, h, kv, s, d, dtype)
+        with pytest.raises(ValueError, match=match):
+            ta.decode_attention(q, k, v, pos)
+    q, k, v, pos = _decode_inputs(cuda, 2, 4, 4, 16, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="int64"):
+        ta.decode_attention(q, k, v, pos.int())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ta.decode_attention(q, k, v, pos.cpu())
+    padded = torch.zeros(2, 4, 16, 68, dtype=torch.bfloat16, device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        ta.decode_attention(q, padded, v, pos)
+    assert dict(_build.launches) == before
 
 
 def _to(tree, device):

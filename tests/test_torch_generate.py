@@ -158,3 +158,70 @@ def test_prefill_wider_than_cache_raises():
     cache = tgen.init_cache(tcfg, 1, 4, device="cpu")
     with pytest.raises(ValueError, match="cache length"):
         tgen.prefill(tp, tcfg, torch.ones(1, 6, dtype=torch.long), torch.tensor([6]), cache, 0)
+
+
+def _attend_inputs(h, kv, s, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+    return mk(3, h, 1, d), mk(3, kv, s, d), mk(3, kv, s, d), torch.tensor([0, s - 1, s // 2])
+
+
+# (query heads, KV heads, dtype): MHA, GQA g = 3 and 2, MQA g = 8
+ATTEND_CASES = [(4, 4, torch.float32), (6, 2, torch.float32), (4, 2, torch.bfloat16),
+                (8, 1, torch.float16), (4, 4, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("h,kv,dtype", ATTEND_CASES)
+def test_decode_attend_reads_the_cache_only_up_to_pos(h, kv, dtype):
+    """On CPU tensors ``decode_attention_reference`` is the plain version:
+    each slot's result is attention over ``cache[b, :, :pos+1]`` alone
+    (query head ``i`` on KV head ``i // (h // kv)``), and a tail of large
+    values past ``pos`` changes nothing."""
+    from ray_tpu_torch.ops import attention as ta
+
+    q, k, v, pos = _attend_inputs(h, kv, 9, 16, dtype, seed=7)
+    got = ta.decode_attention_reference(q, k, v, pos)
+    assert got.shape == (3, h, 1, 16) and got.dtype == torch.float32
+    past = (torch.arange(9) > pos[:, None])[:, None, :, None].expand_as(k)
+    big_k, big_v = k.masked_fill(past, 1e4), v.masked_fill(past, -1e4)
+    assert torch.equal(ta.decode_attention_reference(q, big_k, big_v, pos), got)
+    for b in range(3):
+        n = int(pos[b]) + 1
+        kb = k[b, :, :n].repeat_interleave(h // kv, dim=0).float()
+        vb = v[b, :, :n].repeat_interleave(h // kv, dim=0).float()
+        w = torch.softmax(q[b].float() @ kb.transpose(-1, -2) * 16 ** -0.5, dim=-1)
+        want = w.to(dtype).float() @ vb
+        torch.testing.assert_close(got[b], want, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("h,kv,dtype", ATTEND_CASES)
+def test_decode_attention_on_cpu_is_the_plain_version_rounded_once(h, kv, dtype):
+    """``decode_attention`` on CPU tensors: the plain version with the
+    heads merged and rounded once to the cache's dtype, no kernel
+    launched."""
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import attention as ta
+
+    q, k, v, pos = _attend_inputs(h, kv, 9, 16, dtype, seed=8)
+    before = _build.launches.get(ta.DECODE_KERNEL, 0)
+    got = ta.decode_attention(q, k, v, pos)
+    assert _build.launches.get(ta.DECODE_KERNEL, 0) == before
+    want = ta.decode_attention_reference(q, k, v, pos).transpose(1, 2).reshape(3, 1, h * 16)
+    assert got.dtype == dtype and torch.equal(got, want.to(dtype))
+
+
+@pytest.mark.parametrize("shape,match", [
+    (dict(q=(3, 4, 2, 16)), "q \\[B, H, 1, dh\\]"),
+    (dict(k=(2, 4, 9, 16)), "shapes disagree"),
+    (dict(k=(3, 3, 9, 16)), "shapes disagree"),
+    (dict(pos=(2,)), "shapes disagree"),
+])
+def test_decode_attention_rejects_shapes_that_disagree(shape, match):
+    """On any device: q one row a slot, caches of q's batch and head dim
+    whose KV heads divide q's heads, one position a slot."""
+    from ray_tpu_torch.ops import attention as ta
+
+    sizes = {"q": (3, 4, 1, 16), "k": (3, 4, 9, 16), "pos": (3,), **shape}
+    q, k = torch.zeros(sizes["q"]), torch.zeros(sizes["k"])
+    with pytest.raises(ValueError, match=match):
+        ta.decode_attention(q, k, k.clone(), torch.zeros(sizes["pos"], dtype=torch.long))
